@@ -1,0 +1,105 @@
+"""Serve the indexing plane over HTTP from the port, on the GPU by default.
+
+    python -m latice_tpu_torch.cli.serve --db latent_index.npz \\
+        --checkpoint vae-best.pt --engine fused &
+    curl -s localhost:8800/healthz
+
+``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
+converts with `models.flax_params_to_state_dict` and ``torch.save``);
+without one the weights are random, drawn from a fixed seed. Clients POST
+raw ``.npy`` bytes to ``/index`` and ``/encode``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+logger = logging.getLogger(__name__)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--db", required=True, help="dictionary npz (index.py build)")
+    p.add_argument("--checkpoint", default=None, help="reference-layout .pt state dict")
+    p.add_argument("--inplanes", type=int, default=32)
+    p.add_argument("--latent-dim", type=int, default=16)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--top-n", type=int, default=20)
+    p.add_argument("--threshold", type=float, default=3.0)
+    p.add_argument("--min-matches", type=int, default=18)
+    p.add_argument(
+        "--engine", default="exact", choices=("exact", "fused"),
+        help="candidate search: exact (matmul + sort) or fused (the CUDA "
+        "top-k kernel, scores never in device memory)",
+    )
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument(
+        "--host", default="127.0.0.1",
+        help="bind address; the plane has no authentication, so bind "
+        "non-loopback interfaces only on trusted networks (default: %(default)s)",
+    )
+    p.add_argument("--port", type=int, default=8800)
+    p.add_argument(
+        "--max-body-mb", type=int, default=1024,
+        help="reject request bodies larger than this with 413 (default: %(default)s MiB)",
+    )
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    import torch
+
+    from latice_tpu_torch.device import resolve_device
+    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData, load_checkpoint
+    from latice_tpu_torch.serve import IndexService, make_server
+
+    device = resolve_device(args.device)
+    if args.checkpoint:
+        model = load_checkpoint(args.checkpoint, args.inplanes, args.latent_dim, device=device)
+    else:
+        logger.warning("No checkpoint given; using random weights")
+        model = VariationalAutoEncoderRawData(args.inplanes, args.latent_dim)
+        model.init_weights(torch.Generator().manual_seed(0))
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim)
+    )
+    if db.get_count() == 0:
+        raise SystemExit(f"dictionary {args.db} is empty or missing: build it first")
+
+    service = IndexService(
+        model,
+        db,
+        top_n=args.top_n,
+        orientation_threshold=args.threshold,
+        min_required_matches=args.min_matches,
+        batch_size=args.batch_size,
+        max_body_bytes=args.max_body_mb << 20,
+        engine=args.engine,
+        device=device,
+    )
+    warm_s = service.warmup()
+    server = make_server(service, args.host, args.port)
+    print(
+        json.dumps(
+            {
+                "status": "serving",
+                "mode": "latent",
+                "addr": f"http://{args.host}:{server.server_address[1]}",
+                "count": db.get_count(),
+                "device": str(device),
+                "engine": args.engine,
+                "warmup_s": round(warm_s, 1),
+            }
+        ),
+        flush=True,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+
+
+if __name__ == "__main__":
+    main()

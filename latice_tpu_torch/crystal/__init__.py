@@ -1,0 +1,43 @@
+"""Orientation algebra and crystal symmetry in torch."""
+
+from latice_tpu_torch.crystal.quaternion import (
+    from_euler_zxz_deg,
+    matrix_to_euler_zxz_deg,
+    misorientation_angle,
+    quat_angle,
+    quat_canonical,
+    quat_inv,
+    quat_mean,
+    quat_mul,
+    quat_normalize,
+    quat_to_matrix,
+    to_euler_zxz_deg,
+)
+from latice_tpu_torch.crystal.symmetry import (
+    CUBIC_SYMMETRY,
+    QUAT_SYM_WXYZ,
+    ROTATION_GROUPS,
+    nearest_symmetry_equivalent,
+    stack_symmetry_tables,
+    symmetry_quats,
+)
+
+__all__ = [
+    "CUBIC_SYMMETRY",
+    "QUAT_SYM_WXYZ",
+    "ROTATION_GROUPS",
+    "from_euler_zxz_deg",
+    "matrix_to_euler_zxz_deg",
+    "misorientation_angle",
+    "nearest_symmetry_equivalent",
+    "quat_angle",
+    "quat_canonical",
+    "quat_inv",
+    "quat_mean",
+    "quat_mul",
+    "quat_normalize",
+    "quat_to_matrix",
+    "stack_symmetry_tables",
+    "symmetry_quats",
+    "to_euler_zxz_deg",
+]

@@ -1,0 +1,257 @@
+"""End-to-end indexer: patterns in, orientations out, on one device.
+
+The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
+device: uint8 ``/255``, the VAE encoder's ``mu``, the candidate search
+(`index.knn.cosine_topk` for ``engine="exact"``, the CUDA kernel
+`ops.cosine_topk_fused` for ``engine="fused"``), the symmetry-aware
+consensus and the Euler angles. One host-to-device copy of the patterns
+and one device-to-host copy of the results per batch; every batch of a
+call is enqueued before the first result is copied back.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables, to_euler_zxz_deg
+from latice_tpu_torch.data import padded_batches
+from latice_tpu_torch.device import resolve_device
+from latice_tpu_torch.index.consensus import consensus_orientations
+from latice_tpu_torch.index.knn import cosine_topk
+from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
+
+__all__ = ["IndexPipeline", "DenseIndexResult", "concat_dense_results"]
+
+
+class DenseIndexResult(NamedTuple):
+    """Bulk-indexing output as host numpy arrays."""
+
+    mean_orientation: np.ndarray  # (B, 3) zxz deg; NaN rows where not success
+    best_orientation: np.ndarray  # (B, 3) mean, or the top-1 candidate on failure
+    success: np.ndarray  # (B,) bool
+    n_similar: np.ndarray  # (B,) int
+    indices: np.ndarray  # (B, K) dictionary rows of the candidates
+    scores: np.ndarray  # (B, K) cosine similarities
+    phase: np.ndarray | None = None  # (B,) int phase id (multi-phase dictionaries)
+
+
+def concat_dense_results(results) -> DenseIndexResult:
+    """Concatenate per-slab `DenseIndexResult`s."""
+    results = list(results)
+    if not results:
+        raise ValueError("no results to concatenate")
+    if len(results) == 1:
+        return results[0]
+    fields = {
+        f: np.concatenate([getattr(r, f) for r in results])
+        for f in DenseIndexResult._fields
+        if f != "phase"
+    }
+    phase = None if results[0].phase is None else np.concatenate([r.phase for r in results])
+    return DenseIndexResult(**fields, phase=phase)
+
+
+def _later_slice(what: str) -> ValueError:
+    return ValueError(f"{what} is not ported to latice_tpu_torch yet; it waits for a later slice")
+
+
+class IndexPipeline:
+    """Indexer over a fixed dictionary, on one device.
+
+    Args:
+        model: the port's VAE (`models.VariationalAutoEncoderRawData`); it
+            is moved to ``device`` and put in eval mode.
+        dictionary_vectors: ``(N, D)`` L2-normalized latents.
+        dictionary_orientations: ``(N, 3)`` zxz Euler degrees.
+        top_n / orientation_threshold / min_required_matches /
+        max_iterations / angle_unit: consensus knobs (reference defaults
+            dp_indexer.py:47-48, faiss_db.py:262-264).
+        batch_size: rows per device batch; inputs are padded up to it.
+        dictionary_phases: optional ``(N,)`` int phase id per entry; then
+            only same-phase candidates count and results carry the phase.
+        phase_symmetries: point-group names per phase id (default cubic).
+        consensus_weight_power: optional p; in-threshold candidates are
+            weighted by ``(s / s_max) ** p`` in the mean.
+        engine: "exact" (matmul + stable sort) or "fused" (the CUDA kernel
+            on the card, its plain twin on the CPU).
+        device: where everything runs; ``cuda`` unless given, and a missing
+            CUDA device raises.
+
+    ``engine="approx"``/``"int8"``, ``search_dtype="bfloat16"``, ``mesh``,
+    ``preprocess`` and ``feature_fn`` raise ``ValueError`` until a later
+    slice of the port brings them.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        dictionary_vectors,
+        dictionary_orientations,
+        top_n: int = 20,
+        orientation_threshold: float = 3.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+        angle_unit: str = "deg",
+        batch_size: int = 256,
+        dictionary_phases=None,
+        phase_symmetries=None,
+        consensus_weight_power: float | None = None,
+        engine: str = "exact",
+        device: str | torch.device | None = None,
+        mesh=None,
+        preprocess=None,
+        feature_fn=None,
+        search_dtype: str = "float32",
+    ) -> None:
+        if engine in ("approx", "int8"):
+            raise _later_slice(f"engine={engine!r}")
+        if engine not in ("exact", "fused"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if search_dtype != "float32":
+            raise _later_slice(f"search_dtype={search_dtype!r}")
+        unported = dict(mesh=mesh, preprocess=preprocess, feature_fn=feature_fn)
+        for name, value in unported.items():
+            if value is not None:
+                raise _later_slice(name)
+        self.device = resolve_device(device)
+        self.engine = engine
+        self.batch_size = batch_size
+        self.model = model.to(self.device).eval()
+        self._dict = torch.as_tensor(
+            np.asarray(dictionary_vectors, np.float32), device=self.device
+        ).contiguous()
+        self._n = len(self._dict)
+        self._k = min(top_n, self._n)
+        self._threshold = orientation_threshold
+        self._min_matches = min_required_matches
+        self._max_iterations = min(max_iterations, self._k)
+        self._angle_unit = angle_unit
+        self._weight_power = consensus_weight_power
+
+        quats = from_euler_zxz_deg(
+            torch.as_tensor(np.asarray(dictionary_orientations, np.float32), device=self.device)
+        )
+        self._sym_tables = None
+        self.n_phases = None
+        if dictionary_phases is not None:
+            phases = np.asarray(dictionary_phases, np.int32)
+            if phases.shape != (self._n,):
+                raise ValueError(f"dictionary_phases must be ({self._n},), got {phases.shape}")
+            self.n_phases = int(phases.max()) + 1 if self._n else 1
+            if phase_symmetries is None:
+                phase_symmetries = ["432"] * self.n_phases
+            if len(phase_symmetries) < self.n_phases:
+                raise ValueError(
+                    f"{self.n_phases} phase ids but only "
+                    f"{len(phase_symmetries)} phase_symmetries entries"
+                )
+            self._sym_tables = stack_symmetry_tables(phase_symmetries, device=self.device)
+            # The phase id rides as a 5th column so one row gather fetches both.
+            phase_col = torch.as_tensor(phases, dtype=torch.float32, device=self.device)
+            quats = torch.cat([quats, phase_col[:, None]], dim=1)
+        self._quats = quats
+
+    def _encode(self, patterns: torch.Tensor) -> torch.Tensor:
+        """``mu`` of ``(B, H, W)`` uint8 or f32 device patterns."""
+        if patterns.dtype == torch.uint8:
+            patterns = patterns.float() / 255.0
+        return self.model.encode(patterns[:, None])[0]
+
+    def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        mu = self._encode(patterns)
+        k = self._k
+        if self.engine == "fused":
+            scores, indices = cosine_topk_fused(mu, self._dict, k)
+        else:
+            scores, indices = cosine_topk(mu, self._dict, k)
+        cand_rows = self._quats[indices]
+        cand_quats = cand_rows[..., :4]
+        cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)
+        cand_weights = None
+        if self._weight_power is not None:
+            # Normalize by the row max before powering: raw s**p flushes to
+            # zero in f32 for p=256 at s below ~0.71.
+            pos = torch.clamp(scores, min=0.0)
+            top = torch.clamp(pos.max(dim=-1, keepdim=True).values, min=1e-30)
+            cand_weights = (pos / top) ** self._weight_power
+        cons = consensus_orientations(
+            cand_quats,
+            self._threshold,
+            min_required_matches=self._min_matches,
+            max_iterations=self._max_iterations,
+            angle_unit=self._angle_unit,
+            cand_phases=cand_phases,
+            sym_tables=self._sym_tables,
+            cand_weights=cand_weights,
+        )
+        # Failure fallback: the top-1 candidate, in canonical scipy ranges.
+        top1_euler = to_euler_zxz_deg(cand_quats[:, 0])
+        best = torch.where(cons.success[:, None], cons.mean_euler, top1_euler)
+        out = (
+            cons.mean_euler,
+            best,
+            cons.success,
+            cons.similar_mask.sum(dim=1),
+            indices,
+            scores,
+        )
+        if cand_phases is not None:
+            out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
+        return out
+
+    def _batches(self, patterns: np.ndarray):
+        """``(n_real, device batch)`` pairs of a host stack."""
+        x = np.asarray(patterns)
+        if x.dtype != np.uint8:
+            x = x.astype(np.float32, copy=False)
+        if x.ndim == 4 and x.shape[-1] == 1:
+            x = x[..., 0]
+        if x.ndim != 3:
+            raise ValueError(f"expected (B, H, W) or (B, H, W, 1) patterns, got {x.shape}")
+        for n, chunk in padded_batches(x, self.batch_size):
+            host = torch.from_numpy(np.ascontiguousarray(chunk))
+            if self.device.type == "cuda":
+                # Pinned, so the copy is queued and the host moves on to
+                # enqueue the next batch.
+                host = host.pin_memory()
+            yield n, host.to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def encode(self, patterns: np.ndarray) -> np.ndarray:
+        """``(B, D)`` f32 latents of ``(B, H, W[, 1])`` patterns."""
+        pending = [(n, self._encode(chunk)) for n, chunk in self._batches(patterns)]
+        if not pending:
+            return np.zeros((0, self._dict.shape[1]), np.float32)
+        return np.concatenate([mu[:n].cpu().numpy() for n, mu in pending])
+
+    @torch.inference_mode()
+    def __call__(self, patterns: np.ndarray) -> DenseIndexResult:
+        """Index a stack of ``(B, H, W[, 1])`` uint8 or float patterns."""
+        pending = [(n, self._run(chunk)) for n, chunk in self._batches(patterns)]
+        if not pending:
+            k = self._k
+            return DenseIndexResult(
+                mean_orientation=np.zeros((0, 3), np.float64),
+                best_orientation=np.zeros((0, 3), np.float64),
+                success=np.zeros((0,), bool),
+                n_similar=np.zeros((0,), np.int64),
+                indices=np.zeros((0, k), np.int64),
+                scores=np.zeros((0, k), np.float64),
+                phase=None if self.n_phases is None else np.zeros((0,), np.int64),
+            )
+        outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
+        mean, best, success, n_sim, indices, scores, *extra = (
+            np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
+        )
+        return DenseIndexResult(
+            mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
+            best_orientation=best.astype(np.float64),
+            success=success.astype(bool),
+            n_similar=n_sim.astype(np.int64),
+            indices=indices.astype(np.int64),
+            scores=scores.astype(np.float64),
+            phase=extra[0].astype(np.int64) if extra else None,
+        )

@@ -1,0 +1,178 @@
+"""Convolutional VAE for EBSD patterns, in the reference's torch layout.
+
+The architecture is ``latice_tpu.models.vae.VariationalAutoEncoderRawData``
+(reference latice/model.py:83-150) written as ``nn.Module``s over NCHW
+tensors, with module indices that give the reference state-dict keys
+(``encoder.{i}.0.weight``, ``mu.0.weight``, ``decoder.{i}.0.weight``, ...),
+so a reference ``vae-best.pt`` loads straight in:
+
+* encoder: ``n_stages`` stages of [2x (Conv3x3 -> InstanceNorm ->
+  LeakyReLU(0.02)) -> MaxPool2], widths P, 2P, then 4P; block b of stage s
+  sits at index ``3s+b`` and its pool at ``3s+2``;
+* heads: Linear over the CHW-flattened bottleneck to ``latent_dim`` for mu
+  and logvar;
+* decoder: Linear to the bottleneck, then per stage nearest-2x upsample
+  (index ``3s``) and two ConvTranspose3x3 blocks (``3s+1``, ``3s+2``); the
+  last stage is the upsample, one block and the logit conv, no sigmoid.
+
+Each InstanceNorm + LeakyReLU is `ops.instance_norm_leaky_relu`: the CUDA
+kernel on the card, its plain torch twin on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from latice_tpu_torch.ops.fused_norm import instance_norm_leaky_relu
+
+__all__ = [
+    "InstanceNormLeakyReLU",
+    "ConvBlock",
+    "ConvTransposeBlock",
+    "Encoder",
+    "Decoder",
+    "VariationalAutoEncoderRawData",
+    "VAEOutput",
+]
+
+
+class InstanceNormLeakyReLU(nn.Module):
+    """InstanceNorm2d(affine=False, eps=1e-5) then LeakyReLU(0.02), through
+    the fused op."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm_leaky_relu(x.contiguous())[0]
+
+
+class ConvBlock(nn.Sequential):
+    """Conv3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02)."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__(nn.Conv2d(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU())
+
+
+class ConvTransposeBlock(nn.Sequential):
+    """ConvTranspose3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02)."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__(
+            nn.ConvTranspose2d(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU()
+        )
+
+
+def _encoder_widths(inplanes: int, n_stages: int) -> list[int]:
+    return [inplanes, 2 * inplanes] + [4 * inplanes] * (n_stages - 2)
+
+
+class Encoder(nn.Sequential):
+    """``n_stages`` conv-conv-pool stages, 1 channel in, 4P channels out."""
+
+    def __init__(self, inplanes: int = 32, n_stages: int = 5) -> None:
+        layers: list[nn.Module] = []
+        c_in = 1
+        for width in _encoder_widths(inplanes, n_stages):
+            layers += [ConvBlock(c_in, width), ConvBlock(width, width), nn.MaxPool2d(2, 2)]
+            c_in = width
+        super().__init__(*layers)
+
+
+class Decoder(nn.Sequential):
+    """Upsampling decoder, 4P channels in, one logit channel out."""
+
+    def __init__(self, inplanes: int = 32, n_stages: int = 5) -> None:
+        p = inplanes
+        stages = [(4 * p, 4 * p)] * (n_stages - 3) + [(4 * p, 2 * p), (2 * p, p)]
+        layers: list[nn.Module] = []
+        c_in = 4 * p
+        for c1, c2 in stages:
+            layers += [
+                nn.Upsample(scale_factor=2, mode="nearest"),
+                ConvTransposeBlock(c_in, c1),
+                ConvTransposeBlock(c1, c2),
+            ]
+            c_in = c2
+        layers += [
+            nn.Upsample(scale_factor=2, mode="nearest"),
+            ConvTransposeBlock(c_in, p),
+            nn.Conv2d(p, 1, 3, 1, 1),
+        ]
+        super().__init__(*layers)
+
+
+class VAEOutput(NamedTuple):
+    """``(z, x_hat, mu, std)``, the reference forward contract."""
+
+    z: torch.Tensor
+    x_hat: torch.Tensor
+    mu: torch.Tensor
+    std: torch.Tensor
+
+
+class VariationalAutoEncoderRawData(nn.Module):
+    """Convolutional VAE over raw EBSD patterns (NCHW, one channel).
+
+    ``bottleneck_hw`` is the spatial size after the encoder, the image size
+    over ``2 ** n_stages`` (4 for 128x128 patterns and 5 stages).
+    """
+
+    def __init__(
+        self,
+        inplanes: int = 32,
+        latent_dim: int = 16,
+        n_stages: int = 5,
+        bottleneck_hw: int = 4,
+    ) -> None:
+        super().__init__()
+        if n_stages < 3:
+            raise ValueError(f"n_stages must be at least 3, got {n_stages}")
+        self.inplanes = inplanes
+        self.latent_dim = latent_dim
+        self.n_stages = n_stages
+        self.bottleneck_hw = bottleneck_hw
+        flat = 4 * inplanes * bottleneck_hw * bottleneck_hw
+        self.encoder = Encoder(inplanes, n_stages)
+        self.mu = nn.Sequential(nn.Linear(flat, latent_dim))
+        self.logvar = nn.Sequential(nn.Linear(flat, latent_dim))
+        self.linear2 = nn.Sequential(nn.Linear(latent_dim, flat))
+        self.decoder = Decoder(inplanes, n_stages)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "VariationalAutoEncoderRawData":
+        """Redraw every weight and bias from ``generator``, uniform in
+        ``±1/sqrt(fan_in)`` (torch's default bounds for these layers)."""
+        for module in self.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
+                bound = fan_in**-0.5
+                for param in (module.weight, module.bias):
+                    rand = torch.rand(param.shape, generator=generator, dtype=param.dtype)
+                    param.copy_(rand * (2 * bound) - bound)
+        return self
+
+    def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(mu, logvar)`` of ``(B, 1, H, W)`` patterns, each ``(B, latent_dim)``."""
+        h = self.encoder(x).flatten(1)
+        return self.mu(h), self.logvar(h)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Reconstruction logits ``(B, 1, H, W)`` of ``(B, latent_dim)`` codes."""
+        hw = self.bottleneck_hw
+        h = self.linear2(z).view(z.shape[0], 4 * self.inplanes, hw, hw)
+        return self.decoder(h)
+
+    @staticmethod
+    def reparameterize(
+        mu: torch.Tensor, logvar: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """``z = mu + std * eps`` with ``eps`` drawn from ``generator``."""
+        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
+        return mu + torch.exp(logvar / 2.0) * eps
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> VAEOutput:
+        mu, logvar = self.encode(x)
+        std = torch.exp(logvar / 2.0)
+        z = self.reparameterize(mu, logvar, generator)
+        return VAEOutput(z, self.decode(z), mu, std)

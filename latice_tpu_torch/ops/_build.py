@@ -1,0 +1,108 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, compiled for Hopper (``sm_90a``) into ``ops/_build/`` (ignored by
+git) the first time it is used. The library's file name carries a hash of
+its source and flags, so an edited source is rebuilt and a stale library is
+never loaded. `build` compiles every stale source at once, one ``nvcc``
+process per source, all started together.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine need not have ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load"]
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+SOURCES = ("fused_norm", "topk_fused")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build() -> dict[str, float]:
+    """Compile every stale library of `SOURCES` in parallel.
+
+    Returns the seconds each compiled source took (0.0 when its library
+    was already built). Raises with the compiler's output on failure.
+    """
+    with _lock:
+        return _build_locked(SOURCES)
+
+
+def _build_locked(names: tuple[str, ...]) -> dict[str, float]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {name: 0.0 for name in names}
+    jobs = []
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, out, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {name}.cu:\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if stale."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _build_locked((name,))
+            lib = ctypes.CDLL(str(_library_path(name)))
+            lib.latice_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.latice_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if code != 0:
+        msg = lib.latice_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

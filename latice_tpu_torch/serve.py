@@ -1,0 +1,233 @@
+"""Indexing service: a persistent HTTP plane around `index.IndexPipeline`.
+
+The port of the ``/index`` and ``/encode`` planes of ``latice_tpu.serve``:
+
+* the pipeline is warmed at startup (one dummy batch per input dtype), which
+  also builds the CUDA kernels, so the first request pays for neither;
+* requests carry patterns as raw ``.npy`` bytes; uint8 stacks stay uint8
+  until the device divides them by 255;
+* all requests go through one lock: one device runs one batch at a time,
+  and the pipeline batches and pads internally.
+
+Endpoints:
+  GET  /healthz -> {"status": "ok", "count": N, "dimension": D, ...}
+  POST /index   -> body: .npy of (N, H, W[, 1]) patterns;
+                   reply: {"orientations": ..., "success": ..., "n": ...}
+  POST /encode  -> body: .npy patterns; reply: {"latents": ...}
+
+Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
+``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
+``max_body_bytes`` are refused with 413. Any other path answers 404.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from latice_tpu_torch.data import prepare_patterns
+from latice_tpu_torch.index import IndexPipeline
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["IndexService", "make_server"]
+
+
+class IndexService:
+    """Thread-safe indexing facade over a pipeline and its encoder.
+
+    Args:
+        model: the port's VAE with its weights.
+        db: a loaded `index.TorchLatentVectorDatabase`.
+        top_n / orientation_threshold / min_required_matches: consensus knobs.
+        batch_size: rows per device batch.
+        image_size: pattern height and width after the default transform.
+        max_body_bytes: bodies above this are refused with 413 (1 GiB).
+        engine: "exact" or "fused" (see `index.IndexPipeline`).
+        device: ``cuda`` unless given; a missing CUDA device raises.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        db,
+        top_n: int = 20,
+        orientation_threshold: float = 3.0,
+        min_required_matches: int = 18,
+        batch_size: int = 256,
+        image_size: tuple[int, int] = (128, 128),
+        max_body_bytes: int = 1 << 30,
+        engine: str = "exact",
+        device: str | torch.device | None = None,
+    ) -> None:
+        phase_kw = {}
+        if db._has_phases:
+            phase_kw = dict(
+                dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
+            )
+        self.pipeline = IndexPipeline(
+            model,
+            db._vectors,
+            db._orientations,
+            top_n=top_n,
+            orientation_threshold=orientation_threshold,
+            min_required_matches=min_required_matches,
+            batch_size=batch_size,
+            engine=engine,
+            device=device,
+            **phase_kw,
+        )
+        self.image_size = tuple(image_size)
+        self.max_body_bytes = int(max_body_bytes)
+        self._db = db
+        self._lock = threading.Lock()
+        self.started = time.time()
+        self.requests = 0
+        self.patterns_indexed = 0
+
+    def warmup(self) -> float:
+        """Run one dummy batch of each input dtype through the pipeline,
+        which builds the kernels on first use; returns seconds. ``/encode``
+        runs the same encoder."""
+        t0 = time.time()
+        h, w = self.image_size
+        with self._lock:
+            for dtype in (np.uint8, np.float32):
+                self.pipeline(np.zeros((1, h, w), dtype))
+        dt = time.time() - t0
+        logger.info(f"warmup ran the served paths in {dt:.1f}s")
+        return dt
+
+    def index(self, patterns: np.ndarray) -> dict:
+        """Index a pattern stack; returns a JSON-ready dict."""
+        x = prepare_patterns(patterns, self.image_size)
+        t0 = time.time()
+        with self._lock:
+            res = self.pipeline(x)
+            self.requests += 1
+            self.patterns_indexed += len(x)
+        mean_rows = [
+            row.tolist() if np.all(np.isfinite(row)) else [None] * len(row)
+            for row in np.atleast_2d(res.mean_orientation)
+        ]
+        out = {
+            "n": int(len(x)),
+            "orientations": np.nan_to_num(res.best_orientation).tolist(),
+            "mean_orientations": mean_rows,
+            "success": res.success.tolist(),
+            "n_similar": res.n_similar.tolist(),
+            "seconds": time.time() - t0,
+            # Which input path produced the result: uint8 (divided on the
+            # device) or float32.
+            "input_dtype": str(x.dtype),
+        }
+        if res.phase is not None:
+            out["phase"] = res.phase.tolist()
+        return out
+
+    def encode(self, patterns: np.ndarray) -> dict:
+        """Encode patterns to ``mu`` latents; returns a JSON-ready dict."""
+        x = prepare_patterns(patterns, self.image_size)
+        with self._lock:
+            lat = self.pipeline.encode(x)
+            self.requests += 1
+        return {"n": int(len(x)), "latents": lat.tolist()}
+
+    def health(self) -> dict:
+        return {
+            "status": "ok",
+            "mode": "latent",
+            "count": int(self._db.get_count()),
+            "dimension": int(self._db.dimension),
+            "platform": self.pipeline.device.type,
+            "engine": self.pipeline.engine,
+            "batch_size": int(self.pipeline.batch_size),
+            "multiphase": bool(self._db._has_phases),
+            "planes": ["index"],
+            "model_version": 0,
+            "uptime_s": time.time() - self.started,
+            "requests": self.requests,
+            "patterns_indexed": self.patterns_indexed,
+        }
+
+
+class _Handler(BaseHTTPRequestHandler):
+    service: IndexService  # set by make_server
+
+    def _reply(self, code: int, payload: dict) -> None:
+        # allow_nan=False: a NaN reaching a reply is a server bug, not
+        # something to send as invalid JSON.
+        body = json.dumps(payload, allow_nan=False).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):  # through logging, not stderr
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def do_GET(self) -> None:
+        if self.path == "/healthz":
+            self._reply(200, self.service.health())
+        else:
+            self._reply(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self) -> None:
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+        except (TypeError, ValueError):
+            self._reply(400, {"error": "bad Content-Length header"})
+            return
+        if length > self.service.max_body_bytes:
+            # Drain (bounded, in chunks) so a client that writes the whole
+            # body before reading sees the 413 instead of a broken pipe;
+            # past the cap, close the connection instead.
+            drain_cap = 64 << 20
+            remaining = min(length, drain_cap)
+            while remaining > 0:
+                chunk = self.rfile.read(min(1 << 20, remaining))
+                if not chunk:
+                    break
+                remaining -= len(chunk)
+            if length > drain_cap:
+                self.close_connection = True
+            self._reply(
+                413,
+                {
+                    "error": f"body of {length} bytes exceeds the "
+                    f"{self.service.max_body_bytes}-byte limit"
+                },
+            )
+            return
+        routes = {"/index": self.service.index, "/encode": self.service.encode}
+        if self.path not in routes:
+            self._reply(404, {"error": f"unknown path {self.path}"})
+            return
+        try:
+            patterns = np.load(io.BytesIO(self.rfile.read(length)), allow_pickle=False)
+        except Exception as e:  # a malformed body must not kill the server
+            self._reply(400, {"error": f"body must be .npy bytes: {e}"})
+            return
+        try:
+            self._reply(200, routes[self.path](patterns))
+        except ValueError as e:
+            self._reply(400, {"error": str(e)})
+        except Exception as e:
+            logger.exception("request failed")
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+
+def make_server(
+    service: IndexService, host: str = "127.0.0.1", port: int = 8800
+) -> ThreadingHTTPServer:
+    """Build the HTTP server (not yet serving: call ``serve_forever()``)."""
+    handler = type("BoundHandler", (_Handler,), {"service": service})
+    return ThreadingHTTPServer((host, port), handler)

@@ -1,0 +1,120 @@
+"""The port stands alone: no JAX imports, and no silent CPU fallback."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "latice_tpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _restore_global_rng():
+    """Leave torch's global RNG as this module found it. Building a module
+    draws from it, and tests in other files build torch models from it
+    unseeded, so their weights must not depend on which files ran first."""
+    with torch.random.fork_rng(devices=[]):
+        yield
+
+
+def _port_files():
+    return sorted((ROOT / "latice_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_files_exist():
+    files = _port_files()
+    assert len(files) > 15
+    assert all(f.exists() for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def _cuda_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for machines without one")
+
+
+def test_resolve_device_refuses_missing_cuda():
+    from latice_tpu_torch import resolve_device
+
+    _cuda_absent()
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+
+
+def test_entry_points_default_to_cuda():
+    from latice_tpu_torch import (
+        IndexPipeline,
+        IndexService,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+        VariationalAutoEncoderRawData,
+    )
+
+    _cuda_absent()
+    model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
+    vecs = np.eye(4, dtype=np.float32)
+    orients = np.zeros((4, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IndexPipeline(model, vecs, orients)
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path="/nonexistent/none.npz", dimension=4)
+    )
+    db.add_vectors(vecs, orients)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IndexService(model, db)
+
+
+def test_kernel_wrappers_never_run_plain_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises; the
+    meta device stands in for a CUDA tensor on a machine without one."""
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+
+    x = torch.empty((2, 3, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        instance_norm_leaky_relu(x)
+    q = torch.empty((2, 16), device="meta")
+    d = torch.empty((40, 16), device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cosine_topk_fused(q, d, 5)
+    assert instance_norm_leaky_relu.launches == 0
+    assert cosine_topk_fused.launches == 0
+
+
+def test_unported_options_raise():
+    from latice_tpu_torch import IndexPipeline, VariationalAutoEncoderRawData
+
+    model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
+    vecs, orients = np.eye(4, dtype=np.float32), np.zeros((4, 3))
+    for kw in (
+        dict(engine="approx"),
+        dict(engine="int8"),
+        dict(search_dtype="bfloat16"),
+        dict(mesh=object()),
+        dict(preprocess=lambda x: x),
+        dict(feature_fn=lambda x: x),
+    ):
+        with pytest.raises(ValueError, match="later slice"):
+            IndexPipeline(model, vecs, orients, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown engine"):
+        IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
