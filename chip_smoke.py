@@ -1,4 +1,5 @@
-"""Drive the port's serving path on one CUDA card and check every kernel.
+"""Drive the port's serving and training paths on one CUDA card and check
+every kernel.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,10 @@ exits nonzero without its last line:
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
 3. kernels: each kernel against its plain torch twin on the card at the
-   serving path's shapes, and timed (CUDA events) beside the plain version,
-   a library call and the card's bound.
+   shapes its paths give it (serving: B=256 encoder; training: B=64, the
+   19 InstanceNorm shapes of encoder and decoder, f32 and bf16), and timed
+   (CUDA events) beside the plain version, a library call and the card's
+   bound.
 4. serve: the full-width server (inplanes 32, latent 16, 5 stages, a
    100,000-entry dictionary, batch 256, fused engine) answers /healthz,
    /index and /encode over HTTP; the kernels' launch counters, zeroed just
@@ -18,6 +21,18 @@ exits nonzero without its last line:
    pipeline (the plain twins) built from the same files.
 6. profile: torch.profiler over one /index call of two batches; device
    time by kernel group and the device's idle share of the wall time.
+7. train: ``latice_tpu_torch.cli.train``'s path on the ``conf/`` tree at
+   its defaults (full width, batch 64, 16-mixed, AMSGrad) for 2 epochs over
+   704 seeded synthetic patterns; the counters, zeroed just before, must
+   show 19 forward and 19 backward InstanceNorm launches per train step and
+   19 forward, 0 backward per eval step; ``last.pt`` must load and encode
+   as the trained model does.
+8. train_parity: one f32 train step at full width on the card (kernels)
+   and on the CPU (plain twins) from the same weights and noise; each
+   gradient leaf of the card must be as close to a float64 reference as
+   the CPU's is, and the same step with a wrong norm backward must not.
+9. train_profile: torch.profiler over 3 steady train steps of the
+   trainer's own epoch loop.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -26,6 +41,7 @@ TF32 is off throughout, so every f32 product is full f32.
 
 from __future__ import annotations
 
+import csv
 import io
 import json
 import shutil
@@ -35,6 +51,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,7 +73,20 @@ ENCODER_SHAPES = [  # (C, H, W) after each encoder conv at 128x128 input; two of
     (4 * INPLANES, 16, 16),
     (4 * INPLANES, 8, 8),
 ]
+TRAIN_BATCH = 64
+DECODER_SHAPES = [  # (C, H, W) after each decoder transposed conv, in order
+    (4 * INPLANES, 8, 8), (4 * INPLANES, 8, 8),
+    (4 * INPLANES, 16, 16), (4 * INPLANES, 16, 16),
+    (4 * INPLANES, 32, 32), (2 * INPLANES, 32, 32),
+    (2 * INPLANES, 64, 64), (INPLANES, 64, 64),
+    (INPLANES, 128, 128),
+]
+TRAIN_SHAPES = [s for s in ENCODER_SHAPES for _ in range(2)] + DECODER_SHAPES  # the 19 norms
+TRAIN_PATTERNS = 704  # 634 training rows: 10 batches of 64, the last masked
 K2_ATOL = 1e-4  # reduction order differs from the plain twin's
+K2_BF16_ATOL = 1e-2  # bf16 outputs: 1e-2 plus one bf16 ulp of the value (K2_BF16_RTOL),
+K2_BF16_RTOL = 2.0**-7  # since kernel and twin may round an f32 value near a tie apart
+GRAD_RATIO, GRAD_FLOOR = 2.0, 1e-4  # train_parity's limit per leaf (see there)
 K1_ATOL = 1e-6  # FP32 FMA order differs from the plain matmul's
 NEAR_TIE = 1e-6
 
@@ -66,9 +96,39 @@ def emit(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls.
+
+    The stream first spins (``torch.cuda._sleep``) while the host enqueues
+    every call, so the launches run back to back and the events time the
+    device's work, not the host's launch rate. If the start event has
+    already completed when the last call is enqueued, the spin was too
+    short to cover the host, and the timing is taken again with a spin
+    twice as long.
+    """
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    spin = 40_000_000  # cycles: about 20 ms at 2 GHz
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        spin *= 2
+    raise AssertionError("the stream's spin never outlasted the host's enqueueing")
+
+
+def host_bound_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` called back to back from an idle
+    stream: the device's time or the host's launch time, whichever is
+    longer (how the main path sees a small kernel)."""
+    fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -145,6 +205,124 @@ def check_norm(gen: torch.Generator) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=totals["library_ms"],
         timed_as="the 10 encoder launches of one batch of 256",
     )
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float = 0.0) -> float:
+    """Max abs error of ``got`` against ``want``; raises past ``atol + rtol*|want|``
+    or on a non-finite value."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"max abs err {diff.max().item()} past atol {atol}, rtol {rtol}")
+    return diff.max().item()
+
+
+def _train_norm_inputs(gen: torch.Generator, shape, dtype):
+    """x and an output gradient g at a training shape, in ``dtype``."""
+    x = (torch.randn((TRAIN_BATCH, *shape), device="cuda", generator=gen) * 3 + 1).to(dtype)
+    g = torch.randn((TRAIN_BATCH, *shape), device="cuda", generator=gen).to(dtype)
+    return x, g
+
+
+def check_norm_train(gen: torch.Generator) -> tuple[dict, dict]:
+    """K2f at bf16 and K2b at f32 and bf16, at the 19 training shapes.
+
+    Times are per train step: the sum over the 19 shapes of one launch
+    each. K2b's library call is ATen's own backward of
+    ``leaky_relu(instance_norm(x))``, through a graph kept from one forward.
+    """
+    from latice_tpu_torch.ops import (
+        instance_norm_leaky_relu,
+        instance_norm_leaky_relu_backward,
+        instance_norm_leaky_relu_backward_plain,
+        instance_norm_leaky_relu_plain,
+    )
+
+    F = torch.nn.functional
+    names = ("ms", "plain_ms", "library_ms", "host_bound_ms", "bytes", "ops")
+    fwd = {"bf16": dict.fromkeys(names, 0.0)}
+    bwd = {"f32": dict.fromkeys(names, 0.0), "bf16": dict.fromkeys(names, 0.0)}
+    err = {"fwd_bf16": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0}
+    rows = []
+    for shape in TRAIN_SHAPES:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x, g = _train_norm_inputs(gen, shape, dtype)
+            size = x.element_size()
+            tol = (K2_ATOL, 0.0) if dtype == torch.float32 else (K2_BF16_ATOL, K2_BF16_RTOL)
+            y, mean, rstd = instance_norm_leaky_relu(x)
+            dx = instance_norm_leaky_relu_backward(x, mean, rstd, g)
+            pdx = instance_norm_leaky_relu_backward_plain(x, mean, rstd, g)
+            torch.cuda.synchronize()
+            try:
+                e_b = _within(dx, pdx, *tol)
+            except AssertionError as e:
+                raise AssertionError(f"K2b {tag} at {(TRAIN_BATCH, *shape)}: {e}") from None
+            err[f"bwd_{tag}"] = max(err[f"bwd_{tag}"], e_b)
+            row = dict(shape=[TRAIN_BATCH, *shape], dtype=tag, k2b_max_abs_err=e_b)
+
+            xl = x.detach().requires_grad_()
+            yl = F.leaky_relu(F.instance_norm(xl), 0.02)
+            times = dict(
+                ms=cuda_ms(lambda: instance_norm_leaky_relu_backward(x, mean, rstd, g)),
+                plain_ms=cuda_ms(lambda: instance_norm_leaky_relu_backward_plain(x, mean, rstd, g)),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(yl, xl, g, retain_graph=True)),
+                host_bound_ms=host_bound_ms(
+                    lambda: instance_norm_leaky_relu_backward(x, mean, rstd, g)),
+            )
+            n = float(x.numel())
+            b_bytes = 3.0 * size * n + 8.0 * TRAIN_BATCH * shape[0]  # x, g in; dx out; stats in
+            b_ops = 10.0 * n  # y, slope select, two sums, dx
+            for key in ("ms", "plain_ms", "library_ms", "host_bound_ms"):
+                bwd[tag][key] += times[key]
+            bwd[tag]["bytes"] += b_bytes
+            bwd[tag]["ops"] += b_ops
+            row.update(k2b=times, k2b_bound_ms=bound_ms(b_bytes, b_ops)[0])
+            del yl, xl
+
+            if dtype == torch.bfloat16:
+                py, pmean, prstd = instance_norm_leaky_relu_plain(x)
+                torch.cuda.synchronize()
+                try:
+                    e_f = max(_within(y, py, *tol), _within(mean, pmean, K2_ATOL),
+                              _within(rstd, prstd, K2_ATOL))
+                except AssertionError as e:
+                    raise AssertionError(f"K2f bf16 at {(TRAIN_BATCH, *shape)}: {e}") from None
+                err["fwd_bf16"] = max(err["fwd_bf16"], e_f)
+                f_times = dict(
+                    ms=cuda_ms(lambda: instance_norm_leaky_relu(x)),
+                    plain_ms=cuda_ms(lambda: instance_norm_leaky_relu_plain(x)),
+                    library_ms=cuda_ms(lambda: F.leaky_relu(F.instance_norm(x), 0.02)),
+                    host_bound_ms=host_bound_ms(lambda: instance_norm_leaky_relu(x)),
+                )
+                f_bytes = 2.0 * size * n + 8.0 * TRAIN_BATCH * shape[0]
+                for key in ("ms", "plain_ms", "library_ms", "host_bound_ms"):
+                    fwd["bf16"][key] += f_times[key]
+                fwd["bf16"]["bytes"] += f_bytes
+                fwd["bf16"]["ops"] += 7.0 * n
+                row.update(k2f=f_times, k2f_max_abs_err=e_f,
+                           k2f_bound_ms=bound_ms(f_bytes, 7.0 * n)[0])
+            rows.append(row)
+            del x, g, y, dx, pdx
+    emit("kernels", kernel="instance_norm_leaky_relu (train shapes)", per_shape=rows)
+
+    def totals(t: dict, max_err: float) -> dict:
+        b_ms, b_by = bound_ms(t["bytes"], t["ops"])
+        return dict(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
+                    host_bound_ms=t["host_bound_ms"])
+
+    k2f_bf16 = dict(totals(fwd["bf16"], err["fwd_bf16"]),
+                    timed_as="the 19 launches of one train step, B=64, bf16")
+    k2b = dict(
+        name="instance_norm_leaky_relu_backward", route="cuda",
+        source="latice_tpu_torch/ops/csrc/fused_norm.cu",
+        replaces="latice_tpu/ops/fused_norm.py:176",
+        **totals(bwd["bf16"], err["bwd_bf16"]),
+        timed_as="the 19 launches of one train step, B=64, bf16 (the 16-mixed path)",
+        f32=dict(totals(bwd["f32"], err["bwd_f32"]),
+                 timed_as="the 19 launches of one train step, B=64, f32"),
+    )
+    return k2f_bf16, k2b
 
 
 def _topk_case(q, d, k, n_valid=None) -> tuple[float, int, torch.Tensor]:
@@ -344,7 +522,8 @@ def phase_parity(service, ckpt: str, npz: str) -> None:
     from latice_tpu_torch.models import load_checkpoint
 
     db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT))
-    cpu = IndexPipeline(load_checkpoint(ckpt, INPLANES, LATENT), db._vectors, db._orientations,
+    cpu = IndexPipeline(load_checkpoint(ckpt, INPLANES, LATENT, device="cpu"),
+                        db._vectors, db._orientations,
                         top_n=TOP_N, batch_size=64, engine="fused", device="cpu")
     x = np.random.default_rng(1).integers(0, 256, (64, 128, 128), dtype=np.uint8)
     lat_gpu, lat_cpu = service.encode(x)["latents"], cpu.encode(x)
@@ -366,17 +545,38 @@ def phase_parity(service, ckpt: str, npz: str) -> None:
 
 
 def _kernel_group(name: str) -> str:
+    if "instance_norm_lrelu_bwd" in name:
+        return "instance_norm_leaky_relu_backward"
     if "instance_norm_lrelu" in name:
         return "instance_norm_leaky_relu"
     if "topk_partial" in name or "topk_merge" in name:
         return "cosine_topk_fused"
-    if any(s in name for s in ("xmma", "fft", "conv", "pointwise_mult_and_sum", "gemm")):
+    if any(s in name for s in ("xmma", "fft", "conv", "pointwise_mult_and_sum", "gemm",
+                               "cutlass", "fprop", "dgrad", "wgrad", "nchwToNhwc",
+                               "nhwcToNchw", "winograd")):
         return "convolution"
     if "max_pool" in name:
         return "max_pool"
-    if "Memcpy" in name:
+    if "upsample" in name:
+        return "upsample"
+    if "multi_tensor_apply" in name or "foreach" in name:
+        return "optimizer"
+    if "Memcpy" in name or "Memset" in name:
         return "copy"
     return "other"
+
+
+def _device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, calls) of every device activity in a trace."""
+    kernels = []
+    for evt in prof.key_averages():
+        dev_ms = getattr(evt, "self_device_time_total", 0) / 1e3
+        # Device work, not a host op, nor a labelled range (record_function
+        # and Optimizer.step ranges also appear on the device timeline).
+        if (dev_ms > 0 and evt.self_cpu_time_total == 0
+                and not evt.key.startswith(("train:", "Optimizer."))):
+            kernels.append((evt.key, dev_ms, evt.count))
+    return kernels
 
 
 def phase_profile(service) -> None:
@@ -391,11 +591,7 @@ def phase_profile(service) -> None:
         service.pipeline(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        dev_ms = getattr(evt, "self_device_time_total", 0) / 1e3
-        if dev_ms > 0 and evt.self_cpu_time_total == 0:  # device work, not a host op
-            kernels.append((evt.key, dev_ms, evt.count))
+    kernels = _device_kernels(prof)
     groups: dict[str, float] = {}
     for name, dev_ms, _ in kernels:
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + dev_ms
@@ -404,6 +600,287 @@ def phase_profile(service) -> None:
     emit("profile", patterns=len(x), wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1.0 - busy / wall_ms, device_ms=groups,
          top=[dict(kernel=n[:80], ms=t, calls=c) for n, t, c in top])
+
+
+def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
+    """``n`` seeded 128x128 float32 patterns in [0, 1]: three bright bands
+    (Kikuchi-like lines) each, over a smooth background."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:128, 0:128].astype(np.float32) / 127.0 - 0.5
+    background = 0.3 + 0.2 * (1.0 - 2.0 * (xx * xx + yy * yy))
+    out = np.empty((n, 128, 128), np.float32)
+    for start in range(0, n, 64):
+        m = min(64, n - start)
+        theta = rng.uniform(0, np.pi, (m, 3, 1, 1)).astype(np.float32)
+        offset = rng.uniform(-0.4, 0.4, (m, 3, 1, 1)).astype(np.float32)
+        width = rng.uniform(0.02, 0.06, (m, 3, 1, 1)).astype(np.float32)
+        d = xx * np.cos(theta) + yy * np.sin(theta) - offset
+        bands = np.exp(-((d / width) ** 2)).sum(axis=1)
+        out[start : start + m] = np.clip(background + 0.5 * bands, 0.0, 1.0)
+    return out
+
+
+def phase_train(workdir: str, smi: str) -> tuple[dict, torch.nn.Module]:
+    """Two epochs of ``cli.train``'s path at the conf defaults, on the card."""
+    from latice_tpu_torch.cli.train import train
+    from latice_tpu_torch.config import load_config
+    from latice_tpu_torch.models import load_checkpoint
+    from latice_tpu_torch.ops import instance_norm_leaky_relu, instance_norm_leaky_relu_backward
+
+    root = Path(workdir) / "train"
+    root.mkdir()
+    patterns = _synthetic_patterns(TRAIN_PATTERNS, seed=3)
+    np.save(root / "patterns.npy", patterns)
+    with open(root / "angles.txt", "w") as f:
+        f.write(f"zxz\n{TRAIN_PATTERNS}\n")
+        np.savetxt(f, np.random.default_rng(4).uniform(0, 360, (TRAIN_PATTERNS, 3)), fmt="%.4f")
+    overrides = [
+        f"data_module.path={root / 'patterns.npy'}",
+        f"data_module.rot_angles_path={root / 'angles.txt'}",
+        "trainer.max_epochs=2",
+        f"trainer.checkpoint_dir={root / 'checkpoints'}",
+        f"trainer.logger.save_dir={root / 'logs'}",
+        "trainer.log_every_n_steps=1",
+    ]
+    config = load_config(Path(__file__).resolve().parent / "conf", "train.yaml", overrides)
+    used = dict(precision=config["trainer"]["precision"],
+                batch_size=config["data_module"]["batch_size"],
+                inplanes=config["lightning_module"]["model"]["inplanes"],
+                latent_dim=config["lightning_module"]["model"]["latent_dim"],
+                kl_lambda=config["lightning_module"]["kl_lambda"],
+                optimizer=config["lightning_module"]["optimizer_partial"])
+    if (used["precision"], used["batch_size"], used["inplanes"], used["latent_dim"]) != (
+        "16-mixed", TRAIN_BATCH, INPLANES, LATENT
+    ):
+        raise AssertionError(f"conf defaults are not the full-width run: {used}")
+
+    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer, model = train(config, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+
+    n_train, n_val = trainer.steps_run["train"], trainer.steps_run["val"]
+    if (n_train, n_val) != (20, 4):
+        raise AssertionError(f"ran {n_train} train and {n_val} eval steps, want 20 and 4")
+    want = {"instance_norm_leaky_relu": 19 * (n_train + n_val),
+            "instance_norm_leaky_relu_backward": 19 * n_train}
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+
+    with open(root / "logs" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    step_losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
+    if len(step_losses) != n_train or not all(np.isfinite(step_losses)):
+        raise AssertionError(f"step losses {step_losses}")
+    if not step_losses[-1] < step_losses[0]:
+        raise AssertionError(f"loss did not fall: first {step_losses[0]}, last {step_losses[-1]}")
+    for epoch in trainer.history:
+        if not all(np.isfinite(v) for v in epoch.values()):
+            raise AssertionError(f"non-finite epoch metrics {epoch}")
+    kept = sorted(p.name for p in (root / "checkpoints").iterdir())
+
+    loaded = load_checkpoint(str(root / "checkpoints" / "last.pt"), INPLANES, LATENT, device="cuda")
+    model.set_precision("32").eval()
+    x = torch.from_numpy(patterns[:64, None]).cuda()
+    with torch.no_grad():
+        want_mu, got_mu = model.encode(x)[0], loaded.encode(x)[0]
+    ckpt_err = (want_mu - got_mu).abs().max().item()
+    if not ckpt_err <= 1e-6:
+        raise AssertionError(f"last.pt encodes {ckpt_err} away from the trained model")
+
+    last = trainer.history[-1]
+    n_rows = TRAIN_PATTERNS - int(TRAIN_PATTERNS * config["data_module"]["val_data_ratio"])
+    emit("train", config=used, wall_s=wall_s, train_steps=n_train, eval_steps=n_val,
+         launches=launches, launches_per_train_step=dict(
+             instance_norm_leaky_relu=19, instance_norm_leaky_relu_backward=19),
+         first_step_loss=step_losses[0], last_step_loss=step_losses[-1],
+         history=trainer.history, checkpoints=kept, checkpoint_encode_max_abs_err=ckpt_err,
+         epoch2_train_steps_per_s=(n_train // 2) / last["epoch_time_s"],
+         epoch2_patterns_per_s=n_rows / last["epoch_time_s"],
+         timed_as="epoch 2's wall clock, its 2 eval steps included", card=smi)
+    return launches, model
+
+
+_NORMED_BIAS = ("encoder.", "decoder.")
+
+
+def _before_norm_bias(name: str, model) -> bool:
+    """A conv bias that an InstanceNorm follows: its exact gradient is 0."""
+    from latice_tpu_torch.models import InstanceNormLeakyReLU
+
+    if not (name.startswith(_NORMED_BIAS) and name.endswith(".0.bias")):
+        return False
+    block = model.get_submodule(name[: -len(".0.bias")])
+    return isinstance(block[-1], InstanceNormLeakyReLU)
+
+
+def _backward_without_means(x, mean, rstd, g, negative_slope=0.02):
+    """A wrong norm backward, ``rstd * g_y`` with both mean terms dropped:
+    what the parity check must reject."""
+    y = (x.float() - mean[..., None, None]) * rstd[..., None, None]
+    g_y = torch.where(y >= 0, g.float(), negative_slope * g.float())
+    return (rstd[..., None, None] * g_y).to(x.dtype)
+
+
+def _aten_norm(self, x):
+    """ATen's own InstanceNorm + LeakyReLU, differentiated by autograd: the
+    gradient reference, independent of the port's fused op."""
+    F = torch.nn.functional
+    return F.leaky_relu(F.instance_norm(x, eps=1e-5), 0.02)
+
+
+def _grad_step(state: dict, dev: str, batch, patch=None, dtype=torch.float32):
+    """One train step on ``dev`` in ``dtype`` from ``state``, under the
+    context ``patch`` if given: (loss, {name: grad as f64 on the CPU})."""
+    import contextlib
+
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.train import VAELoss, make_optimizer, make_train_step
+
+    model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    model.load_state_dict(state)
+    model.to(dev, dtype)
+    x, mask, eps = (t.to(dev, dtype) for t in batch)
+    step = make_train_step(VAELoss(kl_lambda=5e-6))
+    with patch or contextlib.nullcontext():
+        m = step(model, make_optimizer(model.parameters()), x, mask, 0, eps)
+    return float(m["loss"]), {k: p.grad.detach().cpu().double()
+                              for k, p in model.named_parameters()}
+
+
+def phase_train_parity() -> None:
+    """One f32 train step at full width, card against CPU, same weights and eps.
+
+    At full width one f32 step's gradient is conditioned at about 1e-2 of
+    each leaf's scale: an f32 rounding moves a few activations across
+    LeakyReLU's kink or swaps a max-pool's argmax, and each such flip
+    reaches every leaf upstream. The CPU's f32 step is as far from an f64
+    step as the card's is. So each leaf of the card's gradient is held to
+    be as close to a float64 reference (ATen's InstanceNorm + LeakyReLU
+    under autograd, on the CPU) as the CPU's f32 gradient is:
+    ``card <= GRAD_RATIO * cpu + GRAD_FLOOR``, each the leaf's max abs
+    error over its largest reference |grad|. The same step on the card
+    with a wrong norm backward (the mean terms dropped) must break that.
+    """
+    from unittest import mock
+
+    from latice_tpu_torch.models import InstanceNormLeakyReLU, VariationalAutoEncoderRawData
+    from latice_tpu_torch.ops import fused_norm
+
+    n = 8
+    state = VariationalAutoEncoderRawData(INPLANES, LATENT).init_weights(
+        torch.Generator().manual_seed(5)
+    ).state_dict()
+    batch = (
+        torch.from_numpy(_synthetic_patterns(n, seed=6)[:, None]),
+        torch.ones(n),
+        torch.from_numpy(np.random.default_rng(7).normal(size=(n, LATENT)).astype(np.float32)),
+    )
+    l_cpu, g_cpu = _grad_step(state, "cpu", batch)
+    l_gpu, g_gpu = _grad_step(state, "cuda", batch)
+    _, g_wrong = _grad_step(state, "cuda", batch, mock.patch.object(
+        fused_norm, "instance_norm_leaky_relu_backward", _backward_without_means))
+    _, g_ref = _grad_step(state, "cpu", batch, mock.patch.object(
+        InstanceNormLeakyReLU, "forward", _aten_norm), dtype=torch.float64)
+    layout = VariationalAutoEncoderRawData(INPLANES, LATENT)  # names the before-norm biases
+    # Before-norm biases: roundoff around an exact 0; reported, not held.
+    held = [k for k in g_ref if not _before_norm_bias(k, layout)]
+
+    def rel(got: dict) -> dict[str, float]:
+        return {k: ((got[k] - g_ref[k]).abs().max() / g_ref[k].abs().max()).item() for k in held}
+
+    card, cpu, wrong = rel(g_gpu), rel(g_cpu), rel(g_wrong)
+    limit = {k: GRAD_RATIO * cpu[k] + GRAD_FLOOR for k in held}
+    share = {k: card[k] / limit[k] for k in held}  # of its limit, per leaf
+    wrong_share = {k: wrong[k] / limit[k] for k in held}
+    worst = max(share, key=share.get)
+    wrong_worst = max(wrong_share, key=wrong_share.get)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    dead = [k for k in g_gpu if k.startswith("encoder.") and k.endswith(".weight")
+            and not bool(g_gpu[k].abs().max() > 0)]
+    emit("train_parity", patterns=n, loss_cpu=l_cpu, loss_cuda=l_gpu, loss_rel_err=loss_rel,
+         grad_ratio=GRAD_RATIO, grad_floor=GRAD_FLOOR,
+         max_share_of_limit=share[worst], worst_leaf=worst,
+         wrong_k2b_max_share_of_limit=wrong_share[wrong_worst], wrong_k2b_worst_leaf=wrong_worst,
+         wrong_k2b_leaves_past_limit=sum(v > 1 for v in wrong_share.values()),
+         card_vs_cpu_grad_max_abs_err=max((g_gpu[k] - g_cpu[k]).abs().max().item()
+                                          for k in held),
+         before_norm_bias_grad_max_abs_err=max((g_gpu[k] - g_cpu[k]).abs().max().item()
+                                               for k in g_ref if k not in held),
+         leaves={k: dict(scale=g_ref[k].abs().max().item(), card=card[k], cpu=cpu[k],
+                         wrong_k2b=wrong[k]) for k in held},
+         encoder_weights_with_grad=sum(1 for k in g_gpu if k.startswith("encoder.")
+                                       and k.endswith(".weight")) - len(dead))
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"train step loss: card {l_gpu}, CPU {l_cpu}")
+    if not share[worst] <= 1.0:
+        raise AssertionError(f"gradient of {worst}: card {card[worst]} from f64, CPU {cpu[worst]}")
+    if not wrong_share[wrong_worst] > 1.0:
+        raise AssertionError("a norm backward without its mean terms passes the gradient check")
+    if dead:
+        raise AssertionError(f"encoder conv weights without a gradient on the card: {dead}")
+
+
+def _phase_of(evt) -> str:
+    """The labelled region (or the backward pass) a host event ran in."""
+    node = evt
+    while node.cpu_parent is not None:
+        node = node.cpu_parent
+    if node.name.startswith("autograd::engine"):
+        return "backward"
+    if node.name.startswith("train:"):
+        return node.name[len("train:"):]
+    return "unlabelled"
+
+
+def phase_train_profile(model) -> None:
+    """Where the device time of 3 steady train steps goes (B=64, 16-mixed):
+    the trainer's own epoch loop (prefetch, step, metric reads) over 3
+    batches, after 3 warm-up batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from latice_tpu_torch.train import Trainer, VAELoss, make_optimizer, make_train_step
+
+    model.set_precision("16-mixed")
+    trainer = Trainer(precision="16-mixed", device="cuda")
+    optimizer = make_optimizer(model.parameters())
+    train_step = make_train_step(VAELoss(kl_lambda=5e-6))
+    patterns = _synthetic_patterns(6 * TRAIN_BATCH, seed=8)[..., None]
+    batches = [(patterns[i : i + TRAIN_BATCH], None) for i in range(0, len(patterns), TRAIN_BATCH)]
+    trainer.train_epoch(model, optimizer, train_step, batches[:3], TRAIN_BATCH, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(model, optimizer, train_step, batches[3:], TRAIN_BATCH, 3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    by_name: dict[str, float] = {}
+    for name, dev_ms, _ in kernels:
+        by_name[_kernel_group(name)] = by_name.get(_kernel_group(name), 0.0) + dev_ms
+    by_part: dict[str, float] = {}
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", []):
+            group = _kernel_group(k.name)
+            part = _phase_of(evt)
+            if group == "convolution":
+                group = f"convolution ({part})"
+            elif group in ("other", "copy", "optimizer"):
+                group = f"{group} ({part})"
+            by_part[group] = by_part.get(group, 0.0) + k.duration / 1e3
+    busy = sum(by_name.values())
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    host_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    emit("train_profile", steps=3, batch=TRAIN_BATCH, wall_ms=wall_ms,
+         ms_per_step=wall_ms / 3, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+         device_ms_by_kernel=by_name, device_ms_by_part=by_part,
+         top=[dict(kernel=n[:100], ms=t, calls=c) for n, t, c in top],
+         host_top=[dict(op=e.key[:80], self_cpu_ms=e.self_cpu_time_total / 1e3, calls=e.count)
+                   for e in host_top])
 
 
 def main() -> int:
@@ -417,17 +894,29 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_norm(gen), check_topk(gen)]
+    k2f, k1 = check_norm(gen), check_topk(gen)
+    k2f["bf16_train"], k2b = check_norm_train(gen)
+    kernels = [k1, k2f, k2b]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        launches, per_batch, service, ckpt, npz = phase_serve(workdir)
+        serve_launches, per_batch, service, ckpt, npz = phase_serve(workdir)
         phase_parity(service, ckpt, npz)
         phase_profile(service)
+        del service
+        torch.cuda.empty_cache()
+        train_launches, model = phase_train(workdir, smi)
+    phase_train_parity()
+    phase_train_profile(model)
+    # Each path's counts were zeroed just before it ran and read just after.
+    paths = {"serve": serve_launches, "train": train_launches}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_batch"] = per_batch[k["name"]]
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was never launched on the main path")
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] in per_batch:
+            k["launches_per_serve_batch"] = per_batch[k["name"]]
+        for path, count in k["launches_by_path"].items():
+            if count < 1:
+                raise AssertionError(f"{k['name']} was never launched on the {path} path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

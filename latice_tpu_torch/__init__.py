@@ -2,7 +2,8 @@
 
 EBSD pattern indexing with a convolutional VAE's latent dictionary: encode
 patterns, search the dictionary by exact cosine top-k, and reach a
-crystal-symmetry-aware consensus orientation. The JAX package
+crystal-symmetry-aware consensus orientation; and training of that VAE
+(`train`, ``python -m latice_tpu_torch.cli.train``). The JAX package
 ``latice_tpu`` is the reference this port is held against; this package
 imports torch, numpy and the standard library, never JAX.
 

@@ -1,6 +1,13 @@
-"""Host-side pattern preparation and batching."""
+"""Host-side pattern preparation, the training data module and prefetch."""
 
-from latice_tpu_torch.data.datamodule import padded_batches
+from latice_tpu_torch.data.datamodule import (
+    DPDataModule,
+    batch_iterator,
+    pad_batch,
+    padded_batches,
+)
+from latice_tpu_torch.data.dataset import DPdataset, parse_angle_file
+from latice_tpu_torch.data.prefetch import prefetch_host, prefetch_to_device
 from latice_tpu_torch.data.transforms import (
     center_crop,
     default_transform,
@@ -9,9 +16,16 @@ from latice_tpu_torch.data.transforms import (
 )
 
 __all__ = [
+    "DPDataModule",
+    "DPdataset",
+    "batch_iterator",
     "center_crop",
     "default_transform",
+    "pad_batch",
     "padded_batches",
+    "parse_angle_file",
+    "prefetch_host",
+    "prefetch_to_device",
     "prepare_patterns",
     "to_grayscale",
 ]

@@ -22,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.models.vae import VariationalAutoEncoderRawData
 
 __all__ = ["flax_params_to_state_dict", "load_checkpoint"]
@@ -100,13 +101,16 @@ def load_checkpoint(
     latent_dim: int = 16,
     n_stages: int = 5,
     bottleneck_hw: int = 4,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> VariationalAutoEncoderRawData:
-    """The port's VAE with the weights of a reference-layout ``.pt``.
+    """The port's VAE with the weights of a reference-layout ``.pt``, on
+    ``device``: ``cuda`` unless the caller asks for another.
 
-    Accepts a bare state dict or a Lightning checkpoint (``state_dict`` key,
+    Accepts a bare state dict (the trainer's ``last.pt`` and
+    ``epoch_<N>.pt``) or a Lightning checkpoint (``state_dict`` key,
     ``model.`` prefixes stripped).
     """
+    device = resolve_device(device)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     if sd and all(k.startswith("model.") for k in sd):

@@ -15,18 +15,25 @@ so a reference ``vae-best.pt`` loads straight in:
   (index ``3s``) and two ConvTranspose3x3 blocks (``3s+1``, ``3s+2``); the
   last stage is the upsample, one block and the logit conv, no sigmoid.
 
-Each InstanceNorm + LeakyReLU is `ops.instance_norm_leaky_relu`: the CUDA
-kernel on the card, its plain torch twin on the CPU.
+Each InstanceNorm + LeakyReLU is `ops.InstanceNormLeakyReLUFunction`: the
+fused CUDA kernels forward and backward on the card, their plain torch
+twins on the CPU.
+
+Precision follows ``latice_tpu.train.module.VAEModule.with_precision``:
+``"32"`` computes in float32; ``"16-mixed"`` runs the encoder and decoder
+under bfloat16 autocast with float32 parameters, and ``mu`` and ``logvar``
+come out in float32, as the JAX model casts them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
-from latice_tpu_torch.ops.fused_norm import instance_norm_leaky_relu
+from latice_tpu_torch.ops.fused_norm import InstanceNormLeakyReLUFunction
 
 __all__ = [
     "InstanceNormLeakyReLU",
@@ -36,15 +43,27 @@ __all__ = [
     "Decoder",
     "VariationalAutoEncoderRawData",
     "VAEOutput",
+    "compute_dtype",
 ]
+
+
+def compute_dtype(precision: str | int) -> torch.dtype:
+    """The compute dtype of a precision name, as ``VAEModule.with_precision``
+    reads it: ``"16-mixed"``, ``"bf16-mixed"`` and ``"bf16"`` are bfloat16;
+    ``"32"``, ``"32-true"``, ``"fp32"`` and ``32`` are float32."""
+    if precision in ("16-mixed", "bf16-mixed", "bf16"):
+        return torch.bfloat16
+    if precision in ("32", "32-true", "fp32", 32):
+        return torch.float32
+    raise ValueError(f"Unknown precision {precision!r}")
 
 
 class InstanceNormLeakyReLU(nn.Module):
     """InstanceNorm2d(affine=False, eps=1e-5) then LeakyReLU(0.02), through
-    the fused op."""
+    the fused op and its fused backward."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm_leaky_relu(x.contiguous())[0]
+        return InstanceNormLeakyReLUFunction.apply(x.contiguous(), 1e-5, 0.02)
 
 
 class ConvBlock(nn.Sequential):
@@ -132,6 +151,7 @@ class VariationalAutoEncoderRawData(nn.Module):
         self.latent_dim = latent_dim
         self.n_stages = n_stages
         self.bottleneck_hw = bottleneck_hw
+        self.compute_dtype = torch.float32  # see set_precision
         flat = 4 * inplanes * bottleneck_hw * bottleneck_hw
         self.encoder = Encoder(inplanes, n_stages)
         self.mu = nn.Sequential(nn.Linear(flat, latent_dim))
@@ -152,27 +172,54 @@ class VariationalAutoEncoderRawData(nn.Module):
                     param.copy_(rand * (2 * bound) - bound)
         return self
 
+    def set_precision(self, precision: str | int) -> "VariationalAutoEncoderRawData":
+        """Compute in ``precision`` from now on (see `compute_dtype`); the
+        parameters stay float32."""
+        self.compute_dtype = compute_dtype(precision)
+        return self
+
+    def _autocast(self, x: torch.Tensor):
+        if self.compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(x.device.type, dtype=self.compute_dtype)
+
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(mu, logvar)`` of ``(B, 1, H, W)`` patterns, each ``(B, latent_dim)``."""
-        h = self.encoder(x).flatten(1)
-        return self.mu(h), self.logvar(h)
+        """``(mu, logvar)`` of ``(B, 1, H, W)`` patterns, each ``(B,
+        latent_dim)`` float32."""
+        with self._autocast(x):
+            h = self.encoder(x).flatten(1)
+            mu, logvar = self.mu(h), self.logvar(h)
+        return mu.float(), logvar.float()
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Reconstruction logits ``(B, 1, H, W)`` of ``(B, latent_dim)`` codes."""
+        """Reconstruction logits ``(B, 1, H, W)`` of ``(B, latent_dim)``
+        codes, in the compute dtype."""
         hw = self.bottleneck_hw
-        h = self.linear2(z).view(z.shape[0], 4 * self.inplanes, hw, hw)
-        return self.decoder(h)
+        with self._autocast(z):
+            h = self.linear2(z).view(z.shape[0], 4 * self.inplanes, hw, hw)
+            return self.decoder(h)
 
     @staticmethod
     def reparameterize(
-        mu: torch.Tensor, logvar: torch.Tensor, generator: torch.Generator | None = None
+        mu: torch.Tensor,
+        logvar: torch.Tensor,
+        generator: torch.Generator | None = None,
+        eps: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """``z = mu + std * eps`` with ``eps`` drawn from ``generator``."""
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
+        """``z = mu + std * eps`` with ``eps`` drawn from ``generator``
+        unless the caller gives it (the seam that feeds another framework's
+        noise in, for parity)."""
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
         return mu + torch.exp(logvar / 2.0) * eps
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> VAEOutput:
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: torch.Generator | None = None,
+        eps: torch.Tensor | None = None,
+    ) -> VAEOutput:
         mu, logvar = self.encode(x)
         std = torch.exp(logvar / 2.0)
-        z = self.reparameterize(mu, logvar, generator)
+        z = self.reparameterize(mu, logvar, generator, eps)
         return VAEOutput(z, self.decode(z), mu, std)

@@ -1,0 +1,136 @@
+"""Train and eval steps: the port of ``latice_tpu.train.steps``.
+
+The JAX package compiles each step into one XLA program. Here a step is an
+eager PyTorch function: forward (the fused InstanceNorm + LeakyReLU kernels
+on the card), loss, ``backward()`` (the fused backward kernel) and the
+optimizer update.
+
+Noise is keyed, not streamed: the reparameterization noise of train step
+``s`` comes from a ``torch.Generator`` on the batch's device seeded from
+``(seed, s)``, the counterpart of ``fold_in(rng, step)`` in the JAX step.
+A resumed run therefore replays the noise of an uninterrupted one. Eval
+noise is keyed by an integer the caller derives per (epoch, batch).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from latice_tpu_torch.train.loss import VAELoss
+
+__all__ = ["make_train_step", "make_eval_step", "keyed_generator"]
+
+Metrics = dict[str, torch.Tensor]
+
+_TRAIN_STREAM = 1
+_EVAL_STREAM = 2
+
+
+def keyed_generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integer tuple ``key``,
+    through numpy's ``SeedSequence``: the same key gives the same stream on
+    every run and machine, and distinct keys give independent streams."""
+    words = np.random.SeedSequence([int(k) for k in key]).generate_state(2, np.uint32)
+    seed = (int(words[0]) << 31) ^ int(words[1])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _metrics(losses: dict[str, torch.Tensor]) -> Metrics:
+    return {k: losses[k].detach() for k in ("loss", "kl_loss", "recon_loss")}
+
+
+def make_train_step(
+    loss_fn: VAELoss,
+    skip_nonfinite_updates: bool = False,
+    augment: Callable | None = None,
+    denoising: bool = False,
+    seed: int = 0,
+) -> Callable[..., Metrics]:
+    """Build the training step.
+
+    The returned function maps ``(model, optimizer, batch, mask=None,
+    step=0, eps=None) -> metrics``: ``batch`` is ``(B, 1, H, W)`` patterns
+    on the model's device and ``mask`` an optional ``(B,)`` 0/1 row weight,
+    so rows padded to the static batch add zero loss and zero gradient. It
+    updates the model's parameters and the optimizer's state in place.
+    ``eps`` replaces the keyed noise ``(B, latent_dim)`` when given.
+
+    Metric keys are ``loss``, ``kl_loss`` and ``recon_loss`` (0-d tensors).
+    With ``skip_nonfinite_updates``, a step whose loss or gradients are not
+    finite leaves the parameters and the optimizer state untouched and
+    reports ``skipped`` = 1.
+
+    ``augment`` and ``denoising`` raise until ``data/augment.py`` is ported.
+    """
+    if augment is not None or denoising:
+        raise ValueError(
+            "augment/denoising: the training augmentation (data/augment.py) "
+            "comes with a later slice of the port"
+        )
+
+    def train_step(
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        batch: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        step: int = 0,
+        eps: torch.Tensor | None = None,
+    ) -> Metrics:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        gen = None if eps is not None else keyed_generator(batch.device, seed, _TRAIN_STREAM, step)
+        # The labels name the parts of a step in a torch.profiler trace;
+        # backward's work is under the autograd engine's own events.
+        with record_function("train:forward"):
+            out = model(batch, generator=gen, eps=eps)
+        with record_function("train:loss"):
+            losses = loss_fn(*out, batch, mask)
+        losses["loss"].backward()
+        metrics = _metrics(losses)
+        with record_function("train:optimizer"):
+            if skip_nonfinite_updates:
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+                ok = bool(finite & torch.isfinite(losses["loss"]))
+                if ok:
+                    optimizer.step()
+                metrics["skipped"] = torch.tensor(0.0 if ok else 1.0)
+            else:
+                optimizer.step()
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(
+    loss_fn: VAELoss, return_recon: bool = False, seed: int = 0
+) -> Callable[..., Metrics | tuple[Metrics, torch.Tensor]]:
+    """Build the validation step.
+
+    Maps ``(model, batch, mask=None, key=0, eps=None) -> metrics``, plus
+    ``x_hat`` when ``return_recon`` (the reconstruction-figure input).
+    ``key`` seeds the noise with ``seed``; the trainer passes one per
+    (epoch, batch). Runs without autograd.
+    """
+
+    @torch.no_grad()
+    def eval_step(
+        model: torch.nn.Module,
+        batch: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        key: int = 0,
+        eps: torch.Tensor | None = None,
+    ):
+        model.eval()
+        gen = None if eps is not None else keyed_generator(batch.device, seed, _EVAL_STREAM, key)
+        z, x_hat, mu, std = model(batch, generator=gen, eps=eps)
+        metrics = _metrics(loss_fn(z, x_hat, mu, std, batch, mask))
+        if return_recon:
+            return metrics, x_hat
+        return metrics
+
+    return eval_step

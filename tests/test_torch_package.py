@@ -84,20 +84,36 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         IndexService(model, db)
 
+    from latice_tpu_torch import load_checkpoint
+    from latice_tpu_torch.train import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_checkpoint("/nonexistent/vae.pt")
+
 
 def test_kernel_wrappers_never_run_plain_off_the_cpu():
     """A tensor that is not on the CPU goes to the kernel or raises; the
     meta device stands in for a CUDA tensor on a machine without one."""
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+        instance_norm_leaky_relu_backward,
+    )
 
     x = torch.empty((2, 3, 8, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         instance_norm_leaky_relu(x)
+    stats = torch.empty((2, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        instance_norm_leaky_relu_backward(x, stats, stats, torch.empty_like(x))
     q = torch.empty((2, 16), device="meta")
     d = torch.empty((40, 16), device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         cosine_topk_fused(q, d, 5)
     assert instance_norm_leaky_relu.launches == 0
+    assert instance_norm_leaky_relu_backward.launches == 0
     assert cosine_topk_fused.launches == 0
 
 
