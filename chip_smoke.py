@@ -4,13 +4,15 @@ every kernel.
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and the script
-exits nonzero without its last line:
+exits nonzero without its last line (phases 10 and 11 run between 6 and
+7, on the serve phase's files):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
 3. kernels: each kernel against its plain torch twin on the card at the
    shapes its paths give it (serving: B=256 encoder; training: B=64, the
-   19 InstanceNorm shapes of encoder and decoder, f32 and bf16), and timed
+   19 InstanceNorm shapes of encoder and decoder, f32 and bf16; K3 at
+   B=256, C=32, 128x128 and at B=3, 64x64), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
 4. serve: the full-width server (inplanes 32, latent 16, 5 stages, a
@@ -33,6 +35,20 @@ exits nonzero without its last line:
    the CPU's is, and the same step with a wrong norm backward must not.
 9. train_profile: torch.profiler over 3 steady train steps of the
    trainer's own epoch loop.
+10. stage0_path: an ``IndexPipeline`` with no model and a ``feature_fn``
+    that runs the encoder's stage 0 through K3 (``fused_stage0_apply``)
+    and the rest of the encoder and the mu head under bf16 autocast, over
+    the serve phase's dictionary (fused engine, 512 patterns); the
+    counters, zeroed just before, must show 1 K3, 8 InstanceNorm and 1
+    top-k launch per batch, and each latent must be no farther from the
+    f32 model's than twice the 16-mixed model's own distance.
+11. index_cli: ``latice_tpu_torch.cli.index`` ``build``, ``export`` and
+    ``query --engine fused --ang --ctf --ambiguity`` in this process at
+    full width with the serve phase's checkpoint, over 16,384 seeded
+    synthetic uint8 patterns (the query takes the first 4,096); the
+    counters must show 10 InstanceNorm launches per encode batch and 1
+    top-k launch per query batch, every query's top-1 must be its own
+    dictionary row, and the ``.ang`` file must read back.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -56,10 +72,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
-# FP32 outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth,
+# FP32 outside the tensor cores and dense bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 BATCH = 256
 DICT_ROWS = 100_000
@@ -89,6 +106,8 @@ K2_BF16_RTOL = 2.0**-7  # since kernel and twin may round an f32 value near a ti
 GRAD_RATIO, GRAD_FLOOR = 2.0, 1e-4  # train_parity's limit per leaf (see there)
 K1_ATOL = 1e-6  # FP32 FMA order differs from the plain matmul's
 NEAR_TIE = 1e-6
+STAGE0_PATTERNS = 512  # stage0_path: two batches
+CLI_DICT, CLI_QUERY = 16_384, 4_096  # index_cli: dictionary and query patterns
 
 
 def emit(phase: str, **fields) -> None:
@@ -139,8 +158,8 @@ def host_bound_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -416,6 +435,83 @@ def check_topk(gen: torch.Generator) -> dict:
     )
 
 
+def check_stage0(gen: torch.Generator) -> dict:
+    """K3 against its twin at the serving shape (B=256, C=32, 128x128) and at
+    an odd batch and size (B=3, 64x64: partial tiles of 16x16), uint8/255
+    inputs; then timed beside the twin and ATen's bf16 composition.
+
+    Both outputs are bf16 and round f32 values that may sit on either side
+    of a tie, hence K2's bf16 rule. The bound counts the convolutions'
+    operations at the bf16 tensor-core peak against x read once and the
+    pooled output written once; ``design_byte_floor_ms`` is this design's
+    own floor, the f32 conv2 output written and read back once.
+    """
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.ops import stage0_fused, stage0_fused_reference
+
+    F = torch.nn.functional
+    # The full-width encoder's stage 0, from the serve phase's weight seed.
+    enc = VariationalAutoEncoderRawData(INPLANES, LATENT).init_weights(
+        torch.Generator().manual_seed(0)
+    ).encoder
+    w1, b1, w2, b2 = (t.detach().cuda() for t in (enc[0][0].weight, enc[0][0].bias,
+                                                   enc[1][0].weight, enc[1][0].bias))
+    cases, inputs = {}, {}
+    for tag, (b, h, w) in {"b256_128x128": (BATCH, 128, 128), "b3_64x64": (3, 64, 64)}.items():
+        x = torch.randint(0, 256, (b, 1, h, w), device="cuda", generator=gen).float() / 255.0
+        got = stage0_fused(x, w1, b1, w2, b2)
+        again = stage0_fused(x, w1, b1, w2, b2)
+        want = stage0_fused_reference(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        try:
+            err = _within(got, want, K2_BF16_ATOL, K2_BF16_RTOL)
+        except AssertionError as e:
+            raise AssertionError(f"K3 at {tag}: {e}") from None
+        if got.shape != (b, INPLANES, h // 2, w // 2) or not torch.equal(got, again):
+            raise AssertionError(f"K3 at {tag}: shape {tuple(got.shape)} or runs not bitwise equal")
+        cases[tag] = dict(max_abs_err=err, share_differing=(got != want).float().mean().item())
+        inputs[tag] = x
+    x = inputs["b256_128x128"]
+    bf = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+
+    def aten():
+        h1 = F.leaky_relu(F.instance_norm(F.conv2d(x.to(torch.bfloat16), bf[0], bf[1], padding=1)),
+                          0.02)
+        h2 = F.leaky_relu(F.instance_norm(F.conv2d(h1, bf[2], bf[3], padding=1)), 0.02)
+        return F.max_pool2d(h2, 2)
+
+    times = dict(
+        ms=cuda_ms(lambda: stage0_fused(x, w1, b1, w2, b2)),
+        plain_ms=cuda_ms(lambda: stage0_fused_reference(x, w1, b1, w2, b2)),
+        library_ms=cuda_ms(aten),
+    )
+    # Device ms of each of the three launches, from a trace of 5 calls.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            stage0_fused(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+    passes = ("stage0_conv1_stats", "stage0_conv2", "stage0_finish")
+    split = {p: sum(t for n, t, _ in _device_kernels(prof) if p + "<" in n or p + "(" in n) / 5
+             for p in passes}
+    pixels = float(x.numel())
+    n_ops = pixels * (2 * 9 * INPLANES * INPLANES + 2 * 9 * INPLANES)
+    n_bytes = 4.0 * pixels + 2.0 * INPLANES * pixels / 4
+    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
+    floor_ms = 8.0 * INPLANES * pixels / PEAK_BYTES_PER_S * 1e3
+    emit("kernels", kernel="stage0_fused", cases=cases, shape=dict(B=BATCH, C=INPLANES, H=128,
+         W=128), gflop=n_ops / 1e9, design_byte_floor_ms=floor_ms, device_ms_by_pass=split,
+         **times)
+    return dict(
+        name="stage0_fused", route="cuda", source="latice_tpu_torch/ops/csrc/stage0_fused.cu",
+        replaces="latice_tpu/ops/stage0_fused.py:214",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        bound_ms=b_ms, bound_by=b_by, design_byte_floor_ms=floor_ms, **times,
+        timed_as="B=256, C=32, 128x128, uint8/255 input; three launches per call",
+    )
+
+
 def _npy(arr: np.ndarray) -> bytes:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -600,6 +696,180 @@ def phase_profile(service) -> None:
     emit("profile", patterns=len(x), wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1.0 - busy / wall_ms, device_ms=groups,
          top=[dict(kernel=n[:80], ms=t, calls=c) for n, t, c in top])
+
+
+def _rel_dist(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per-row relative L2 distance of ``got`` from ``want``."""
+    return (got - want).norm(dim=1) / want.norm(dim=1)
+
+
+def phase_stage0_path(ckpt: str, npz: str) -> dict:
+    """K3 on a path: the pipeline's ``feature_fn`` hook over the serve
+    phase's checkpoint and dictionary."""
+    from latice_tpu_torch.index import (
+        IndexPipeline,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+    )
+    from latice_tpu_torch.models import load_checkpoint
+    from latice_tpu_torch.ops import (
+        cosine_topk_fused,
+        fused_stage0_apply,
+        instance_norm_leaky_relu,
+        stage0_fused,
+    )
+
+    model = load_checkpoint(ckpt, INPLANES, LATENT, device="cuda").eval()
+    tail = model.encoder[3:]  # stages 1-4: 8 blocks, 4 pools
+
+    def feature_fn(p: torch.Tensor) -> torch.Tensor:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            h = tail(fused_stage0_apply(model.encoder, p[:, None]))
+            return model.mu(h.flatten(1)).float()
+
+    db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT))
+    pipe = IndexPipeline(None, db._vectors, db._orientations, top_n=TOP_N, batch_size=BATCH,
+                         engine="fused", device="cuda", feature_fn=feature_fn)
+    x = np.random.default_rng(9).integers(0, 256, (STAGE0_PATTERNS, 128, 128), dtype=np.uint8)
+    pipe(x[:BATCH])
+    torch.cuda.synchronize()
+    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = pipe(x)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    batches = STAGE0_PATTERNS // BATCH
+    want = {"stage0_fused": batches, "instance_norm_leaky_relu": 8 * batches,
+            "cosine_topk_fused": batches}
+    if launches != want:
+        raise AssertionError(f"stage0_path launches {launches}, want {want}")
+    if res.indices.shape != (STAGE0_PATTERNS, TOP_N) or not np.all(
+        np.isfinite(res.best_orientation)
+    ):
+        raise AssertionError(f"stage0_path result {res.indices.shape}")
+
+    # Each row's latent against the f32 model's, held as train_parity holds
+    # a gradient: within twice the 16-mixed model's own distance, plus a floor.
+    k3 = torch.from_numpy(pipe.encode(x)).cuda()
+    xt = torch.from_numpy(x[:, None]).cuda().float() / 255.0
+    with torch.no_grad():
+        ref = model.set_precision("32").encode(xt)[0]
+        mixed = model.set_precision("16-mixed").encode(xt)[0]
+    d_k3, d_mixed = _rel_dist(k3, ref), _rel_dist(mixed, ref)
+    share = d_k3 / (GRAD_RATIO * d_mixed + GRAD_FLOOR)
+    worst = int(share.argmax())
+    emit("stage0_path", patterns=STAGE0_PATTERNS, batches=batches, launches=launches,
+         launches_per_batch={k: v / batches for k, v in launches.items()},
+         wall_s=wall_s, patterns_per_s=STAGE0_PATTERNS / wall_s,
+         worst_share_of_limit=share[worst].item(), worst_row=worst,
+         worst_row_k3_rel=d_k3[worst].item(), worst_row_16mixed_rel=d_mixed[worst].item(),
+         k3_rel_median=d_k3.median().item(), mixed_rel_median=d_mixed.median().item(),
+         success_rows=int(res.success.sum()))
+    if not bool(torch.isfinite(k3).all()) or not share[worst].item() <= 1.0:
+        raise AssertionError(f"stage0_path latent of row {worst}: {d_k3[worst].item()} from f32, "
+                             f"16-mixed {d_mixed[worst].item()}")
+    return launches
+
+
+def phase_index_cli(workdir: str, ckpt: str) -> dict:
+    """``cli.index`` build, export and query in this process at full width."""
+    import contextlib
+    import logging
+
+    from latice_tpu_torch.cli.index import main as index_main
+    from latice_tpu_torch.crystal import from_euler_zxz_deg, misorientation_angle
+    from latice_tpu_torch.data import read_ang
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu, stage0_fused
+
+    root = Path(workdir) / "index_cli"
+    root.mkdir()
+    pats = np.round(_synthetic_patterns(CLI_DICT, seed=10) * 255.0).astype(np.uint8)
+    np.save(root / "dict.npy", pats)
+    np.save(root / "query.npy", pats[:CLI_QUERY])
+    angles = np.random.default_rng(11).uniform([0, 0, 0], [360, 180, 360], size=(CLI_DICT, 3))
+    with open(root / "angles.txt", "w") as f:
+        f.write(f"zxz\n{CLI_DICT}\n")
+        np.savetxt(f, angles, fmt="%.4f")
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+    dictionary = ["--patterns", str(root / "dict.npy"), "--angles", str(root / "angles.txt")]
+    db, out = str(root / "db.npz"), str(root / "orientations.npy")
+    commands = {
+        "build": ["build", *dictionary, "--db", db],
+        "export": ["export", *dictionary, "--latents-out", str(root / "latents.npy"),
+                   "--angles-out", str(root / "export_angles.npy")],
+        "query": ["query", "--patterns", str(root / "query.npy"), "--db", db, "--out", out,
+                  "--engine", "fused", "--ang", str(root / "q.ang"), "--ctf", str(root / "q.ctf"),
+                  "--ambiguity", str(root / "amb.npz")],
+    }
+    encode_batches = {"build": CLI_DICT // BATCH, "export": CLI_DICT // BATCH,
+                      "query": CLI_QUERY // BATCH}
+    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused)
+    steps, totals = {}, dict.fromkeys((fn.__name__ for fn in counters), 0)
+    for name, argv in commands.items():
+        for fn in counters:
+            fn.launches = 0
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            index_main(argv + common)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        n = encode_batches[name]
+        want = {"stage0_fused": 0, "instance_norm_leaky_relu": 10 * n,
+                "cosine_topk_fused": n if name == "query" else 0}
+        if launches != want:
+            raise AssertionError(f"index_cli {name} launches {launches}, want {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        steps[name] = dict(wall_s=wall_s, launches=launches)
+        if name == "query":
+            steps[name]["summary"] = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+
+    with np.load(db) as f:
+        vectors, orients = f["vectors"], f["orientations"]
+    if vectors.shape != (CLI_DICT, LATENT) or not np.all(np.isfinite(vectors)):
+        raise AssertionError(f"index_cli dictionary {vectors.shape}")
+    if not np.abs(orients - angles).max() <= 1e-4:
+        raise AssertionError("index_cli dictionary orientations are not the angle file's")
+    latents = np.load(root / "latents.npy")
+    unit = latents / np.linalg.norm(latents, axis=1, keepdims=True)
+    export_err = float(np.abs(unit - vectors).max())
+    if latents.shape != (CLI_DICT, LATENT) or not export_err <= 1e-5:
+        raise AssertionError(f"index_cli export {latents.shape} differs from build by {export_err}")
+    # The dictionary's angles are random, so no 18 of 20 candidates agree and
+    # every row falls back to its top-1's orientation (re-expressed in f32
+    # from its quaternion). That must be its own row's: the nearest other
+    # of 16,384 random rotations lies degrees away, the f32 round trip
+    # ~1e-4 degrees (misorientation taken in f64 on the host).
+    got = np.load(out)
+    q_got, q_own = (from_euler_zxz_deg(torch.from_numpy(np.asarray(a, np.float64)))
+                    for a in (got, orients[:CLI_QUERY]))
+    own_deg = np.rad2deg(misorientation_angle(q_got, q_own).numpy())
+    not_own = int((own_deg > 1e-2).sum())
+    if got.shape != (CLI_QUERY, 3) or not_own:
+        raise AssertionError(f"index_cli query: {not_own} rows whose top-1 is not their own row")
+    own_err = float(own_deg.max())
+    ang = read_ang(str(root / "q.ang"))
+    ang_err = float(np.abs(ang.eulers - got).max())
+    if ang.eulers.shape != (CLI_QUERY, 3) or not ang_err <= 1e-3:
+        raise AssertionError(f"index_cli .ang reads back {ang.eulers.shape}, {ang_err} off")
+    with np.load(root / "amb.npz") as amb:
+        n_rival = int(amb["has_rival"].sum())
+    emit("index_cli", dict_patterns=CLI_DICT, query_patterns=CLI_QUERY, steps=steps,
+         launches=totals, build_patterns_per_s=CLI_DICT / steps["build"]["wall_s"],
+         export_patterns_per_s=CLI_DICT / steps["export"]["wall_s"],
+         query_patterns_per_s=CLI_QUERY / steps["query"]["wall_s"],
+         query_patterns_per_s_in_pipeline=CLI_QUERY / steps["query"]["summary"]["seconds"],
+         export_vs_build_max_abs_err=export_err, own_row_max_abs_err_deg=own_err,
+         ang_readback_max_abs_err_deg=ang_err, rows_with_rival=n_rival,
+         timed_as="host wall of each command in this process, model load and file I/O included")
+    return totals
 
 
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
@@ -896,7 +1166,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2f, k1 = check_norm(gen), check_topk(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
-    kernels = [k1, k2f, k2b]
+    k3 = check_stage0(gen)
+    kernels = [k1, k2f, k2b, k3]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, per_batch, service, ckpt, npz = phase_serve(workdir)
@@ -904,11 +1175,20 @@ def main() -> int:
         phase_profile(service)
         del service
         torch.cuda.empty_cache()
+        stage0_launches = phase_stage0_path(ckpt, npz)
+        cli_launches = phase_index_cli(workdir, ckpt)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
     phase_train_parity()
     phase_train_profile(model)
-    # Each path's counts were zeroed just before it ran and read just after.
-    paths = {"serve": serve_launches, "train": train_launches}
+    # Each path's counts were zeroed just before it ran and read just after;
+    # a path lists the kernels it runs.
+    paths = {
+        "serve": serve_launches,
+        "stage0_path": stage0_launches,
+        "index_cli": {k: v for k, v in cli_launches.items() if k != "stage0_fused"},
+        "train": train_launches,
+    }
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(k["launches_by_path"].values())

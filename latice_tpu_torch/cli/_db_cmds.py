@@ -1,0 +1,301 @@
+"""``python -m latice_tpu_torch.cli.index build/export/query``: the
+latent-dictionary plane, the port of ``latice_tpu/cli/_db_cmds.py``."""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from latice_tpu_torch.cli._common import _load_model, _load_raw_pattern_stack, later_slice
+from latice_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def _check_devices(args) -> None:
+    """``--devices N``: ignored with a warning when fewer than N cards are
+    attached (as the JAX CLI does), refused when N are, since sharding over
+    several cards waits for slice C."""
+    n = getattr(args, "devices", None)
+    if not n or n <= 1:
+        return
+    attached = torch.cuda.device_count()
+    if attached >= n:
+        raise later_slice(f"--devices {n}", "slice C")
+    logger.warning(f"--devices {n} ignored: only {attached} attached")
+
+
+def cmd_build(args) -> None:
+    from latice_tpu_torch.index import (
+        DiffractionPatternIndexer,
+        IndexerConfig,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+    )
+
+    if len(args.patterns) != len(args.angles):
+        raise SystemExit("--patterns and --angles must be given the same number of times")
+    groups = args.phase_groups.split(",") if args.phase_groups else None
+    if groups and len(groups) < len(args.patterns):
+        raise SystemExit(f"{len(args.patterns)} phases but only {len(groups)} --phase-groups")
+    # Phase labels persist with more than one phase OR an explicit point
+    # group: a single-phase hexagonal dictionary must not fall back to cubic.
+    multiphase = len(args.patterns) > 1 or groups is not None
+    _check_devices(args)
+    device = resolve_device(args.device)
+    model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(
+            npz_path=args.db,
+            dimension=args.latent_dim,
+            phase_symmetries=groups if multiphase else None,
+        ),
+        device=device,
+    )
+    indexer = DiffractionPatternIndexer(
+        model,
+        db=db,
+        config=IndexerConfig(
+            pattern_path=args.patterns[0],
+            angles_path=args.angles[0],
+            batch_size=args.batch_size,
+            device=str(device),
+            latent_dim=args.latent_dim,
+        ),
+    )
+    t0 = time.time()
+    if multiphase:
+        indexer.build_multiphase_dictionary(list(zip(args.patterns, args.angles)))
+    else:
+        indexer.build_dictionary()
+    # Simulation provenance is reset from this build's inputs, so a rebuilt
+    # npz never keeps an earlier build's forward model.
+    db.sim_meta = None
+    if len(args.patterns) == 1:
+        sidecar = Path(args.patterns[0] + ".simmeta.json")
+        if sidecar.exists():
+            db.sim_meta = json.loads(sidecar.read_text())
+            logger.info("Persisting simulation provenance for query --refine")
+    db.save()
+    logger.info(
+        f"Built dictionary of {db.get_count()} vectors"
+        + (f" across {len(args.patterns)} phases" if len(args.patterns) > 1 else "")
+        + f" in {time.time() - t0:.1f}s -> {args.db}"
+    )
+
+
+def cmd_export(args) -> None:
+    from latice_tpu_torch.index import DiffractionPatternIndexer, IndexerConfig
+
+    device = resolve_device(args.device)
+    model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
+    indexer = DiffractionPatternIndexer(
+        model,
+        config=IndexerConfig(
+            pattern_path=args.patterns,
+            angles_path=args.angles,
+            batch_size=args.batch_size,
+            device=str(device),
+            latent_dim=args.latent_dim,
+        ),
+    )
+    latents, _ = indexer.export_latents(args.latents_out, args.angles_out)
+    logger.info(f"Exported {len(latents)} latent vectors")
+
+
+def _refuse_later_options(args) -> None:
+    for flag, value, slice_name in (
+        ("--refine", args.refine, "slice D"),
+        ("--hough-iq", args.hough_iq, "slice D"),
+        ("--nlpar", args.nlpar, "slice D"),
+        ("--preprocess", args.preprocess, "slice D"),
+    ):
+        if value:
+            raise later_slice(flag, slice_name)
+
+
+def cmd_query(args) -> None:
+    from latice_tpu_torch.data import prepare_patterns, write_ang, write_ctf
+    from latice_tpu_torch.index import (
+        IndexPipeline,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+        candidate_ambiguity,
+    )
+
+    _refuse_later_options(args)
+    _check_devices(args)
+    device = resolve_device(args.device)
+    raw = _load_raw_pattern_stack(args)
+    model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim), device=device
+    )
+    if db.get_count() == 0:
+        raise SystemExit(f"Database {args.db} is empty — run 'build' first")
+    phase_kw = {}
+    if db._has_phases:
+        phase_kw = dict(
+            dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
+        )
+    pipe = IndexPipeline(
+        model,
+        db._vectors,
+        db._orientations,
+        top_n=args.top_n,
+        orientation_threshold=args.threshold,
+        min_required_matches=args.min_matches,
+        consensus_weight_power=args.weight_power,
+        batch_size=args.batch_size,
+        engine=args.engine,
+        device=device,
+        **phase_kw,
+    )
+
+    t0 = time.time()
+    x = prepare_patterns(raw)
+    result = pipe(x)
+    n = len(x)
+    dt = time.time() - t0
+    logger.info(
+        f"Indexed {n} patterns in {dt:.2f}s ({n / dt:,.0f}/s); "
+        f"success rate {result.success.mean():.1%}"
+    )
+    summary = {
+        "n_patterns": n,
+        "success_rate": float(result.success.mean()),
+        "seconds": dt,
+        "out": args.out,
+        # uint8 stacks reach the device as uint8 and are divided there;
+        # every other dtype reaches the model as float32.
+        "input_dtype": str(x.dtype),
+    }
+    np.save(args.out, result.best_orientation)
+    if result.phase is not None:
+        phase_out = args.out.replace(".npy", "") + "_phase.npy"
+        np.save(phase_out, result.phase)
+        summary["phase_out"] = phase_out
+        summary["phase_counts"] = np.bincount(result.phase).tolist()
+    grid = tuple(args.scan_grid) if args.scan_grid else None
+    db_groups = (
+        list(db.config.phase_symmetries) if db.config.phase_symmetries is not None else None
+    )
+    if args.ang:
+        write_ang(args.ang, result, grid=grid, step=args.step, phase_groups=db_groups)
+        summary["ang_out"] = args.ang
+    if args.ctf:
+        write_ctf(args.ctf, result, grid=grid, step=args.step, phase_groups=db_groups)
+        summary["ctf_out"] = args.ctf
+    if args.ambiguity:
+        amb = candidate_ambiguity(
+            result,
+            db._orientations,
+            phase_groups=db_groups,
+            dictionary_phases=db._phases if db_groups else None,
+            device=device,
+        )
+        np.savez(
+            args.ambiguity,
+            angle_deg=amb.angle_deg,
+            score_gap=amb.score_gap,
+            has_rival=amb.has_rival,
+        )
+        flagged = amb.ambiguous(max_gap=args.ambiguity_gap)
+        summary["ambiguity_out"] = args.ambiguity
+        summary["ambiguous_frac"] = round(float(flagged.mean()), 4)
+        logger.info(
+            f"{flagged.sum()} / {len(flagged)} pixels ambiguous "
+            f"(rival within {args.ambiguity_gap} cosine score)"
+        )
+    print(json.dumps(summary))
+
+
+def register(sub, common) -> None:
+    """Attach the build, export and query parsers."""
+    b = sub.add_parser("build", parents=[common], help="build dictionary DB")
+    b.add_argument(
+        "--patterns", required=True, action="append",
+        help="dictionary .npy stack (repeat once per phase for multi-phase)",
+    )
+    b.add_argument(
+        "--angles", required=True, action="append",
+        help="angle file (repeat once per phase, paired with --patterns)",
+    )
+    b.add_argument(
+        "--phase-groups", default=None,
+        help="comma-separated point groups, one per phase (e.g. 432,622); "
+        "persisted in the npz and applied automatically at query time",
+    )
+    b.add_argument(
+        "--devices", type=int, default=None,
+        help="several cards wait for a later slice: ignored with a warning "
+        "when fewer are attached, refused otherwise",
+    )
+    b.set_defaults(fn=cmd_build)
+
+    e = sub.add_parser("export", parents=[common], help="export dictionary latents to .npy")
+    e.add_argument("--patterns", required=True, help="dictionary .npy stack")
+    e.add_argument("--angles", required=True, help="angle file")
+    e.add_argument("--latents-out", default="latents.npy")
+    e.add_argument("--angles-out", default="orientations.npy")
+    e.set_defaults(fn=cmd_export)
+
+    q = sub.add_parser("query", parents=[common], help="index patterns")
+    q.add_argument(
+        "--patterns", required=True,
+        help=".npy stack to index (HDF5 scans and EDAX .up1/.up2 wait for slice E)",
+    )
+    q.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+    q.add_argument("--h5-chunk", type=int, default=4096, help="patterns per HDF5/UP slab")
+    q.add_argument("--out", default="orientations.npy")
+    q.add_argument("--ang", default=None, help="also write a TSL/OIM .ang result file")
+    q.add_argument("--ctf", default=None, help="also write a Channel Text File (.ctf)")
+    q.add_argument(
+        "--scan-grid", type=int, nargs=2, metavar=("ROWS", "COLS"), default=None,
+        help="scan shape for .ang/.ctf x-y columns (default: one line)",
+    )
+    q.add_argument("--step", type=float, default=1.0, help="scan step (um)")
+    q.add_argument("--top-n", type=int, default=20)
+    q.add_argument("--threshold", type=float, default=3.0)
+    q.add_argument("--min-matches", type=int, default=18)
+    q.add_argument(
+        "--weight-power", type=float, default=None, metavar="P",
+        help="similarity^P-weighted consensus mean (default: the uniform mean)",
+    )
+    q.add_argument(
+        "--engine", default="exact", choices=("exact", "fused", "approx", "int8"),
+        help="candidate search: exact (matmul + sort) or fused (the CUDA top-k "
+        "kernel); approx and int8 wait for a later slice",
+    )
+    q.add_argument(
+        "--devices", type=int, default=None,
+        help="several cards wait for a later slice: ignored with a warning "
+        "when fewer are attached, refused otherwise",
+    )
+    q.add_argument("--refine", type=int, default=None, metavar="STEPS",
+                   help="orientation refinement (slice D)")
+    q.add_argument("--refine-candidates", type=int, default=1, metavar="K",
+                   help="with --refine: candidates refined per pattern (slice D)")
+    q.add_argument(
+        "--ambiguity", default=None, metavar="OUT.npz",
+        help="write the pseudo-symmetry diagnostic (per-pixel angle and score gap "
+        "to the best genuinely different candidate) and report the ambiguous fraction",
+    )
+    q.add_argument(
+        "--ambiguity-gap", type=float, default=0.02,
+        help="cosine-score margin under which a rival counts as ambiguous "
+        "(default: %(default)s)",
+    )
+    q.add_argument("--hough-iq", action="store_true", help="detector-side Hough IQ (slice D)")
+    q.add_argument("--nlpar", type=float, default=None, metavar="H",
+                   help="NLPAR neighbourhood denoising (slice D)")
+    q.add_argument("--nlpar-radius", type=int, default=1,
+                   help="NLPAR search-window half-width (slice D)")
+    q.add_argument("--preprocess", default=None, metavar="SPEC",
+                   help="on-device pattern correction (slice D)")
+    q.set_defaults(fn=cmd_query)

@@ -4,6 +4,7 @@ from latice_tpu_torch.crystal.quaternion import (
     from_euler_zxz_deg,
     matrix_to_euler_zxz_deg,
     misorientation_angle,
+    misorientation_deg,
     quat_angle,
     quat_canonical,
     quat_inv,
@@ -20,6 +21,7 @@ from latice_tpu_torch.crystal.symmetry import (
     nearest_symmetry_equivalent,
     stack_symmetry_tables,
     symmetry_quats,
+    symmetry_reduced_misorientation,
 )
 
 __all__ = [
@@ -29,6 +31,7 @@ __all__ = [
     "from_euler_zxz_deg",
     "matrix_to_euler_zxz_deg",
     "misorientation_angle",
+    "misorientation_deg",
     "nearest_symmetry_equivalent",
     "quat_angle",
     "quat_canonical",
@@ -39,5 +42,6 @@ __all__ = [
     "quat_to_matrix",
     "stack_symmetry_tables",
     "symmetry_quats",
+    "symmetry_reduced_misorientation",
     "to_euler_zxz_deg",
 ]

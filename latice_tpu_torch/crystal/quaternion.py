@@ -30,6 +30,7 @@ __all__ = [
     "quat_to_matrix",
     "matrix_to_euler_zxz_deg",
     "misorientation_angle",
+    "misorientation_deg",
     "quat_mean",
 ]
 
@@ -152,6 +153,11 @@ def to_euler_zxz_deg(q: torch.Tensor) -> torch.Tensor:
 def misorientation_angle(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Misorientation angle in radians, ``(R1.inv() * R2).magnitude()``."""
     return quat_angle(quat_mul(quat_inv(q1), q2))
+
+
+def misorientation_deg(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Misorientation angle in degrees (the FAISS backend's unit)."""
+    return misorientation_angle(q1, q2) * _DEG
 
 
 def quat_mean(

@@ -21,6 +21,7 @@ __all__ = [
     "symmetry_quats",
     "stack_symmetry_tables",
     "nearest_symmetry_equivalent",
+    "symmetry_reduced_misorientation",
 ]
 
 _S2 = 1 / sqrt(2)
@@ -139,6 +140,34 @@ def stack_symmetry_tables(
     return torch.as_tensor(out, dtype=dtype, device=device)
 
 
+def _symmetry_images(q: torch.Tensor, sym: torch.Tensor, compose: str) -> torch.Tensor:
+    """Every symmetry image of ``q``, ``(..., S, 4)``, on the chosen side."""
+    if compose == "sample":
+        return quat_mul(sym, q[..., None, :])
+    if compose == "crystal":
+        return quat_mul(q[..., None, :], sym)
+    raise ValueError(f"compose must be 'sample' or 'crystal', got {compose!r}")
+
+
+def symmetry_reduced_misorientation(
+    q1: torch.Tensor,
+    q2: torch.Tensor,
+    sym: torch.Tensor | None = None,
+    compose: str = "crystal",
+) -> torch.Tensor:
+    """Least misorientation angle (radians) of ``q1`` to any symmetry image
+    of ``q2``: the disorientation angle.
+
+    ``compose="crystal"`` (the default) takes the images ``q2 ⊗ sym_k``, so
+    two fundamental-zone representatives of one orientation measure ≈ 0;
+    ``"sample"`` takes ``sym_k ⊗ q2``. ``sym`` defaults to the cubic group.
+    """
+    if sym is None:
+        sym = symmetry_quats("432", dtype=q2.dtype, device=q2.device)
+    images = _symmetry_images(q2, sym, compose)
+    return misorientation_angle(q1[..., None, :], images).amin(dim=-1)
+
+
 def nearest_symmetry_equivalent(
     ref: torch.Tensor,
     cand: torch.Tensor,
@@ -155,12 +184,7 @@ def nearest_symmetry_equivalent(
     """
     if sym is None:
         sym = symmetry_quats("432", dtype=cand.dtype, device=cand.device)
-    if compose == "sample":
-        images = quat_mul(sym, cand[..., None, :])
-    elif compose == "crystal":
-        images = quat_mul(cand[..., None, :], sym)
-    else:
-        raise ValueError(f"compose must be 'sample' or 'crystal', got {compose!r}")
+    images = _symmetry_images(cand, sym, compose)
     delta = misorientation_angle(ref[..., None, :], images)
     images = images.expand(*delta.shape, 4)
     idx = torch.argmin(delta, dim=-1, keepdim=True)

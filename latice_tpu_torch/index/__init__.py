@@ -1,20 +1,39 @@
-"""Search, consensus, the end-to-end pipeline and the dictionary store."""
+"""Search, consensus, the end-to-end pipeline, the dictionary database and
+the indexer around it."""
 
+from latice_tpu_torch.index.chroma_db import ChromaLatentVectorDatabase
 from latice_tpu_torch.index.consensus import ConsensusOutput, consensus_orientations
 from latice_tpu_torch.index.db import (
+    LatentVectorDatabaseBase,
     LatentVectorDatabaseConfig,
     TorchLatentVectorDatabase,
     parse_faiss_flat_blob,
 )
+from latice_tpu_torch.index.diagnostics import AmbiguityResult, candidate_ambiguity
+from latice_tpu_torch.index.faiss_db import (
+    FaissLatentVectorDatabase,
+    FaissLatentVectorDatabaseConfig,
+)
+from latice_tpu_torch.index.indexer import DiffractionPatternIndexer, IndexerConfig
 from latice_tpu_torch.index.knn import cosine_topk, l2_normalize
 from latice_tpu_torch.index.pipeline import DenseIndexResult, IndexPipeline, concat_dense_results
+from latice_tpu_torch.index.result import OrientationResult
 
 __all__ = [
+    "AmbiguityResult",
+    "ChromaLatentVectorDatabase",
     "ConsensusOutput",
     "DenseIndexResult",
+    "DiffractionPatternIndexer",
+    "FaissLatentVectorDatabase",
+    "FaissLatentVectorDatabaseConfig",
     "IndexPipeline",
+    "IndexerConfig",
+    "LatentVectorDatabaseBase",
     "LatentVectorDatabaseConfig",
+    "OrientationResult",
     "TorchLatentVectorDatabase",
+    "candidate_ambiguity",
     "concat_dense_results",
     "consensus_orientations",
     "cosine_topk",

@@ -1,26 +1,47 @@
-"""Latent-vector database: the dictionary a server searches, on the host.
+"""Latent-vector database: exact cosine search and orientation consensus.
 
-The port of what serving needs from ``latice_tpu.index.db``: vectors
-(L2-normalized at add time), zxz-degree orientations and optional phase
-ids, persisted in the same single ``.npz`` (keys ``vectors``,
-``orientations``, ``phases``, ``phase_groups``), so a file written by
+The port of ``latice_tpu.index.db``. The host keeps the vectors
+(L2-normalized at add time), the zxz-degree orientations and optional phase
+ids, persisted in one ``.npz`` (keys ``vectors``, ``orientations``,
+``phases``, ``phase_groups``, ``sim_meta``), so a file written by
 ``latice_tpu``'s ``index.py build`` loads unchanged, and so does one written
 by the reference FAISS backend (a serialized ``IndexFlat`` under
-``faiss_index``).
+``faiss_index``). Queries copy the dictionary and its orientation
+quaternions to the device once, then run the top-k (`index.knn.cosine_topk`
+or the CUDA kernel `ops.cosine_topk_fused`) and the batched consensus there.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
+
+from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables
+from latice_tpu_torch.device import resolve_device
+from latice_tpu_torch.index.consensus import consensus_orientations
+from latice_tpu_torch.index.knn import cosine_topk
+from latice_tpu_torch.index.result import OrientationResult
+from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["LatentVectorDatabaseConfig", "TorchLatentVectorDatabase", "parse_faiss_flat_blob"]
+__all__ = [
+    "LatentVectorDatabaseBase",
+    "LatentVectorDatabaseConfig",
+    "OrientationResult",
+    "TorchLatentVectorDatabase",
+    "parse_faiss_flat_blob",
+]
+
+_ENGINES = ("device", "fused")
+_LATER_ENGINES = ("approx", "int8", "native")
 
 
 def _l2_normalize_np(vectors: np.ndarray) -> np.ndarray:
@@ -68,36 +89,109 @@ def parse_faiss_flat_blob(blob: bytes | np.ndarray) -> np.ndarray:
     return vectors.reshape(ntotal, d).copy()
 
 
+class LatentVectorDatabaseBase(ABC):
+    """The latent-vector database contract of the reference's two backends
+    (chroma_db.py:87, faiss_db.py:92), whose base class module the
+    reference imports but does not ship."""
+
+    @abstractmethod
+    def add_vectors(self, latent_vectors, orientations) -> None: ...
+
+    @abstractmethod
+    def create_from_files(self, latent_file_path, angles_file_path) -> None: ...
+
+    @abstractmethod
+    def query_similar(self, query_vector, n_results: int = 20): ...
+
+    @abstractmethod
+    def find_best_orientation(
+        self,
+        query_vector,
+        top_n: int = 20,
+        orientation_threshold: float = 1.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+    ) -> OrientationResult: ...
+
+    @abstractmethod
+    def find_best_orientations_batch(
+        self, query_vectors, batch_size: int = 32, **kwargs
+    ) -> list[OrientationResult]: ...
+
+    @abstractmethod
+    def get_count(self) -> int: ...
+
+
 @dataclass
 class LatentVectorDatabaseConfig:
-    """Where the database persists and its latent width.
+    """Configuration of `TorchLatentVectorDatabase`.
 
-    ``phase_symmetries`` names one point group per phase id of a
-    multi-phase dictionary (cubic "432" for every phase when None).
+    Attributes:
+        npz_path: the single-file persistence target.
+        dimension: latent width (16 in the reference).
+        angle_unit: "deg" thresholds misorientation in degrees (the FAISS
+            backend); "rad" keeps the chroma backend's radians.
+        device_batch_size: most queries per device batch in the batch APIs.
+        engine: "device" (matmul and stable sort, `index.knn.cosine_topk`)
+            or "fused" (the CUDA top-k kernel on the card, its plain twin on
+            the CPU). "approx", "int8" and "native" raise until a later
+            slice of the port brings them.
+        phase_symmetries: point-group names, one per phase id of a
+            multi-phase dictionary (cubic "432" for every phase when None).
     """
 
     npz_path: str = "latent_index.npz"
     dimension: int = 16
+    angle_unit: str = "deg"
+    device_batch_size: int = 4096
+    engine: str = "device"
     phase_symmetries: Any = None
 
 
-class TorchLatentVectorDatabase:
-    """Host-side latent dictionary with ``.npz`` persistence.
+class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
+    """Exact-search latent dictionary: metadata on the host, the search and
+    the consensus on ``device``.
 
-    Loads ``npz_path`` at construction when the file exists. The vectors
-    go to the device when a pipeline is built over them.
+    Loads ``npz_path`` at construction when the file exists. ``device`` is
+    where queries run, ``cuda`` unless given; it is resolved at the first
+    query, so building, saving and loading need no device. The device copy
+    of the dictionary and its quaternions is made once and dropped when the
+    vectors change.
     """
 
-    def __init__(self, config: LatentVectorDatabaseConfig | None = None) -> None:
+    def __init__(
+        self,
+        config: LatentVectorDatabaseConfig | None = None,
+        device: str | torch.device | None = None,
+    ) -> None:
         self.config = config if config is not None else LatentVectorDatabaseConfig()
+        if self.config.engine in _LATER_ENGINES:
+            raise ValueError(
+                f"engine={self.config.engine!r} is not ported to latice_tpu_torch yet; "
+                "it waits for a later slice"
+            )
+        if self.config.engine not in _ENGINES:
+            raise ValueError(f"unknown engine {self.config.engine!r}")
         self.dimension = self.config.dimension
         self.npz_path = Path(self.config.npz_path)
+        self._device_arg = device
         self._vectors = np.zeros((0, self.dimension), dtype=np.float32)
         self._orientations = np.zeros((0, 3), dtype=np.float64)
         self._phases = np.zeros((0,), dtype=np.int32)
         self._has_phases = False
+        self.sim_meta: dict | None = None
+        self._dev_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._sym_tables_cache: torch.Tensor | None = None
         if self.npz_path.with_suffix(".npz").exists():
             self.load()
+        else:
+            logger.info(f"No existing index found at {self.npz_path}. Creating a new one.")
+
+    # -- mutation ----------------------------------------------------------
+
+    def _invalidate(self) -> None:
+        self._dev_cache = None
+        self._sym_tables_cache = None
 
     def add_vectors(self, latent_vectors, orientations, phases=None) -> None:
         """Add vectors (normalized here) with their orientations and,
@@ -122,12 +216,287 @@ class TorchLatentVectorDatabase:
         self._vectors = np.concatenate([self._vectors, _l2_normalize_np(vecs)])
         self._orientations = np.concatenate([self._orientations, orients])
         self._phases = np.concatenate([self._phases, ph])
+        self._invalidate()
+        logger.info(f"Added {len(vecs)} vectors. Index total: {self.get_count()}")
+
+    def create_from_files(self, latent_file_path, angles_file_path) -> None:
+        """Build from ``.npy`` latent and angle files, then save."""
+        latent_vectors = np.load(Path(latent_file_path)).astype(np.float32)
+        orientations = np.load(Path(angles_file_path))
+        self.add_vectors(latent_vectors, orientations)
+        self.save()
+
+    # -- device state ------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        """Where queries run (``cuda`` unless the constructor was given
+        another device; a missing CUDA device raises)."""
+        return resolve_device(self._device_arg)
+
+    def _device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The dictionary and its orientation quaternions on the device."""
+        if self._dev_cache is None:
+            dev = self.device
+            vectors = torch.as_tensor(self._vectors, device=dev).contiguous()
+            orients = torch.as_tensor(self._orientations, dtype=torch.float32, device=dev)
+            self._dev_cache = (vectors, from_euler_zxz_deg(orients))
+        return self._dev_cache
+
+    def _phase_args(self, indices: np.ndarray) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """``(cand_phases, sym_tables)`` consensus inputs of a multi-phase
+        dictionary, else ``(None, None)``."""
+        if not self._has_phases:
+            return None, None
+        if self._sym_tables_cache is None:
+            n_phases = int(self._phases.max()) + 1 if len(self._phases) else 1
+            groups = self.config.phase_symmetries
+            if groups is None:
+                groups = ["432"] * n_phases
+            if len(groups) < n_phases:
+                raise ValueError(
+                    f"{n_phases} phase ids but only {len(groups)} "
+                    "phase_symmetries entries in the config"
+                )
+            self._sym_tables_cache = stack_symmetry_tables(groups, device=self.device)
+        cand_phases = torch.as_tensor(self._phases[indices], device=self.device)
+        return cand_phases, self._sym_tables_cache
+
+    # -- queries -----------------------------------------------------------
+
+    def query_similar(self, query_vector, n_results: int = 20) -> tuple[np.ndarray, np.ndarray]:
+        """Top-k cosine search for one query: ``(similarities, indices)``,
+        empty arrays on an empty index."""
+        scores, indices = self.query_similar_batch(
+            np.atleast_2d(np.asarray(query_vector)), n_results
+        )
+        if scores.size == 0:
+            return np.array([]), np.array([])
+        return scores[0], indices[0]
+
+    def query_similar_batch(
+        self, query_vectors, n_results: int = 20
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched top-k cosine search: ``(B, k)`` f64 scores and int64
+        indices; ``k`` is cut to the index size, with a warning."""
+        count = self.get_count()
+        if count == 0:
+            logger.warning("Querying an empty index.")
+            return np.zeros((0, 0)), np.zeros((0, 0), dtype=np.int64)
+        if count < n_results:
+            logger.warning(
+                f"Requested {n_results} results, but index only contains "
+                f"{count} vectors. Returning all."
+            )
+            n_results = count
+        queries = np.asarray(query_vectors, dtype=np.float32)
+        if queries.shape[1] != self.dimension:
+            raise ValueError(
+                f"Expected query vector of dimension {self.dimension}, got {queries.shape[1]}"
+            )
+        scores, indices = self._topk(queries, n_results)
+        return scores.cpu().double().numpy(), indices.cpu().numpy()
+
+    @torch.inference_mode()
+    def _topk(self, queries: np.ndarray, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device top-k of host queries with the configured engine."""
+        vectors, _ = self._device_arrays()
+        q = torch.as_tensor(queries, device=vectors.device).contiguous()
+        if self.config.engine == "fused":
+            return cosine_topk_fused(q, vectors, k)
+        return cosine_topk(q, vectors, k)
+
+    @torch.inference_mode()
+    def _consensus(self, queries, top_n, orientation_threshold, min_required_matches,
+                   max_iterations):
+        """Top-k and consensus of one chunk: host ``(scores, indices)`` and
+        the device `ConsensusOutput`."""
+        _, quats = self._device_arrays()
+        k = min(top_n, self.get_count())
+        scores, indices = self._topk(queries, k)
+        indices_np = indices.cpu().numpy()
+        cand_phases, sym_tables = self._phase_args(indices_np)
+        cons = consensus_orientations(
+            quats[indices],
+            orientation_threshold,
+            min_required_matches=min_required_matches,
+            max_iterations=min(max_iterations, k),
+            angle_unit=self.config.angle_unit,
+            cand_phases=cand_phases,
+            sym_tables=sym_tables,
+        )
+        return scores.cpu().double().numpy(), indices_np, cons
+
+    def find_best_orientation(
+        self,
+        query_vector,
+        top_n: int = 20,
+        orientation_threshold: float = 1.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+    ) -> OrientationResult:
+        """Consensus orientation of one query."""
+        return self.find_best_orientations_batch(
+            np.atleast_2d(np.asarray(query_vector)),
+            top_n=top_n,
+            orientation_threshold=orientation_threshold,
+            min_required_matches=min_required_matches,
+            max_iterations=max_iterations,
+        )[0]
+
+    def find_best_orientations_batch(
+        self,
+        query_vectors,
+        batch_size: int | None = None,
+        top_n: int = 20,
+        orientation_threshold: float = 1.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+        progress: bool = False,
+    ) -> list[OrientationResult]:
+        """Consensus of many queries, ``batch_size`` (default
+        ``device_batch_size``) at a time on the device. ``progress`` is
+        accepted and draws nothing in the port."""
+        queries = np.asarray(query_vectors, dtype=np.float32)
+        if queries.ndim == 1:
+            queries = queries[None]
+        if self.get_count() == 0:
+            logger.warning("No similar vectors found for query.")
+            return [self._empty_result(q) for q in queries]
+        chunk = max(batch_size or self.config.device_batch_size, 1)
+        results: list[OrientationResult] = []
+        for start in range(0, len(queries), chunk):
+            results.extend(
+                self._consensus_chunk(
+                    queries[start : start + chunk],
+                    top_n,
+                    orientation_threshold,
+                    min_required_matches,
+                    max_iterations,
+                )
+            )
+        return results
+
+    def find_best_orientations_dense(
+        self,
+        query_vectors,
+        top_n: int = 20,
+        orientation_threshold: float = 1.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+        batch_size: int | None = None,
+    ) -> dict[str, np.ndarray]:
+        """Batch consensus as arrays: ``mean_orientation`` (NaN rows where
+        not ``success``), ``best_orientation`` (the mean, or the top-1
+        candidate's stored angles), ``success``, ``n_similar``, ``indices``,
+        ``scores`` and, for multi-phase dictionaries, ``phase``."""
+        queries = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
+        if self.get_count() == 0:
+            nan3 = np.full((len(queries), 3), np.nan)
+            return {
+                "mean_orientation": nan3,
+                "best_orientation": nan3.copy(),
+                "success": np.zeros(len(queries), bool),
+                "n_similar": np.zeros(len(queries), np.int64),
+                "indices": np.zeros((len(queries), 0), np.int64),
+                "scores": np.zeros((len(queries), 0)),
+            }
+        chunk = max(batch_size or self.config.device_batch_size, 1)
+        outs = []
+        for start in range(0, len(queries), chunk):
+            scores, indices, cons = self._consensus(
+                queries[start : start + chunk], top_n, orientation_threshold,
+                min_required_matches, max_iterations,
+            )
+            outs.append((
+                scores,
+                indices.astype(np.int64),
+                cons.mean_euler.cpu().double().numpy(),
+                cons.success.cpu().numpy(),
+                cons.similar_mask.cpu().numpy(),
+                None if cons.phase is None else cons.phase.cpu().numpy(),
+            ))
+        scores, indices, mean, success, mask = (
+            np.concatenate([o[i] for o in outs]) for i in range(5)
+        )
+        result = {
+            "mean_orientation": np.where(success[:, None], mean, np.nan),
+            "best_orientation": np.where(
+                success[:, None], mean, self._orientations[indices[:, 0]]
+            ),
+            "success": success,
+            "n_similar": mask.sum(axis=1).astype(np.int64),
+            "indices": indices,
+            "scores": scores,
+        }
+        if self._has_phases:
+            phase = np.concatenate([o[5] for o in outs]).astype(np.int64)
+            # A failed row reports its top-1 candidate's phase, as `best`.
+            result["phase"] = np.where(success, phase, self._phases[indices[:, 0]]).astype(
+                np.int64
+            )
+        return result
+
+    def _consensus_chunk(
+        self,
+        queries: np.ndarray,
+        top_n: int,
+        orientation_threshold: float,
+        min_required_matches: int,
+        max_iterations: int,
+    ) -> list[OrientationResult]:
+        scores, indices, cons = self._consensus(
+            queries, top_n, orientation_threshold, min_required_matches, max_iterations
+        )
+        mean = cons.mean_euler.cpu().double().numpy()
+        success = cons.success.cpu().numpy()
+        mask = cons.similar_mask.cpu().numpy()
+        phase = None if cons.phase is None else cons.phase.cpu().numpy()
+        results = []
+        for b in range(len(queries)):
+            cand_orients = self._orientations[indices[b]]
+            ok = bool(success[b])
+            mean_b = mean[b] if ok else None
+            # On success the consensus mean, else the closest match
+            # (faiss_db.py:336-343); a failed row's phase is its top-1's.
+            best = mean_b if ok else cand_orients[0]
+            phase_b = None
+            if phase is not None:
+                phase_b = int(phase[b] if ok else self._phases[indices[b, 0]])
+            results.append(
+                OrientationResult(
+                    query_vector=queries[b].astype(np.float64),
+                    best_orientation=np.asarray(best, dtype=np.float64),
+                    mean_orientation=mean_b,
+                    candidate_orientations=cand_orients,
+                    distances=scores[b],
+                    success=ok,
+                    similar_indices=np.where(mask[b])[0],
+                    phase=phase_b,
+                )
+            )
+        return results
+
+    def _empty_result(self, query: np.ndarray) -> OrientationResult:
+        """The failed result of a query on an empty index."""
+        return OrientationResult(
+            query_vector=np.asarray(query).squeeze().astype(np.float64),
+            best_orientation=np.array([np.nan, np.nan, np.nan]),
+            candidate_orientations=np.array([]),
+            distances=np.array([]),
+            mean_orientation=None,
+            success=False,
+            similar_indices=None,
+        )
+
+    # -- bookkeeping -------------------------------------------------------
 
     def get_count(self) -> int:
         return len(self._vectors)
 
     def save(self) -> None:
-        """Write vectors + orientations (+ phases) to the ``.npz``."""
+        """Write vectors + orientations (+ phases, + ``sim_meta``) to the
+        ``.npz``."""
         path = self.npz_path.with_suffix(".npz")
         extra = {}
         if self._has_phases:
@@ -136,6 +505,8 @@ class TorchLatentVectorDatabase:
                 extra["phase_groups"] = np.asarray(
                     list(self.config.phase_symmetries), dtype=np.str_
                 )
+        if self.sim_meta is not None:
+            extra["sim_meta"] = np.asarray(json.dumps(self.sim_meta))
         np.savez_compressed(
             str(path), vectors=self._vectors, orientations=self._orientations, **extra
         )
@@ -144,6 +515,8 @@ class TorchLatentVectorDatabase:
     def load(self) -> None:
         """Read the ``.npz``: this format or the reference FAISS backend's."""
         path = self.npz_path.with_suffix(".npz")
+        if not path.exists():
+            raise FileNotFoundError(f"NPZ file {path} missing.")
         with np.load(str(path)) as data:
             if "vectors" in data:
                 self._vectors = data["vectors"].astype(np.float32)
@@ -162,5 +535,22 @@ class TorchLatentVectorDatabase:
             )
             if "phase_groups" in data and self.config.phase_symmetries is None:
                 self.config.phase_symmetries = [str(g) for g in data["phase_groups"]]
+            self.sim_meta = json.loads(str(data["sim_meta"])) if "sim_meta" in data else None
         self.dimension = self._vectors.shape[1]
+        self._invalidate()
         logger.info(f"Loaded index from {path}")
+
+    def delete_persistence(self) -> None:
+        """Delete the ``.npz`` and empty the index."""
+        path = self.npz_path.with_suffix(".npz")
+        try:
+            if path.exists():
+                path.unlink()
+                logger.info(f"Deleted index file: {path}")
+                self._vectors = np.zeros((0, self.dimension), dtype=np.float32)
+                self._orientations = np.zeros((0, 3), dtype=np.float64)
+                self._phases = np.zeros((0,), dtype=np.int32)
+                self._has_phases = False
+                self._invalidate()
+        except OSError as e:
+            logger.error(f"Error deleting index file {self.npz_path}: {e}")

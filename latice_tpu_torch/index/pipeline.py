@@ -63,7 +63,8 @@ class IndexPipeline:
 
     Args:
         model: the port's VAE (`models.VariationalAutoEncoderRawData`); it
-            is moved to ``device`` and put in eval mode.
+            is moved to ``device`` and put in eval mode. ``None`` with a
+            ``feature_fn``.
         dictionary_vectors: ``(N, D)`` L2-normalized latents.
         dictionary_orientations: ``(N, 3)`` zxz Euler degrees.
         top_n / orientation_threshold / min_required_matches /
@@ -79,15 +80,19 @@ class IndexPipeline:
             on the card, its plain twin on the CPU).
         device: where everything runs; ``cuda`` unless given, and a missing
             CUDA device raises.
+        feature_fn: optional map of the ``(B, H, W)`` float32 device
+            patterns (after the uint8 ``/255``) to ``(B, D)`` features, used
+            instead of the VAE's encode; pass ``model=None``. `encode` and
+            the indexing call both go through it.
 
-    ``engine="approx"``/``"int8"``, ``search_dtype="bfloat16"``, ``mesh``,
-    ``preprocess`` and ``feature_fn`` raise ``ValueError`` until a later
-    slice of the port brings them.
+    ``engine="approx"``/``"int8"``, ``search_dtype="bfloat16"``, ``mesh``
+    and ``preprocess`` raise ``ValueError`` until a later slice of the port
+    brings them.
     """
 
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: torch.nn.Module | None,
         dictionary_vectors,
         dictionary_orientations,
         top_n: int = 20,
@@ -112,14 +117,19 @@ class IndexPipeline:
             raise ValueError(f"unknown engine {engine!r}")
         if search_dtype != "float32":
             raise _later_slice(f"search_dtype={search_dtype!r}")
-        unported = dict(mesh=mesh, preprocess=preprocess, feature_fn=feature_fn)
+        unported = dict(mesh=mesh, preprocess=preprocess)
         for name, value in unported.items():
             if value is not None:
                 raise _later_slice(name)
+        if feature_fn is None and model is None:
+            raise ValueError("pass a model or a feature_fn")
+        if feature_fn is not None and model is not None:
+            raise ValueError("model and feature_fn are mutually exclusive")
         self.device = resolve_device(device)
         self.engine = engine
         self.batch_size = batch_size
-        self.model = model.to(self.device).eval()
+        self.feature_fn = feature_fn
+        self.model = None if model is None else model.to(self.device).eval()
         self._dict = torch.as_tensor(
             np.asarray(dictionary_vectors, np.float32), device=self.device
         ).contiguous()
@@ -155,9 +165,12 @@ class IndexPipeline:
         self._quats = quats
 
     def _encode(self, patterns: torch.Tensor) -> torch.Tensor:
-        """``mu`` of ``(B, H, W)`` uint8 or f32 device patterns."""
+        """``mu`` (or the ``feature_fn`` features) of ``(B, H, W)`` uint8 or
+        f32 device patterns."""
         if patterns.dtype == torch.uint8:
             patterns = patterns.float() / 255.0
+        if self.feature_fn is not None:
+            return self.feature_fn(patterns)
         return self.model.encode(patterns[:, None])[0]
 
     def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:

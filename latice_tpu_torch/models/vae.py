@@ -86,7 +86,18 @@ def _encoder_widths(inplanes: int, n_stages: int) -> list[int]:
     return [inplanes, 2 * inplanes] + [4 * inplanes] * (n_stages - 2)
 
 
-class Encoder(nn.Sequential):
+class _Stack(nn.Sequential):
+    """A Sequential whose slices are plain ``nn.Sequential``s: Sequential's
+    own slicing calls ``type(self)(OrderedDict)``, which a subclass with its
+    own constructor arguments cannot take."""
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return nn.Sequential(*list(self._modules.values())[idx])
+        return super().__getitem__(idx)
+
+
+class Encoder(_Stack):
     """``n_stages`` conv-conv-pool stages, 1 channel in, 4P channels out."""
 
     def __init__(self, inplanes: int = 32, n_stages: int = 5) -> None:

@@ -11,14 +11,22 @@ from latice_tpu_torch.ops.fused_norm import (
     instance_norm_leaky_relu_backward_plain,
     instance_norm_leaky_relu_plain,
 )
+from latice_tpu_torch.ops.stage0_fused import (
+    fused_stage0_apply,
+    stage0_fused,
+    stage0_fused_reference,
+)
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused, cosine_topk_fused_plain
 
 __all__ = [
     "InstanceNormLeakyReLUFunction",
     "cosine_topk_fused",
     "cosine_topk_fused_plain",
+    "fused_stage0_apply",
     "instance_norm_leaky_relu",
     "instance_norm_leaky_relu_backward",
     "instance_norm_leaky_relu_backward_plain",
     "instance_norm_leaky_relu_plain",
+    "stage0_fused",
+    "stage0_fused_reference",
 ]

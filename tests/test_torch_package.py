@@ -100,6 +100,7 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
         cosine_topk_fused,
         instance_norm_leaky_relu,
         instance_norm_leaky_relu_backward,
+        stage0_fused,
     )
 
     x = torch.empty((2, 3, 8, 8), device="meta")
@@ -112,6 +113,10 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
     d = torch.empty((40, 16), device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         cosine_topk_fused(q, d, 5)
+    w1, w2, b = (torch.empty(s, device="meta") for s in ((32, 1, 3, 3), (32, 32, 3, 3), (32,)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        stage0_fused(torch.empty((2, 1, 16, 16), device="meta"), w1, b, w2, b)
+    assert stage0_fused.launches == 0
     assert instance_norm_leaky_relu.launches == 0
     assert instance_norm_leaky_relu_backward.launches == 0
     assert cosine_topk_fused.launches == 0
@@ -128,7 +133,6 @@ def test_unported_options_raise():
         dict(search_dtype="bfloat16"),
         dict(mesh=object()),
         dict(preprocess=lambda x: x),
-        dict(feature_fn=lambda x: x),
     ):
         with pytest.raises(ValueError, match="later slice"):
             IndexPipeline(model, vecs, orients, device="cpu", **kw)
