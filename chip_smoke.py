@@ -108,6 +108,7 @@ K1_ATOL = 1e-6  # FP32 FMA order differs from the plain matmul's
 NEAR_TIE = 1e-6
 STAGE0_PATTERNS = 512  # stage0_path: two batches
 CLI_DICT, CLI_QUERY = 16_384, 4_096  # index_cli: dictionary and query patterns
+BIG_DICT_ROWS = 1_000_000  # K1's second timed shape: 64 MB, beyond the L2
 
 
 def emit(phase: str, **fields) -> None:
@@ -381,7 +382,52 @@ def _unit_rows(n, d, gen):
     return x / x.norm(dim=1, keepdim=True)
 
 
+def _k1_plan(b: int, n: int, k: int = TOP_N, d: int = LATENT) -> tuple[int, int]:
+    """K1's launch plan (queries per warp, splits) on this card."""
+    from latice_tpu_torch.ops import topk_fused
+
+    return topk_fused._plan(b, n, k, d, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _k1_split_cases(dic: torch.Tensor, gen: torch.Generator, cases: dict) -> None:
+    """Duplicates across split boundaries, and every query's top-k in one
+    split (the splits' shared bar prunes the others), at B=64."""
+    from latice_tpu_torch.ops import topk_fused
+
+    b, n = 64, dic.shape[0]
+    _, splits = _k1_plan(b, n)
+    bounds = topk_fused._split_bounds(n, splits)
+    # Row s-1 copied onto row s at each inner boundary s: the query is the
+    # row itself, so its two copies come first, tied, lowest index first.
+    inner = torch.tensor(bounds[1:-1] or [n // 2], device="cuda")
+    inner = inner[torch.arange(b, device="cuda") % len(inner)]
+    dup = dic.clone()
+    dup[inner] = dup[inner - 1]
+    cases["duplicates_across_splits"] = _topk_case(dup[inner].contiguous(), dup, TOP_N)
+    want = torch.stack([inner - 1, inner], dim=1)
+    if not torch.equal(cases["duplicates_across_splits"][2][:, :2], want):
+        raise AssertionError("K1 duplicates across splits: copies not first in index order")
+    # 8 directions, 8 queries and 20 near rows each, the rows all inside
+    # the middle split.
+    lo = bounds[splits // 2]
+    centers = _unit_rows(8, LATENT, gen)
+    q = centers.repeat_interleave(8, 0) + 0.01 * torch.randn((b, LATENT), device="cuda",
+                                                             generator=gen)
+    near = centers.repeat_interleave(TOP_N, 0) + 0.01 * torch.randn(
+        (8 * TOP_N, LATENT), device="cuda", generator=gen)
+    one = dic.clone()
+    one[lo : lo + 8 * TOP_N] = near / near.norm(dim=1, keepdim=True)
+    cases["topk_in_one_split"] = _topk_case(q, one, TOP_N)
+    got = cases["topk_in_one_split"][2]
+    if not bool(((got >= lo) & (got < bounds[splits // 2 + 1])).all()):
+        raise AssertionError("K1 top-k in one split: an index outside that split")
+
+
 def check_topk(gen: torch.Generator) -> dict:
+    """K1 against its twin on every case, then timed at the serving shape
+    (B=256, N=100,000, k=20) and at N=1,000,000 (64 MB, beyond the 50 MB
+    L2, so each call reads the dictionary from HBM), with the device time
+    of each pass from a trace of 5 calls."""
     from latice_tpu_torch.index.knn import l2_normalize
     from latice_tpu_torch.ops import cosine_topk_fused, cosine_topk_fused_plain
 
@@ -395,6 +441,10 @@ def check_topk(gen: torch.Generator) -> dict:
     cases["ragged_b13_n3001"] = _topk_case(
         torch.randn((13, LATENT), device="cuda", generator=gen), dic[:3001].contiguous(), TOP_N
     )
+    for b in (1, 64, 257):  # the edges of the queries-per-warp choice
+        cases[f"b{b}_n100k_k20"] = _topk_case(
+            torch.randn((b, LATENT), device="cuda", generator=gen), dic, TOP_N
+        )
     base = _unit_rows(7000, LATENT, gen)
     cases["tied_duplicates"] = _topk_case(base[:37].contiguous(), base.repeat(3, 1), 6)
     # Identical rows score bit-identically in the kernel, so its own order
@@ -402,6 +452,7 @@ def check_topk(gen: torch.Generator) -> dict:
     copies = torch.arange(37, device="cuda")[:, None] + 7000 * torch.arange(3, device="cuda")
     if not torch.equal(cases["tied_duplicates"][2][:, :3], copies):
         raise AssertionError("K1 tied duplicates: copies not in ascending index order")
+    _k1_split_cases(dic, gen, cases)
     neg = -(_unit_rows(5000, LATENT, gen).abs() + 0.1)
     neg = torch.cat([neg / neg.norm(dim=1, keepdim=True),
                      torch.zeros((1000, LATENT), device="cuda")])
@@ -413,6 +464,8 @@ def check_topk(gen: torch.Generator) -> dict:
     cases["d64"] = _topk_case(
         torch.randn((100, 64), device="cuda", generator=gen), _unit_rows(20000, 64, gen), 17
     )
+    big = _unit_rows(BIG_DICT_ROWS, LATENT, gen)
+    cases["b256_n1m_k20"] = _topk_case(q, big, TOP_N)
     max_err = max(e for e, _, _ in cases.values())
 
     qn = l2_normalize(q)
@@ -421,17 +474,46 @@ def check_topk(gen: torch.Generator) -> dict:
         plain_ms=cuda_ms(lambda: cosine_topk_fused_plain(q, dic, TOP_N)),
         library_ms=cuda_ms(lambda: torch.topk(qn @ dic.T, TOP_N)),
     )
-    n_bytes = 4.0 * (q.numel() + dic.numel()) + 12.0 * BATCH * TOP_N
-    n_ops = (2.0 * LATENT + 1.0) * BATCH * DICT_ROWS  # one FMA per element, one compare per score
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    # The twin sorts all 1M scores of each row: not timed there.
+    big_times = dict(
+        ms=cuda_ms(lambda: cosine_topk_fused(q, big, TOP_N)),
+        library_ms=cuda_ms(lambda: torch.topk(qn @ big.T, TOP_N)),
+    )
+
+    def bound(n: int) -> tuple[float, str]:
+        n_bytes = 4.0 * (q.numel() + n * LATENT) + 12.0 * BATCH * TOP_N
+        return bound_ms(n_bytes, (2.0 * LATENT + 1.0) * BATCH * n)  # an FMA per element, a compare
+
+    # Device ms of each pass, from a trace of 5 calls.
+    from torch.profiler import ProfilerActivity, profile
+
+    passes = {}
+    for tag, d in (("n100k", dic), ("n1m", big)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                cosine_topk_fused(q, d, TOP_N)
+            torch.cuda.synchronize()
+        split = {p: sum(t for n, t, _ in _device_kernels(prof) if p in n) / 5
+                 for p in ("topk_partial", "topk_merge", "Memset")}
+        split["merge_share"] = split["topk_merge"] / max(sum(split.values()), 1e-12)
+        passes[tag] = split
+    b_ms, b_by = bound(DICT_ROWS)
+    big_b_ms, big_b_by = bound(BIG_DICT_ROWS)
+    plan = dict(zip(("queries_per_warp", "splits"), _k1_plan(BATCH, DICT_ROWS)))
+    big_plan = dict(zip(("queries_per_warp", "splits"), _k1_plan(BATCH, BIG_DICT_ROWS)))
     emit("kernels", kernel="cosine_topk_fused",
          cases={k: dict(max_abs_err=e, near_tie_rows=n) for k, (e, n, _) in cases.items()},
-         shape=dict(B=BATCH, N=DICT_ROWS, D=LATENT, k=TOP_N), **times)
+         shape=dict(B=BATCH, N=DICT_ROWS, D=LATENT, k=TOP_N), plan=plan,
+         device_ms_by_pass=passes, **times)
     return dict(
         name="cosine_topk_fused", route="cuda", source="latice_tpu_torch/ops/csrc/topk_fused.cu",
         replaces="latice_tpu/ops/topk_fused.py:220", max_abs_err=max_err,
-        bound_ms=b_ms, bound_by=b_by, **times,
+        bound_ms=b_ms, bound_by=b_by, **times, plan=plan, device_ms_by_pass=passes["n100k"],
         timed_as="B=256, N=100,000, D=16, k=20, dictionary warm in L2",
+        n1m=dict(**big_times, plain_ms=None, bound_ms=big_b_ms, bound_by=big_b_by, plan=big_plan,
+                 device_ms_by_pass=passes["n1m"],
+                 timed_as="B=256, N=1,000,000, D=16, k=20; plain_ms not timed (the twin "
+                          "sorts every row's 1M scores)"),
     )
 
 
@@ -1164,6 +1246,10 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["--topk-only"]:  # K1's checks and times alone; no verdict line
+        print(json.dumps({"kernels": [check_topk(gen)]}), flush=True)
+        print(smi, flush=True)
+        return 0
     k2f, k1 = check_norm(gen), check_topk(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
     k3 = check_stage0(gen)

@@ -107,7 +107,8 @@ def cosine_topk_fused(
     out_i = torch.empty((b, k), dtype=torch.int64, device=dev)
     if b == 0:
         return out_v, out_i
-    splits = _splits(b, n, k, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, splits = _plan(b, n, k, d, sms)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
@@ -129,13 +130,22 @@ def cosine_topk_fused(
 cosine_topk_fused.launches = 0
 
 
-def _splits(b: int, n: int, k: int, device: torch.device) -> int:
-    """How many parts the dictionary is cut into so that about two blocks
-    per SM have work, each part keeping at least ``_MIN_SPLIT_ROWS`` rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    query_blocks = math.ceil(b / _WARPS_PER_BLOCK)
+def _plan(b: int, n: int, k: int, d: int, sms: int) -> tuple[int, int]:
+    """(queries per warp, splits) for ``b`` queries against ``n`` rows of
+    width ``d`` on a card of ``sms`` SMs: the dictionary is cut into
+    splits so that about two blocks per SM have work, each split keeping
+    at least ``max(_MIN_SPLIT_ROWS, k)`` rows."""
+    qw = 1
+    query_blocks = math.ceil(b / (qw * _WARPS_PER_BLOCK))
     want = math.ceil(2 * sms / query_blocks)
-    return max(1, min(want, n // max(_MIN_SPLIT_ROWS, k)))
+    return qw, max(1, min(want, n // max(_MIN_SPLIT_ROWS, k)))
+
+
+def _split_bounds(n: int, splits: int) -> list[int]:
+    """The first row of each split, then ``n``: split ``s`` scores rows
+    ``[bounds[s], bounds[s + 1])``, as the kernel cuts them."""
+    per = -(-n // splits)
+    return [min(n, s * per) for s in range(splits)] + [n]
 
 
 def _lib() -> ctypes.CDLL:
