@@ -10,29 +10,29 @@
 // What bounds it on an H100: operations. At the serving shape (B=256,
 // N=100k, D=16) the scores are 2*B*N*D = 0.82 GFLOP of FP32 CUDA-core work
 // (~12 us at 67 TFLOP/s) against a 6.4 MB dictionary (~2 us at 3.35 TB/s).
-// The TPU kernel's selection (k rounds of max extraction over every score
-// tile) would add ~5*k operations per score on top, and so would a sorted
-// list per lane: some lane of 32 nearly always has a candidate to insert,
-// so the whole warp would run the insertion on most steps. This design is
-// still well above the bound: each warp reads its whole dictionary slice
-// from shared memory for a single query (one FMA per 4 bytes loaded), so
-// shared-memory bandwidth is the likely limit. Scoring several queries per
-// warp from each load is the next step.
+// So every byte a warp reads from shared memory has to feed several FMAs,
+// and the selection has to cost little beside the FMAs.
 //
-// Design: one warp per query, 8 queries per block. The block streams tiles
-// of dictionary rows through shared memory, stored dimension-major so that
-// a lane reads four consecutive rows of one dimension with one 16-byte
-// load; the normalized query sits in registers, and each lane scores four
-// rows per step with four independent FMA chains. The warp keeps one
-// sorted list of its best candidates, entry p in lane p % 32, and every
-// lane holds a copy of the k-th entry as a threshold. A step costs one
-// compare per score and a ballot; the rare candidates that beat the
-// threshold are inserted one at a time, warp-uniformly (count the better
-// entries with a ballot, shift the rest up by one lane). Candidates are
-// ordered by (score desc, index asc) throughout, the counterpart of
-// _extract_topk_tile. With few queries the dictionary is split across
-// blockIdx.y so every SM has work: each split writes its partial top-k,
-// and a second kernel merges the splits' lists with the same list.
+// Design: a block of 8 warps owns 8 * QW queries (QW = 1, 4 or 8 per warp,
+// chosen by the caller from B) and one split of the dictionary, which it
+// streams through shared memory in tiles of 32 KB. A tile is row-major as
+// in device memory, its 16-byte chunks XOR-swizzled so that the 8 lanes of
+// a quarter-warp read 8 distinct bank groups. Each lane holds R = 64/DMAX
+// rows in registers (64 floats), loaded once per step, and scores them
+// against each of its warp's QW queries in turn, the normalized queries
+// read from shared memory as broadcast float4 loads: one row load feeds QW
+// queries. Each (row, query) score is one FMA chain over d = 0..D-1, in
+// order, as in the plain dot product.
+//
+// Selection: for each query the warp keeps one sorted list of its best
+// candidates, entry p in lane p % 32, and every lane holds a copy of the
+// k-th entry as a threshold. A step costs one compare per score and one
+// ballot per query; the rare candidates that beat the threshold are
+// inserted one at a time, warp-uniformly (count the better entries with a
+// ballot, shift the rest up by one lane). Candidates are ordered by (score
+// desc, index asc) throughout, the counterpart of _extract_topk_tile.
+// Each split writes its partial top-k, and a second kernel merges the
+// splits' lists with the same list.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -42,14 +42,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileBytes = 48 * 1024;
-
-// Dictionary rows per shared tile: a multiple of the 128 rows a warp
-// scores per step, within 48 KB of static shared memory.
-template <int DMAX>
-__host__ __device__ constexpr int tile_rows() {
-  return (kTileBytes / (4 * DMAX)) / 128 * 128;
-}
+constexpr int kTileFloats = 8192;  // one 32 KB tile of dictionary rows
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -57,6 +50,12 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 __device__ __forceinline__ bool better(float a, int ai, float b, int bi) {
   return a > b || (a == b && ai < bi);
 }
+
+// Where 16-byte chunk L of a tile is stored: its low 3 bits XORed with
+// bits 4-6. A lane's R rows are 16 consecutive chunks (R * DMAX = 64
+// floats), so lane l's chunks land in bank group (chunk ^ l) % 8, and a
+// quarter-warp's 8 loads of one step hit 8 distinct groups.
+__device__ __forceinline__ int swizzle(int L) { return L ^ ((L >> 4) & 7); }
 
 // A warp's best 32*KW candidates so far, sorted; entry p is slot p / 32 of
 // lane p % 32. Every method is called by all 32 lanes together.
@@ -66,9 +65,8 @@ struct WarpList {
   int i[KW];
   float tv;  // the k-th entry, the bar a candidate must beat
   int ti;
-  int k;
 
-  __device__ __forceinline__ void init(int k_) {
+  __device__ __forceinline__ void init() {
 #pragma unroll
     for (int w = 0; w < KW; ++w) {
       v[w] = neg_inf();
@@ -76,11 +74,12 @@ struct WarpList {
     }
     tv = neg_inf();
     ti = INT_MAX;
-    k = k_;
   }
 
+  __device__ __forceinline__ bool beats(float s, int idx) const { return better(s, idx, tv, ti); }
+
   // Insert (s, idx), the same on every lane and better than the k-th entry.
-  __device__ __forceinline__ void insert(float s, int idx) {
+  __device__ __forceinline__ void insert(float s, int idx, int k) {
     const int lane = threadIdx.x & 31;
     int pos = 0;
 #pragma unroll
@@ -91,8 +90,12 @@ struct WarpList {
     for (int w = 0; w < KW; ++w) {
       float up_v = __shfl_up_sync(kFull, v[w], 1);
       int up_i = __shfl_up_sync(kFull, i[w], 1);
-      const float last_v = __shfl_sync(kFull, v[w], 31);
-      const int last_i = __shfl_sync(kFull, i[w], 31);
+      float last_v = below_v;
+      int last_i = below_i;
+      if (w + 1 < KW) {
+        last_v = __shfl_sync(kFull, v[w], 31);
+        last_i = __shfl_sync(kFull, i[w], 31);
+      }
       if (lane == 0) {
         up_v = below_v;
         up_i = below_i;
@@ -115,19 +118,19 @@ struct WarpList {
 
   // Offer each lane's candidate (s, idx) where ok; those that beat the
   // k-th entry are inserted in lane order.
-  __device__ __forceinline__ void offer(float s, int idx, bool ok) {
-    unsigned m = __ballot_sync(kFull, ok && better(s, idx, tv, ti));
+  __device__ __forceinline__ void offer(float s, int idx, bool ok, int k) {
+    unsigned m = __ballot_sync(kFull, ok && beats(s, idx));
     while (m) {
       const int src = __ffs(m) - 1;
       m &= m - 1;
       const float cs = __shfl_sync(kFull, s, src);
       const int ci = __shfl_sync(kFull, idx, src);
-      if (better(cs, ci, tv, ti)) insert(cs, ci);
+      if (beats(cs, ci)) insert(cs, ci, k);
     }
   }
 
   template <typename IdxT>
-  __device__ __forceinline__ void store(float* out_v, IdxT* out_i) const {
+  __device__ __forceinline__ void store(float* out_v, IdxT* out_i, int k) const {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int w = 0; w < KW; ++w) {
@@ -140,86 +143,120 @@ struct WarpList {
   }
 };
 
-// grid: (ceil(B / kWarps), splits). Split s scores rows
-// [s * rows_per_split, min(N, (s + 1) * rows_per_split)) and writes its best
-// k to out[(b * splits + s) * k ...] as int32 (splits > 1) or int64 indices.
+// grid: (ceil(B / (kWarps * QW)), splits). Split s scores rows
+// [s * N / splits, (s + 1) * N / splits) and writes each query's best k to
+// out[(b * splits + s) * k ...] as int32 (splits > 1) or int64 indices.
 // vec: D == DMAX and the dictionary is 16-byte aligned, so rows load as
 // float4; otherwise the tile's dimensions past D are zero-filled.
-template <int DMAX, int KW>
+template <int DMAX, int KW, int QW>
 __global__ void __launch_bounds__(kWarps * 32)
     topk_partial(const float* __restrict__ q, const float* __restrict__ dict, int B, int N, int D,
-                 int k, int n_valid, int rows_per_split, int vec, float* __restrict__ out_v,
+                 int k, int n_valid, int splits, int vec, float* __restrict__ out_v,
                  int* __restrict__ out_i32, long long* __restrict__ out_i64) {
-  constexpr int TR = tile_rows<DMAX>();
-  __shared__ __align__(16) float tile[DMAX * TR];  // tile[d * TR + row]
+  constexpr int C = DMAX / 4;                // 16-byte chunks per row
+  constexpr int R = 64 / DMAX;               // rows a lane holds per step
+  constexpr int S = 32 * R;                  // rows a warp scores per step
+  constexpr int TR = kTileFloats / DMAX;     // rows per tile, a multiple of S
+  __shared__ __align__(16) float4 tile[TR * C];
+  __shared__ __align__(16) float4 qs[kWarps * QW * C];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
+  const int qb = (blockIdx.x * kWarps + warp) * QW;  // the warp's first query
   const int split = blockIdx.y;
-  const int n0 = split * rows_per_split;
-  const int n1 = min(N, n0 + rows_per_split);
-  const bool active = b < B;  // the same on all lanes of a warp
+  const int n0 = static_cast<int>(static_cast<long long>(split) * N / splits);
+  const int n1 = static_cast<int>(static_cast<long long>(split + 1) * N / splits);
+  const bool active = qb < B;  // the same on all lanes of a warp
 
-  float qr[DMAX];
-  float ss = 0.f;
+  // Normalize the warp's queries into shared memory (zero rows stay zero).
 #pragma unroll
-  for (int d = 0; d < DMAX; ++d) {
-    qr[d] = (active && d < D) ? q[static_cast<long long>(b) * D + d] : 0.f;
-    ss = fmaf(qr[d], qr[d], ss);
+  for (int j = 0; j < QW; ++j) {
+    const int b = qb + j;
+    const float* src = q + static_cast<long long>(b) * D;
+    float ss = 0.f;
+    if (b < B) {
+      for (int d = 0; d < D; ++d) ss = fmaf(src[d], src[d], ss);
+    }
+    float norm = sqrtf(ss);
+    if (norm == 0.f) norm = 1.f;
+    float* dst = reinterpret_cast<float*>(qs + (warp * QW + j) * C);
+    for (int d = lane; d < DMAX; d += 32) dst[d] = (b < B && d < D) ? src[d] / norm : 0.f;
   }
-  float norm = sqrtf(ss);
-  if (norm == 0.f) norm = 1.f;
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) qr[d] = qr[d] / norm;
 
-  WarpList<KW> list;
-  list.init(k);
+  WarpList<KW> list[QW];
+#pragma unroll
+  for (int j = 0; j < QW; ++j) list[j].init();
   for (int t0 = n0; t0 < n1; t0 += TR) {
     const int rows = min(TR, n1 - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float* src = dict + static_cast<long long>(t0 + r) * D;
-      if (vec) {
-#pragma unroll
-        for (int c = 0; c < DMAX / 4; ++c) {
-          const float4 x = reinterpret_cast<const float4*>(src)[c];
-          tile[(4 * c + 0) * TR + r] = x.x;
-          tile[(4 * c + 1) * TR + r] = x.y;
-          tile[(4 * c + 2) * TR + r] = x.z;
-          tile[(4 * c + 3) * TR + r] = x.w;
+    __syncthreads();  // the previous tile is consumed (and the queries written)
+    for (int L = threadIdx.x; L < TR * C; L += kWarps * 32) {
+      const int r = L / C, c = L % C;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows) {
+        const float* src = dict + static_cast<long long>(t0 + r) * D;
+        if (vec) {
+          x = reinterpret_cast<const float4*>(src)[c];
+        } else {
+          const int d = 4 * c;
+          x.x = d < D ? src[d] : 0.f;
+          x.y = d + 1 < D ? src[d + 1] : 0.f;
+          x.z = d + 2 < D ? src[d + 2] : 0.f;
+          x.w = d + 3 < D ? src[d + 3] : 0.f;
         }
-      } else {
-#pragma unroll
-        for (int d = 0; d < DMAX; ++d) tile[d * TR + r] = d < D ? src[d] : 0.f;
       }
+      tile[swizzle(L)] = x;
     }
     __syncthreads();
     if (!active) continue;
-    for (int j0 = 0; j0 < rows; j0 += 128) {
-      const int j = j0 + 4 * lane;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j0 = 0; j0 < rows; j0 += S) {
+      float4 row[R][C];
 #pragma unroll
-      for (int d = 0; d < DMAX; ++d) {
-        // Rows past `rows` hold stale values; they are never offered.
-        const float4 t = *reinterpret_cast<const float4*>(tile + d * TR + j);
-        acc[0] = fmaf(qr[d], t.x, acc[0]);
-        acc[1] = fmaf(qr[d], t.y, acc[1]);
-        acc[2] = fmaf(qr[d], t.z, acc[2]);
-        acc[3] = fmaf(qr[d], t.w, acc[3]);
+      for (int u = 0; u < R; ++u) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) row[u][c] = tile[((j0 + lane * R) * C + u * C + c) ^ (lane & 7)];
       }
+      const int first = j0 + lane * R;  // the lane's first row in the tile
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int col = t0 + j + u;
-        list.offer(col < n_valid ? acc[u] : neg_inf(), col, j + u < rows);
+      for (int j = 0; j < QW; ++j) {
+        if (qb + j >= B) break;  // warp-uniform: the last block's spare queries
+        float acc[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u) acc[u] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float4 qv = qs[(warp * QW + j) * C + c];
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            acc[u] = fmaf(qv.x, row[u][c].x, acc[u]);
+            acc[u] = fmaf(qv.y, row[u][c].y, acc[u]);
+            acc[u] = fmaf(qv.z, row[u][c].z, acc[u]);
+            acc[u] = fmaf(qv.w, row[u][c].w, acc[u]);
+          }
+        }
+        bool any = false;
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int col = t0 + first + u;
+          acc[u] = col < n_valid ? acc[u] : neg_inf();
+          any |= first + u < rows && list[j].beats(acc[u], col);
+        }
+        if (__ballot_sync(kFull, any)) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) list[j].offer(acc[u], t0 + first + u, first + u < rows, k);
+        }
       }
     }
   }
   if (!active) return;
-  const long long base = (static_cast<long long>(b) * gridDim.y + split) * k;
-  if (out_i64 != nullptr) {
-    list.store(out_v + base, out_i64 + base);
-  } else {
-    list.store(out_v + base, out_i32 + base);
+#pragma unroll
+  for (int j = 0; j < QW; ++j) {
+    const int b = qb + j;
+    if (b >= B) break;
+    const long long base = (static_cast<long long>(b) * splits + split) * k;
+    if (out_i64 != nullptr) {
+      list[j].store(out_v + base, out_i64 + base, k);
+    } else {
+      list[j].store(out_v + base, out_i32 + base, k);
+    }
   }
 }
 
@@ -232,14 +269,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (b >= B) return;  // the same on all lanes of a warp
   const int lane = threadIdx.x & 31;
   WarpList<KW> list;
-  list.init(k);
+  list.init();
   const long long base = static_cast<long long>(b) * m;
   for (int j0 = 0; j0 < m; j0 += 32) {
     const int j = j0 + lane;
     const bool ok = j < m;
-    list.offer(ok ? part_v[base + j] : neg_inf(), ok ? part_i[base + j] : INT_MAX, ok);
+    list.offer(ok ? part_v[base + j] : neg_inf(), ok ? part_i[base + j] : INT_MAX, ok, k);
   }
-  list.store(out_v + static_cast<long long>(b) * k, out_i + static_cast<long long>(b) * k);
+  list.store(out_v + static_cast<long long>(b) * k, out_i + static_cast<long long>(b) * k, k);
 }
 
 struct Args {
@@ -249,23 +286,20 @@ struct Args {
   long long* out_i;
   float* part_v;
   int* part_i;
-  int B, N, D, k, n_valid, splits;
+  int B, N, D, k, n_valid, splits, qw;
 };
 
-template <int DMAX, int KW>
+template <int DMAX, int KW, int QW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int rows_per_split = (a.N + a.splits - 1) / a.splits;
   const int vec = a.D == DMAX && reinterpret_cast<uintptr_t>(a.dict) % 16 == 0;
-  const dim3 grid((a.B + kWarps - 1) / kWarps, a.splits);
+  const dim3 grid((a.B + kWarps * QW - 1) / (kWarps * QW), a.splits);
   if (a.splits == 1) {
-    topk_partial<DMAX, KW><<<grid, kWarps * 32, 0, stream>>>(
-        a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, rows_per_split, vec, a.out_v, nullptr,
-        a.out_i);
+    topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
+        a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, a.out_v, nullptr, a.out_i);
     return cudaGetLastError();
   }
-  topk_partial<DMAX, KW><<<grid, kWarps * 32, 0, stream>>>(
-      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, rows_per_split, vec, a.part_v, a.part_i,
-      nullptr);
+  topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
+      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.part_v, a.part_i, nullptr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   topk_merge<KW><<<(a.B + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
@@ -273,9 +307,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int DMAX, int KW>
+cudaError_t launch_qw(const Args& a, cudaStream_t stream) {
+  switch (a.qw) {
+    case 1: return launch<DMAX, KW, 1>(a, stream);
+    case 4: return launch<DMAX, KW, 4>(a, stream);
+    default: return launch<DMAX, KW, 8>(a, stream);
+  }
+}
+
 template <int DMAX>
 cudaError_t launch_k(const Args& a, cudaStream_t stream) {
-  return a.k <= 32 ? launch<DMAX, 1>(a, stream) : launch<DMAX, 2>(a, stream);
+  return a.k <= 32 ? launch_qw<DMAX, 1>(a, stream) : launch_qw<DMAX, 2>(a, stream);
 }
 
 }  // namespace
@@ -284,18 +327,19 @@ extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
 // part_v / part_i: (B, splits, k) f32 / int32 scratch, unused when
-// splits == 1. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64.
-// Returns cudaGetLastError() after the launches.
+// splits == 1. queries_per_warp is 1, 4 or 8. Requires 1 <= k <= 64,
+// k <= N, 1 <= D <= 64. Returns cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,
                              void* part_v, void* part_i, int B, int N, int D, int k, int n_valid,
-                             int splits, void* stream) {
-  if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1) {
+                             int splits, int queries_per_warp, void* stream) {
+  const int qw = queries_per_warp;
+  if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1 || (qw != 1 && qw != 4 && qw != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(q), static_cast<const float*>(dict),
                static_cast<float*>(out_v),   static_cast<long long*>(out_i),
                static_cast<float*>(part_v),  static_cast<int*>(part_i),
-               B, N, D, k, n_valid, splits};
+               B, N, D, k, n_valid, splits, qw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (D <= 16) {

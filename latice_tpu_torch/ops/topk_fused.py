@@ -27,8 +27,10 @@ __all__ = ["cosine_topk_fused", "cosine_topk_fused_plain"]
 
 _MAX_K = 64
 _MAX_D = 64
-_WARPS_PER_BLOCK = 8  # queries per block, as kWarps in the source
+_WARPS_PER_BLOCK = 8  # as kWarps in the source
+_QUERIES_PER_WARP = (8, 4, 1)  # the kernel's template set, largest first
 _MIN_SPLIT_ROWS = 1024
+_BLOCKS_PER_SM = 2
 
 
 def _check_k(k: int, n: int) -> None:
@@ -108,7 +110,7 @@ def cosine_topk_fused(
     if b == 0:
         return out_v, out_i
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, splits = _plan(b, n, k, d, sms)
+    qw, splits = _plan(b, n, k, d, sms)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
@@ -120,7 +122,7 @@ def cosine_topk_fused(
             queries.data_ptr(), dictionary.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
             None if part_v is None else part_v.data_ptr(),
             None if part_i is None else part_i.data_ptr(),
-            b, n, d, k, n_valid, splits, stream,
+            b, n, d, k, n_valid, splits, qw, stream,
         )
     _build.check(lib, code, "cosine_topk_fused")
     cosine_topk_fused.launches += 1
@@ -132,20 +134,24 @@ cosine_topk_fused.launches = 0
 
 def _plan(b: int, n: int, k: int, d: int, sms: int) -> tuple[int, int]:
     """(queries per warp, splits) for ``b`` queries against ``n`` rows of
-    width ``d`` on a card of ``sms`` SMs: the dictionary is cut into
-    splits so that about two blocks per SM have work, each split keeping
-    at least ``max(_MIN_SPLIT_ROWS, k)`` rows."""
-    qw = 1
+    width ``d`` on a card of ``sms`` SMs.
+
+    A warp scores each row it loads against its queries, so it takes as
+    many as B fills: the largest of `_QUERIES_PER_WARP` with at least one
+    whole block of queries. The dictionary is then cut into splits so that
+    about `_BLOCKS_PER_SM` blocks per SM have work, each split keeping at
+    least ``max(_MIN_SPLIT_ROWS, k)`` rows. ``d`` does not change the plan.
+    """
+    qw = next(q for q in _QUERIES_PER_WARP if q == 1 or b >= q * _WARPS_PER_BLOCK)
     query_blocks = math.ceil(b / (qw * _WARPS_PER_BLOCK))
-    want = math.ceil(2 * sms / query_blocks)
+    want = math.ceil(_BLOCKS_PER_SM * sms / query_blocks)
     return qw, max(1, min(want, n // max(_MIN_SPLIT_ROWS, k)))
 
 
 def _split_bounds(n: int, splits: int) -> list[int]:
     """The first row of each split, then ``n``: split ``s`` scores rows
     ``[bounds[s], bounds[s + 1])``, as the kernel cuts them."""
-    per = -(-n // splits)
-    return [min(n, s * per) for s in range(splits)] + [n]
+    return [s * n // splits for s in range(splits + 1)]
 
 
 def _lib() -> ctypes.CDLL:
@@ -153,6 +159,6 @@ def _lib() -> ctypes.CDLL:
     fn = lib.latice_cosine_topk_fused
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
