@@ -51,6 +51,16 @@ __device__ __forceinline__ bool better(float a, int ai, float b, int bi) {
   return a > b || (a == b && ai < bi);
 }
 
+// An unsigned key of a score that orders as the scores do; key 0 (what a
+// zeroed bar holds) decodes to NaN and so raises no threshold.
+__device__ __forceinline__ unsigned score_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_score(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
 // Where 16-byte chunk L of a tile is stored: its low 3 bits XORed with
 // bits 4-6. A lane's R rows are 16 consecutive chunks (R * DMAX = 64
 // floats), so lane l's chunks land in bank group (chunk ^ l) % 8, and a
@@ -63,8 +73,9 @@ template <int KW>
 struct WarpList {
   float v[KW];
   int i[KW];
-  float tv;  // the k-th entry, the bar a candidate must beat
-  int ti;
+  float tv;  // the threshold a candidate must beat: the k-th entry, or
+  int ti;    // (bar, INT_MAX) where the bar is higher
+  float bar;  // a score the query's k-th best is known to reach
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -74,6 +85,24 @@ struct WarpList {
     }
     tv = neg_inf();
     ti = INT_MAX;
+    bar = neg_inf();
+  }
+
+  // The list's own k-th score.
+  __device__ __forceinline__ float kth(int k) const {
+    return __shfl_sync(kFull, (KW == 1 || k <= 32) ? v[0] : v[KW - 1], (k - 1) & 31);
+  }
+
+  // A candidate strictly below the bar cannot be among the best k of the
+  // query, so it is dropped; one equal to it is kept.
+  __device__ __forceinline__ void raise_bar(float b) {
+    if (b > bar) {
+      bar = b;
+      if (bar > tv) {
+        tv = bar;
+        ti = INT_MAX;
+      }
+    }
   }
 
   __device__ __forceinline__ bool beats(float s, int idx) const { return better(s, idx, tv, ti); }
@@ -114,6 +143,10 @@ struct WarpList {
     const bool low = KW == 1 || k <= 32;
     tv = __shfl_sync(kFull, low ? v[0] : v[KW - 1], (k - 1) & 31);
     ti = __shfl_sync(kFull, low ? i[0] : i[KW - 1], (k - 1) & 31);
+    if (bar > tv) {
+      tv = bar;
+      ti = INT_MAX;
+    }
   }
 
   // Offer each lane's candidate (s, idx) where ok; those that beat the
@@ -151,8 +184,9 @@ struct WarpList {
 template <int DMAX, int KW, int QW>
 __global__ void __launch_bounds__(kWarps * 32)
     topk_partial(const float* __restrict__ q, const float* __restrict__ dict, int B, int N, int D,
-                 int k, int n_valid, int splits, int vec, float* __restrict__ out_v,
-                 int* __restrict__ out_i32, long long* __restrict__ out_i64) {
+                 int k, int n_valid, int splits, int vec, unsigned* __restrict__ bars,
+                 float* __restrict__ out_v, int* __restrict__ out_i32,
+                 long long* __restrict__ out_i64) {
   constexpr int C = DMAX / 4;                // 16-byte chunks per row
   constexpr int R = 64 / DMAX;               // rows a lane holds per step
   constexpr int S = 32 * R;                  // rows a warp scores per step
@@ -207,6 +241,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncthreads();
     if (!active) continue;
+    if (bars != nullptr) {  // the bars the other splits have raised so far
+      const unsigned key = lane < QW && qb + lane < B ? __ldcg(bars + qb + lane) : 0u;
+#pragma unroll
+      for (int j = 0; j < QW; ++j) list[j].raise_bar(key_score(__shfl_sync(kFull, key, j)));
+    }
     for (int j0 = 0; j0 < rows; j0 += S) {
       float4 row[R][C];
 #pragma unroll
@@ -242,6 +281,17 @@ __global__ void __launch_bounds__(kWarps * 32)
         if (__ballot_sync(kFull, any)) {
 #pragma unroll
           for (int u = 0; u < R; ++u) list[j].offer(acc[u], t0 + first + u, first + u < rows, k);
+        }
+      }
+    }
+    if (bars != nullptr) {  // publish each list's k-th where it passed the bar
+#pragma unroll
+      for (int j = 0; j < QW; ++j) {
+        if (qb + j >= B) break;
+        const float kv = list[j].kth(k);
+        if (kv > list[j].bar) {
+          if (lane == 0) atomicMax(bars + qb + j, score_key(kv));
+          list[j].raise_bar(kv);
         }
       }
     }
@@ -286,6 +336,7 @@ struct Args {
   long long* out_i;
   float* part_v;
   int* part_i;
+  unsigned* bars;
   int B, N, D, k, n_valid, splits, qw;
 };
 
@@ -295,12 +346,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.B + kWarps * QW - 1) / (kWarps * QW), a.splits);
   if (a.splits == 1) {
     topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
-        a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, a.out_v, nullptr, a.out_i);
+        a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, nullptr, a.out_v, nullptr, a.out_i);
     return cudaGetLastError();
   }
+  cudaError_t e = cudaMemsetAsync(a.bars, 0, sizeof(unsigned) * a.B, stream);
+  if (e != cudaSuccess) return e;
   topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
-      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.part_v, a.part_i, nullptr);
-  cudaError_t e = cudaGetLastError();
+      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.bars, a.part_v, a.part_i,
+      nullptr);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   topk_merge<KW><<<(a.B + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
       a.part_v, a.part_i, a.B, a.splits * a.k, a.k, a.out_v, a.out_i);
@@ -326,11 +380,12 @@ cudaError_t launch_k(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
-// part_v / part_i: (B, splits, k) f32 / int32 scratch, unused when
-// splits == 1. queries_per_warp is 1, 4 or 8. Requires 1 <= k <= 64,
+// part_v / part_i / bars: (B, splits, k) f32, (B, splits, k) int32 and
+// (B,) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4 or 8. Requires 1 <= k <= 64,
 // k <= N, 1 <= D <= 64. Returns cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,
-                             void* part_v, void* part_i, int B, int N, int D, int k, int n_valid,
+                             void* part_v, void* part_i, void* bars, int B, int N, int D, int k,
+                             int n_valid,
                              int splits, int queries_per_warp, void* stream) {
   const int qw = queries_per_warp;
   if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1 || (qw != 1 && qw != 4 && qw != 8)) {
@@ -339,7 +394,7 @@ int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void*
   const Args a{static_cast<const float*>(q), static_cast<const float*>(dict),
                static_cast<float*>(out_v),   static_cast<long long*>(out_i),
                static_cast<float*>(part_v),  static_cast<int*>(part_i),
-               B, N, D, k, n_valid, splits, qw};
+               static_cast<unsigned*>(bars), B, N, D, k, n_valid, splits, qw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (D <= 16) {
