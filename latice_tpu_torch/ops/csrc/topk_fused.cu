@@ -27,12 +27,23 @@
 // Selection: for each query the warp keeps one sorted list of its best
 // candidates, entry p in lane p % 32, and every lane holds a copy of the
 // k-th entry as a threshold. A step costs one compare per score and one
-// ballot per query; the rare candidates that beat the threshold are
-// inserted one at a time, warp-uniformly (count the better entries with a
-// ballot, shift the rest up by one lane). Candidates are ordered by (score
-// desc, index asc) throughout, the counterpart of _extract_topk_tile.
-// Each split writes its partial top-k, and a second kernel merges the
-// splits' lists with the same list.
+// ballot per query. Candidates that beat the threshold are inserted one at
+// a time, warp-uniformly (count the better entries with a ballot, shift
+// the rest up by one lane), or, when more than kBulk arrive in one ballot
+// (a list filling up), sorted by a bitonic network and merged in whole.
+// Candidates are ordered by (score desc, index asc) throughout, the
+// counterpart of _extract_topk_tile.
+//
+// Splits: with few queries the dictionary is cut into splits across
+// blockIdx.y so that every SM has work; each split writes its partial
+// top-k and a second kernel merges them with the same list. A split's
+// list would insert ~k * (1 + ln(rows / k)) candidates alone, so the
+// splits of a query share a bar in device memory: the highest k-th score
+// any split's list has reached, a lower bound on the query's k-th best.
+// Each split raises it with atomicMax and rereads it at every tile, and
+// drops candidates strictly below it (ties stay, so (score, index) order
+// still decides). Only rows that cannot be in the answer are dropped, so
+// the result does not depend on the order of the atomics.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -66,6 +77,60 @@ __device__ __forceinline__ float key_score(unsigned key) {
 // floats), so lane l's chunks land in bank group (chunk ^ l) % 8, and a
 // quarter-warp's 8 loads of one step hit 8 distinct groups.
 __device__ __forceinline__ int swizzle(int L) { return L ^ ((L >> 4) & 7); }
+
+// Warp-wide bitonic networks over one (score, index) candidate per lane,
+// in the order of `better`, best in lane 0.
+
+// Exchange with lane ^ j, keeping the better of the pair iff keep_better.
+__device__ __forceinline__ void exchange(float& v, int& i, int j, bool keep_better) {
+  const float ov = __shfl_xor_sync(kFull, v, j);
+  const int oi = __shfl_xor_sync(kFull, i, j);
+  if (better(ov, oi, v, i) == keep_better) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Sort a bitonic sequence (5 exchanges).
+__device__ __forceinline__ void warp_bitonic_merge(float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) exchange(v, i, j, (lane & j) == 0);
+}
+
+// Sort any sequence (15 exchanges).
+__device__ __forceinline__ void warp_sort(float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+    const bool best_first = (lane & size) == 0;  // runs of `size` alternate
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) exchange(v, i, j, ((lane & j) == 0) == best_first);
+  }
+}
+
+// a and b sorted: a becomes the best 32 of the 64, sorted; b the other 32,
+// as a bitonic sequence.
+__device__ __forceinline__ void warp_merge(float& av, int& ai, float& bv, int& bi) {
+  const int lane = threadIdx.x & 31;
+  const float rv = __shfl_sync(kFull, bv, 31 - lane);
+  const int ri = __shfl_sync(kFull, bi, 31 - lane);
+  if (better(rv, ri, av, ai)) {
+    bv = av;
+    bi = ai;
+    av = rv;
+    ai = ri;
+  } else {
+    bv = rv;
+    bi = ri;
+  }
+  warp_bitonic_merge(av, ai);
+}
+
+// Past this many candidates in one ballot, sorting them and merging the
+// sorted run into the list (~20 exchanges) is cheaper than inserting them
+// one by one (each a chain of ~25 dependent instructions).
+constexpr int kBulk = 6;
 
 // A warp's best 32*KW candidates so far, sorted; entry p is slot p / 32 of
 // lane p % 32. Every method is called by all 32 lanes together.
@@ -140,6 +205,10 @@ struct WarpList {
       below_v = last_v;
       below_i = last_i;
     }
+    set_threshold(k);
+  }
+
+  __device__ __forceinline__ void set_threshold(int k) {
     const bool low = KW == 1 || k <= 32;
     tv = __shfl_sync(kFull, low ? v[0] : v[KW - 1], (k - 1) & 31);
     ti = __shfl_sync(kFull, low ? i[0] : i[KW - 1], (k - 1) & 31);
@@ -150,9 +219,22 @@ struct WarpList {
   }
 
   // Offer each lane's candidate (s, idx) where ok; those that beat the
-  // k-th entry are inserted in lane order.
+  // threshold are sorted and merged in, or, if few, inserted in lane order.
   __device__ __forceinline__ void offer(float s, int idx, bool ok, int k) {
-    unsigned m = __ballot_sync(kFull, ok && beats(s, idx));
+    const bool mine = ok && beats(s, idx);
+    unsigned m = __ballot_sync(kFull, mine);
+    if (__popc(m) > kBulk) {
+      float cv = mine ? s : neg_inf();
+      int ci = mine ? idx : INT_MAX;
+      warp_sort(cv, ci);
+      warp_merge(v[0], i[0], cv, ci);
+      if (KW > 1) {  // the best 32 stay in slot 0; the rest meet slot 1
+        warp_bitonic_merge(cv, ci);
+        warp_merge(v[KW - 1], i[KW - 1], cv, ci);
+      }
+      set_threshold(k);
+      return;
+    }
     while (m) {
       const int src = __ffs(m) - 1;
       m &= m - 1;
