@@ -517,6 +517,26 @@ def check_topk(gen: torch.Generator) -> dict:
     )
 
 
+def sweep_topk_plan(gen: torch.Generator) -> None:
+    """K1 at both timed shapes with the planner aiming at 1, 2, 4 or 8
+    blocks per SM (2 is the default): how the split count trades the SMs'
+    fill against each split's own list."""
+    from latice_tpu_torch.ops import cosine_topk_fused, topk_fused
+
+    q = torch.randn((BATCH, LATENT), device="cuda", generator=gen)
+    rows, default = [], topk_fused._BLOCKS_PER_SM
+    try:
+        for per_sm in (1, 2, 4, 8):
+            topk_fused._BLOCKS_PER_SM = per_sm
+            for n in (DICT_ROWS, BIG_DICT_ROWS):
+                d = _unit_rows(n, LATENT, gen)
+                rows.append(dict(blocks_per_sm=per_sm, N=n, plan=_k1_plan(BATCH, n),
+                                 ms=cuda_ms(lambda: cosine_topk_fused(q, d, TOP_N))))
+    finally:
+        topk_fused._BLOCKS_PER_SM = default
+    emit("k1_plan_sweep", shape=dict(B=BATCH, D=LATENT, k=TOP_N), rows=rows)
+
+
 def check_stage0(gen: torch.Generator) -> dict:
     """K3 against its twin at the serving shape (B=256, C=32, 128x128) and at
     an odd batch and size (B=3, 64x64: partial tiles of 16x16), uint8/255
@@ -1247,7 +1267,9 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     if sys.argv[1:] == ["--topk-only"]:  # K1's checks and times alone; no verdict line
-        print(json.dumps({"kernels": [check_topk(gen)]}), flush=True)
+        k1 = check_topk(gen)
+        sweep_topk_plan(gen)
+        print(json.dumps({"kernels": [k1]}), flush=True)
         print(smi, flush=True)
         return 0
     k2f, k1 = check_norm(gen), check_topk(gen)

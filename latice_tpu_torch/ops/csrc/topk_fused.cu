@@ -15,7 +15,8 @@
 //
 // Design: a block of 8 warps owns 8 * QW queries (QW = 1, 4 or 8 per warp,
 // chosen by the caller from B) and one split of the dictionary, which it
-// streams through shared memory in tiles of 32 KB. A tile is row-major as
+// streams through shared memory in tiles of 32 KB, two in a ring: cp.async
+// fills the next tile while the warps score this one. A tile is row-major as
 // in device memory, its 16-byte chunks XOR-swizzled so that the 8 lanes of
 // a quarter-warp read 8 distinct bank groups. Each lane holds R = 64/DMAX
 // rows in registers (64 floats), loaded once per step, and scores them
@@ -131,6 +132,46 @@ __device__ __forceinline__ void warp_merge(float& av, int& ai, float& bv, int& b
 // sorted run into the list (~20 exchanges) is cheaper than inserting them
 // one by one (each a chain of ~25 dependent instructions).
 constexpr int kBulk = 6;
+
+// Asynchronous 16- and 4-byte copies into shared memory; a source size
+// of 0 writes zeros.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 4 : 0));
+  }
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying `rows` dictionary rows from t0 into a tile (chunks
+// swizzled, rows past `rows` and dimensions past D zero) as one group.
+template <int C, int TR>
+__device__ __forceinline__ void load_tile(float4* tile, const float* dict, int t0, int rows, int D,
+                                          int vec) {
+  for (int L = threadIdx.x; L < TR * C; L += kWarps * 32) {
+    const int r = L / C, c = L % C;
+    const bool in = r < rows;
+    const float* src = in ? dict + static_cast<long long>(t0 + r) * D : dict;
+    float4* dst = tile + swizzle(L);
+    if (vec) {
+      cp_async(dst, src + (in ? 4 * c : 0), 16, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = in && 4 * c + e < D;
+        cp_async(reinterpret_cast<float*>(dst) + e, ok ? src + 4 * c + e : dict, 4, ok);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
 // A warp's best 32*KW candidates so far, sorted; entry p is slot p / 32 of
 // lane p % 32. Every method is called by all 32 lanes together.
@@ -273,8 +314,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   constexpr int R = 64 / DMAX;               // rows a lane holds per step
   constexpr int S = 32 * R;                  // rows a warp scores per step
   constexpr int TR = kTileFloats / DMAX;     // rows per tile, a multiple of S
-  __shared__ __align__(16) float4 tile[TR * C];
-  __shared__ __align__(16) float4 qs[kWarps * QW * C];
+  extern __shared__ __align__(16) float4 smem[];
+  float4* ring = smem;                // two tiles
+  float4* qs = smem + 2 * TR * C;     // the block's normalized queries
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int qb = (blockIdx.x * kWarps + warp) * QW;  // the warp's first query
@@ -301,82 +343,81 @@ __global__ void __launch_bounds__(kWarps * 32)
   WarpList<KW> list[QW];
 #pragma unroll
   for (int j = 0; j < QW; ++j) list[j].init();
-  for (int t0 = n0; t0 < n1; t0 += TR) {
+  const int tiles = (n1 - n0 + TR - 1) / TR;
+  if (tiles > 0) load_tile<C, TR>(ring, dict, n0, min(TR, n1 - n0), D, vec);
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = n0 + t * TR;
     const int rows = min(TR, n1 - t0);
-    __syncthreads();  // the previous tile is consumed (and the queries written)
-    for (int L = threadIdx.x; L < TR * C; L += kWarps * 32) {
-      const int r = L / C, c = L % C;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < rows) {
-        const float* src = dict + static_cast<long long>(t0 + r) * D;
-        if (vec) {
-          x = reinterpret_cast<const float4*>(src)[c];
-        } else {
-          const int d = 4 * c;
-          x.x = d < D ? src[d] : 0.f;
-          x.y = d + 1 < D ? src[d + 1] : 0.f;
-          x.z = d + 2 < D ? src[d + 2] : 0.f;
-          x.w = d + 3 < D ? src[d + 3] : 0.f;
-        }
-      }
-      tile[swizzle(L)] = x;
+    const float4* tile = ring + (t & 1) * TR * C;
+    if (t + 1 < tiles) {  // the next tile streams in while this one is scored
+      load_tile<C, TR>(ring + ((t + 1) & 1) * TR * C, dict, t0 + TR, min(TR, n1 - t0 - TR), D,
+                       vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    if (!active) continue;
-    if (bars != nullptr) {  // the bars the other splits have raised so far
-      const unsigned key = lane < QW && qb + lane < B ? __ldcg(bars + qb + lane) : 0u;
+    __syncthreads();  // this tile (and the queries) are in shared memory
+    if (active) {
+      if (bars != nullptr) {  // the bars the other splits have raised so far
+        const unsigned key = lane < QW && qb + lane < B ? __ldcg(bars + qb + lane) : 0u;
 #pragma unroll
-      for (int j = 0; j < QW; ++j) list[j].raise_bar(key_score(__shfl_sync(kFull, key, j)));
-    }
-    for (int j0 = 0; j0 < rows; j0 += S) {
-      float4 row[R][C];
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) row[u][c] = tile[((j0 + lane * R) * C + u * C + c) ^ (lane & 7)];
+        for (int j = 0; j < QW; ++j) list[j].raise_bar(key_score(__shfl_sync(kFull, key, j)));
       }
-      const int first = j0 + lane * R;  // the lane's first row in the tile
-#pragma unroll
-      for (int j = 0; j < QW; ++j) {
-        if (qb + j >= B) break;  // warp-uniform: the last block's spare queries
-        float acc[R];
-#pragma unroll
-        for (int u = 0; u < R; ++u) acc[u] = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float4 qv = qs[(warp * QW + j) * C + c];
-#pragma unroll
-          for (int u = 0; u < R; ++u) {
-            acc[u] = fmaf(qv.x, row[u][c].x, acc[u]);
-            acc[u] = fmaf(qv.y, row[u][c].y, acc[u]);
-            acc[u] = fmaf(qv.z, row[u][c].z, acc[u]);
-            acc[u] = fmaf(qv.w, row[u][c].w, acc[u]);
-          }
-        }
-        bool any = false;
+      for (int j0 = 0; j0 < rows; j0 += S) {
+        float4 row[R][C];
 #pragma unroll
         for (int u = 0; u < R; ++u) {
-          const int col = t0 + first + u;
-          acc[u] = col < n_valid ? acc[u] : neg_inf();
-          any |= first + u < rows && list[j].beats(acc[u], col);
-        }
-        if (__ballot_sync(kFull, any)) {
 #pragma unroll
-          for (int u = 0; u < R; ++u) list[j].offer(acc[u], t0 + first + u, first + u < rows, k);
+          for (int c = 0; c < C; ++c) {
+            row[u][c] = tile[((j0 + lane * R) * C + u * C + c) ^ (lane & 7)];
+          }
+        }
+        const int first = j0 + lane * R;  // the lane's first row in the tile
+#pragma unroll
+        for (int j = 0; j < QW; ++j) {
+          if (qb + j >= B) break;  // warp-uniform: the last block's spare queries
+          float acc[R];
+#pragma unroll
+          for (int u = 0; u < R; ++u) acc[u] = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float4 qv = qs[(warp * QW + j) * C + c];
+#pragma unroll
+            for (int u = 0; u < R; ++u) {
+              acc[u] = fmaf(qv.x, row[u][c].x, acc[u]);
+              acc[u] = fmaf(qv.y, row[u][c].y, acc[u]);
+              acc[u] = fmaf(qv.z, row[u][c].z, acc[u]);
+              acc[u] = fmaf(qv.w, row[u][c].w, acc[u]);
+            }
+          }
+          bool any = false;
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const int col = t0 + first + u;
+            acc[u] = col < n_valid ? acc[u] : neg_inf();
+            any |= first + u < rows && list[j].beats(acc[u], col);
+          }
+          if (__ballot_sync(kFull, any)) {
+#pragma unroll
+            for (int u = 0; u < R; ++u) {
+              list[j].offer(acc[u], t0 + first + u, first + u < rows, k);
+            }
+          }
+        }
+      }
+      if (bars != nullptr) {  // publish each list's k-th where it passed the bar
+#pragma unroll
+        for (int j = 0; j < QW; ++j) {
+          if (qb + j >= B) break;
+          const float kv = list[j].kth(k);
+          if (kv > list[j].bar) {
+            if (lane == 0) atomicMax(bars + qb + j, score_key(kv));
+            list[j].raise_bar(kv);
+          }
         }
       }
     }
-    if (bars != nullptr) {  // publish each list's k-th where it passed the bar
-#pragma unroll
-      for (int j = 0; j < QW; ++j) {
-        if (qb + j >= B) break;
-        const float kv = list[j].kth(k);
-        if (kv > list[j].bar) {
-          if (lane == 0) atomicMax(bars + qb + j, score_key(kv));
-          list[j].raise_bar(kv);
-        }
-      }
-    }
+    __syncthreads();  // every warp is done with this tile before it is refilled
   }
   if (!active) return;
 #pragma unroll
@@ -424,16 +465,20 @@ struct Args {
 
 template <int DMAX, int KW, int QW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = (2 * kTileFloats + kWarps * QW * DMAX) * 4;  // two tiles, the queries
+  cudaError_t e = cudaFuncSetAttribute(topk_partial<DMAX, KW, QW>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
   const int vec = a.D == DMAX && reinterpret_cast<uintptr_t>(a.dict) % 16 == 0;
   const dim3 grid((a.B + kWarps * QW - 1) / (kWarps * QW), a.splits);
   if (a.splits == 1) {
-    topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
+    topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, bytes, stream>>>(
         a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, nullptr, a.out_v, nullptr, a.out_i);
     return cudaGetLastError();
   }
-  cudaError_t e = cudaMemsetAsync(a.bars, 0, sizeof(unsigned) * a.B, stream);
+  e = cudaMemsetAsync(a.bars, 0, sizeof(unsigned) * a.B, stream);
   if (e != cudaSuccess) return e;
-  topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, 0, stream>>>(
+  topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, bytes, stream>>>(
       a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.bars, a.part_v, a.part_i,
       nullptr);
   e = cudaGetLastError();
@@ -463,8 +508,9 @@ extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
 // part_v / part_i / bars: (B, splits, k) f32, (B, splits, k) int32 and
-// (B,) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4 or 8. Requires 1 <= k <= 64,
-// k <= N, 1 <= D <= 64. Returns cudaGetLastError() after the launches.
+// (B,) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
+// or 8. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64. Returns
+// cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,
                              void* part_v, void* part_i, void* bars, int B, int N, int D, int k,
                              int n_valid,
