@@ -13,38 +13,46 @@
 // So every byte a warp reads from shared memory has to feed several FMAs,
 // and the selection has to cost little beside the FMAs.
 //
-// Design: a block of 8 warps owns 8 * QW queries (QW = 1, 4 or 8 per warp,
-// chosen by the caller from B) and one split of the dictionary, which it
-// streams through shared memory in tiles of 32 KB, two in a ring: cp.async
-// fills the next tile while the warps score this one. A tile is row-major as
-// in device memory, its 16-byte chunks XOR-swizzled so that the 8 lanes of
-// a quarter-warp read 8 distinct bank groups. Each lane holds R = 64/DMAX
-// rows in registers (64 floats), loaded once per step, and scores them
-// against each of its warp's QW queries in turn, the normalized queries
-// read from shared memory as broadcast float4 loads: one row load feeds QW
-// queries. Each (row, query) score is one FMA chain over d = 0..D-1, in
-// order, as in the plain dot product.
+// Scoring: a block of 8 warps owns 8 * QW queries (QW = 1, 4 or 8 per
+// warp, chosen by the caller from B) and one split of the dictionary,
+// which it streams through shared memory in tiles of 16 KB, two in a ring:
+// cp.async fills the next tile while the warps score this one. A tile is
+// row-major as in device memory, its 16-byte chunks XOR-swizzled so that
+// the 8 lanes of a quarter-warp read 8 distinct bank groups. Each lane
+// holds R = 64/DMAX rows in registers (64 floats), loaded once per step,
+// and scores them against each of its warp's QW queries in turn, the
+// normalized queries read from shared memory as broadcast float4 loads:
+// one row load feeds QW queries. Each (row, query) score is one FMA chain
+// over d = 0..D-1, in order, as in the plain dot product.
 //
-// Selection: for each query the warp keeps one sorted list of its best
-// candidates, entry p in lane p % 32, and every lane holds a copy of the
-// k-th entry as a threshold. A step costs one compare per score and one
-// ballot per query. Candidates that beat the threshold are inserted one at
-// a time, warp-uniformly (count the better entries with a ballot, shift
-// the rest up by one lane), or, when more than kBulk arrive in one ballot
-// (a list filling up), sorted by a bitonic network and merged in whole.
-// Candidates are ordered by (score desc, index asc) throughout, the
-// counterpart of _extract_topk_tile.
+// Selection: each query has, in shared memory, a sorted list of its best
+// 32 * KW candidates so far and a buffer of pending ones; the warp holds
+// the query's threshold score (the list's k-th entry) in registers. A step
+// first computes all QW * R scores with no branch between them, so the FMA
+// chains of different queries interleave, then folds the compares with
+// the thresholds into one bit mask per lane and spends one ballot. Only
+// where a candidate reaches its threshold does the warp take the slow
+// path: check it exactly, append it to the buffer (a ballot gives each its
+// slot), and once 32 are pending call one routine, shared by every query
+// and not inlined, that sorts them with a warp-wide bitonic network and
+// merges the sorted run into the list. Candidates are ordered by (score
+// desc, index asc) throughout, the counterpart of _extract_topk_tile.
 //
 // Splits: with few queries the dictionary is cut into splits across
 // blockIdx.y so that every SM has work; each split writes its partial
-// top-k and a second kernel merges them with the same list. A split's
-// list would insert ~k * (1 + ln(rows / k)) candidates alone, so the
-// splits of a query share a bar in device memory: the highest k-th score
-// any split's list has reached, a lower bound on the query's k-th best.
-// Each split raises it with atomicMax and rereads it at every tile, and
-// drops candidates strictly below it (ties stay, so (score, index) order
-// still decides). Only rows that cannot be in the answer are dropped, so
-// the result does not depend on the order of the atomics.
+// top-k and a second kernel merges them. A split's list alone would take
+// in ~k * (1 + ln(rows / k)) candidates, and the splits' k-th scores are
+// all about the same quantile, so a bar made of the highest of them drops
+// little. Instead each split publishes its best score so far in its own
+// slot of a (B, splits) table (atomicMax of an order-preserving key), on
+// its first step and again at tiles 1, 2, 4, 8, ...; at those tiles each
+// query's threshold rises to the k-th highest of the 32 lanes' maxima over
+// its slots: k rows of k different splits reach that score, so the
+// query's k-th best does too. Candidates strictly below a threshold are
+// dropped and ties stay, so (score, index) order still decides; the merge
+// starts from the same bound over the final slots. Only rows that cannot
+// be in the answer are dropped, so the result does not depend on the
+// order of the atomics.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -54,7 +62,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileFloats = 8192;  // one 32 KB tile of dictionary rows
+constexpr int kTileFloats = 4096;  // one 16 KB tile of dictionary rows
+constexpr int kPending = 64;       // a query's buffer: up to 31 waiting, one ballot's 32
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -64,7 +73,7 @@ __device__ __forceinline__ bool better(float a, int ai, float b, int bi) {
 }
 
 // An unsigned key of a score that orders as the scores do; key 0 (what a
-// zeroed bar holds) decodes to NaN and so raises no threshold.
+// zeroed slot holds) decodes to NaN and so raises no threshold.
 __device__ __forceinline__ unsigned score_key(float f) {
   const unsigned u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -78,60 +87,6 @@ __device__ __forceinline__ float key_score(unsigned key) {
 // floats), so lane l's chunks land in bank group (chunk ^ l) % 8, and a
 // quarter-warp's 8 loads of one step hit 8 distinct groups.
 __device__ __forceinline__ int swizzle(int L) { return L ^ ((L >> 4) & 7); }
-
-// Warp-wide bitonic networks over one (score, index) candidate per lane,
-// in the order of `better`, best in lane 0.
-
-// Exchange with lane ^ j, keeping the better of the pair iff keep_better.
-__device__ __forceinline__ void exchange(float& v, int& i, int j, bool keep_better) {
-  const float ov = __shfl_xor_sync(kFull, v, j);
-  const int oi = __shfl_xor_sync(kFull, i, j);
-  if (better(ov, oi, v, i) == keep_better) {
-    v = ov;
-    i = oi;
-  }
-}
-
-// Sort a bitonic sequence (5 exchanges).
-__device__ __forceinline__ void warp_bitonic_merge(float& v, int& i) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 16; j > 0; j >>= 1) exchange(v, i, j, (lane & j) == 0);
-}
-
-// Sort any sequence (15 exchanges).
-__device__ __forceinline__ void warp_sort(float& v, int& i) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-    const bool best_first = (lane & size) == 0;  // runs of `size` alternate
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1) exchange(v, i, j, ((lane & j) == 0) == best_first);
-  }
-}
-
-// a and b sorted: a becomes the best 32 of the 64, sorted; b the other 32,
-// as a bitonic sequence.
-__device__ __forceinline__ void warp_merge(float& av, int& ai, float& bv, int& bi) {
-  const int lane = threadIdx.x & 31;
-  const float rv = __shfl_sync(kFull, bv, 31 - lane);
-  const int ri = __shfl_sync(kFull, bi, 31 - lane);
-  if (better(rv, ri, av, ai)) {
-    bv = av;
-    bi = ai;
-    av = rv;
-    ai = ri;
-  } else {
-    bv = rv;
-    bi = ri;
-  }
-  warp_bitonic_merge(av, ai);
-}
-
-// Past this many candidates in one ballot, sorting them and merging the
-// sorted run into the list (~20 exchanges) is cheaper than inserting them
-// one by one (each a chain of ~25 dependent instructions).
-constexpr int kBulk = 6;
 
 // Asynchronous 16- and 4-byte copies into shared memory; a source size
 // of 0 writes zeros.
@@ -173,115 +128,119 @@ __device__ __forceinline__ void load_tile(float4* tile, const float* dict, int t
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// A warp's best 32*KW candidates so far, sorted; entry p is slot p / 32 of
-// lane p % 32. Every method is called by all 32 lanes together.
+// Warp-wide bitonic networks over one (score, index) candidate per lane,
+// in the order of `better`, best in lane 0.
+
+// Exchange with lane ^ j, keeping the better of the pair iff keep_better.
+__device__ __forceinline__ void exchange(float& v, int& i, int j, bool keep_better) {
+  const float ov = __shfl_xor_sync(kFull, v, j);
+  const int oi = __shfl_xor_sync(kFull, i, j);
+  if (better(ov, oi, v, i) == keep_better) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// Sort a bitonic sequence (5 exchanges).
+__device__ __forceinline__ void warp_bitonic_merge(float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) exchange(v, i, j, (lane & j) == 0);
+}
+
+// Sort any sequence (15 exchanges).
+__device__ __forceinline__ void warp_sort(float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+    const bool best_first = (lane & size) == 0;  // runs of `size` alternate
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) exchange(v, i, j, ((lane & j) == 0) == best_first);
+  }
+}
+
+// Sort one score per lane, highest in lane 0.
+__device__ __forceinline__ float warp_sort_scores(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      const float o = __shfl_xor_sync(kFull, v, j);
+      v = (((lane & j) == 0) == ((lane & size) == 0)) ? fmaxf(v, o) : fminf(v, o);
+    }
+  }
+  return v;
+}
+
+// A score the query's k-th best is known to reach, from its splits' best
+// scores (tops[s] is split s's, as a key; 0 where none yet): the k-th
+// highest of the 32 lanes' maxima over the slots, each a row of another
+// split. -inf where k > 32 or fewer than k slots are written.
+__device__ __forceinline__ float tops_bound(const unsigned* tops, int splits, int k) {
+  const int lane = threadIdx.x & 31;
+  float m = neg_inf();  // fmaxf drops the NaN of an unwritten slot
+  for (int s = lane; s < splits; s += 32) m = fmaxf(m, key_score(__ldcg(tops + s)));
+  return k <= 32 ? __shfl_sync(kFull, warp_sort_scores(m), k - 1) : neg_inf();
+}
+
+// a and b sorted: a becomes the best 32 of the 64, sorted; b the other 32,
+// as a bitonic sequence.
+__device__ __forceinline__ void warp_merge(float& av, int& ai, float& bv, int& bi) {
+  const int lane = threadIdx.x & 31;
+  const float rv = __shfl_sync(kFull, bv, 31 - lane);
+  const int ri = __shfl_sync(kFull, bi, 31 - lane);
+  if (better(rv, ri, av, ai)) {
+    bv = av;
+    bi = ai;
+    av = rv;
+    ai = ri;
+  } else {
+    bv = rv;
+    bi = ri;
+  }
+  warp_bitonic_merge(av, ai);
+}
+
+struct Threshold {
+  float v;
+  int i;
+};
+
+// One query's selection state in shared memory: its sorted list of 32 * KW
+// entries and its buffer of kPending candidates, scores then indices, and
+// meta = {the index half of its threshold, the count pending}.
 template <int KW>
-struct WarpList {
-  float v[KW];
-  int i[KW];
-  float tv;  // the threshold a candidate must beat: the k-th entry, or
-  int ti;    // (bar, INT_MAX) where the bar is higher
-  float bar;  // a score the query's k-th best is known to reach
+struct Sel {
+  static constexpr int kEntries = 32 * KW + kPending;
+  float* v;
+  int* i;
+  int* meta;
+  __device__ __forceinline__ Sel(float* sv, int* si, int* sm, int slot)
+      : v(sv + slot * kEntries), i(si + slot * kEntries), meta(sm + 2 * slot) {}
+  __device__ __forceinline__ float* pend_v() const { return v + 32 * KW; }
+  __device__ __forceinline__ int* pend_i() const { return i + 32 * KW; }
 
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int w = 0; w < KW; ++w) {
-      v[w] = neg_inf();
-      i[w] = INT_MAX;
-    }
-    tv = neg_inf();
-    ti = INT_MAX;
-    bar = neg_inf();
-  }
-
-  // The list's own k-th score.
-  __device__ __forceinline__ float kth(int k) const {
-    return __shfl_sync(kFull, (KW == 1 || k <= 32) ? v[0] : v[KW - 1], (k - 1) & 31);
-  }
-
-  // A candidate strictly below the bar cannot be among the best k of the
-  // query, so it is dropped; one equal to it is kept.
-  __device__ __forceinline__ void raise_bar(float b) {
-    if (b > bar) {
-      bar = b;
-      if (bar > tv) {
-        tv = bar;
-        ti = INT_MAX;
-      }
-    }
-  }
-
-  __device__ __forceinline__ bool beats(float s, int idx) const { return better(s, idx, tv, ti); }
-
-  // Insert (s, idx), the same on every lane and better than the k-th entry.
-  __device__ __forceinline__ void insert(float s, int idx, int k) {
+  __device__ __forceinline__ void init() const {
     const int lane = threadIdx.x & 31;
-    int pos = 0;
-#pragma unroll
-    for (int w = 0; w < KW; ++w) pos += __popc(__ballot_sync(kFull, better(v[w], i[w], s, idx)));
-    float below_v = neg_inf();  // lane 31's old entry of the slot below
-    int below_i = INT_MAX;
 #pragma unroll
     for (int w = 0; w < KW; ++w) {
-      float up_v = __shfl_up_sync(kFull, v[w], 1);
-      int up_i = __shfl_up_sync(kFull, i[w], 1);
-      float last_v = below_v;
-      int last_i = below_i;
-      if (w + 1 < KW) {
-        last_v = __shfl_sync(kFull, v[w], 31);
-        last_i = __shfl_sync(kFull, i[w], 31);
-      }
-      if (lane == 0) {
-        up_v = below_v;
-        up_i = below_i;
-      }
-      const int p = w * 32 + lane;
-      if (p == pos) {
-        v[w] = s;
-        i[w] = idx;
-      } else if (p > pos) {
-        v[w] = up_v;
-        i[w] = up_i;
-      }
-      below_v = last_v;
-      below_i = last_i;
+      v[32 * w + lane] = neg_inf();
+      i[32 * w + lane] = INT_MAX;
     }
-    set_threshold(k);
-  }
-
-  __device__ __forceinline__ void set_threshold(int k) {
-    const bool low = KW == 1 || k <= 32;
-    tv = __shfl_sync(kFull, low ? v[0] : v[KW - 1], (k - 1) & 31);
-    ti = __shfl_sync(kFull, low ? i[0] : i[KW - 1], (k - 1) & 31);
-    if (bar > tv) {
-      tv = bar;
-      ti = INT_MAX;
+    if (lane == 0) {
+      meta[0] = INT_MAX;
+      meta[1] = 0;
     }
   }
 
-  // Offer each lane's candidate (s, idx) where ok; those that beat the
-  // threshold are sorted and merged in, or, if few, inserted in lane order.
-  __device__ __forceinline__ void offer(float s, int idx, bool ok, int k) {
-    const bool mine = ok && beats(s, idx);
-    unsigned m = __ballot_sync(kFull, mine);
-    if (__popc(m) > kBulk) {
-      float cv = mine ? s : neg_inf();
-      int ci = mine ? idx : INT_MAX;
-      warp_sort(cv, ci);
-      warp_merge(v[0], i[0], cv, ci);
-      if (KW > 1) {  // the best 32 stay in slot 0; the rest meet slot 1
-        warp_bitonic_merge(cv, ci);
-        warp_merge(v[KW - 1], i[KW - 1], cv, ci);
-      }
-      set_threshold(k);
-      return;
-    }
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cs = __shfl_sync(kFull, s, src);
-      const int ci = __shfl_sync(kFull, idx, src);
-      if (beats(cs, ci)) insert(cs, ci, k);
+  // Append each lane's candidate where take (m = the warp's ballot of
+  // take) behind the n pending ones.
+  __device__ __forceinline__ void append(float s, int idx, bool take, unsigned m, int n) const {
+    if (take) {
+      const int at = n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+      pend_v()[at] = s;
+      pend_i()[at] = idx;
     }
   }
 
@@ -290,14 +249,45 @@ struct WarpList {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int w = 0; w < KW; ++w) {
-      const int p = w * 32 + lane;
+      const int p = 32 * w + lane;
       if (p < k) {
-        out_v[p] = v[w];
-        out_i[p] = static_cast<IdxT>(i[w]);
+        out_v[p] = v[p];
+        out_i[p] = static_cast<IdxT>(i[p]);
       }
     }
   }
 };
+
+// Merge the n pending candidates of one query's Sel into its list, 32 at a
+// time (sort, then merge the sorted run). Returns the new threshold: the
+// list's k-th entry, or the old threshold where that is higher (a bound).
+// Called by the whole warp; not inlined, so the scoring loop keeps one
+// short call per query in place of the networks.
+template <int KW>
+__device__ __noinline__ Threshold flush(float* sv, int* si, int n, int k, Threshold old) {
+  const int lane = threadIdx.x & 31;
+  float* pv = sv + 32 * KW;
+  int* pi = si + 32 * KW;
+  __syncwarp();
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const bool in = c0 + lane < n;
+    float cv = in ? pv[c0 + lane] : neg_inf();
+    int ci = in ? pi[c0 + lane] : INT_MAX;
+    warp_sort(cv, ci);
+#pragma unroll
+    for (int w = 0; w < KW; ++w) {  // slot 0 keeps the best 32; the rest meet slot 1
+      if (w > 0) warp_bitonic_merge(cv, ci);
+      float av = sv[32 * w + lane];
+      int ai = si[32 * w + lane];
+      warp_merge(av, ai, cv, ci);
+      sv[32 * w + lane] = av;
+      si[32 * w + lane] = ai;
+    }
+  }
+  __syncwarp();
+  const Threshold t{sv[k - 1], si[k - 1]};
+  return better(t.v, t.i, old.v, old.i) ? t : old;
+}
 
 // grid: (ceil(B / (kWarps * QW)), splits). Split s scores rows
 // [s * N / splits, (s + 1) * N / splits) and writes each query's best k to
@@ -307,16 +297,19 @@ struct WarpList {
 template <int DMAX, int KW, int QW>
 __global__ void __launch_bounds__(kWarps * 32)
     topk_partial(const float* __restrict__ q, const float* __restrict__ dict, int B, int N, int D,
-                 int k, int n_valid, int splits, int vec, unsigned* __restrict__ bars,
+                 int k, int n_valid, int splits, int vec, unsigned* __restrict__ tops,
                  float* __restrict__ out_v, int* __restrict__ out_i32,
                  long long* __restrict__ out_i64) {
-  constexpr int C = DMAX / 4;                // 16-byte chunks per row
-  constexpr int R = 64 / DMAX;               // rows a lane holds per step
-  constexpr int S = 32 * R;                  // rows a warp scores per step
-  constexpr int TR = kTileFloats / DMAX;     // rows per tile, a multiple of S
+  constexpr int C = DMAX / 4;             // 16-byte chunks per row
+  constexpr int R = 64 / DMAX;            // rows a lane holds per step
+  constexpr int S = 32 * R;               // rows a warp scores per step
+  constexpr int TR = kTileFloats / DMAX;  // rows per tile, a multiple of S
   extern __shared__ __align__(16) float4 smem[];
-  float4* ring = smem;                // two tiles
-  float4* qs = smem + 2 * TR * C;     // the block's normalized queries
+  float4* ring = smem;                               // two tiles
+  float4* qs = smem + 2 * TR * C;                    // the block's normalized queries
+  float* sel_v = reinterpret_cast<float*>(qs + kWarps * QW * C);  // each query's Sel
+  int* sel_i = reinterpret_cast<int*>(sel_v + kWarps * QW * Sel<KW>::kEntries);
+  int* sel_m = sel_i + kWarps * QW * Sel<KW>::kEntries;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int qb = (blockIdx.x * kWarps + warp) * QW;  // the warp's first query
@@ -338,11 +331,15 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (norm == 0.f) norm = 1.f;
     float* dst = reinterpret_cast<float*>(qs + (warp * QW + j) * C);
     for (int d = lane; d < DMAX; d += 32) dst[d] = (b < B && d < D) ? src[d] / norm : 0.f;
+    Sel<KW>(sel_v, sel_i, sel_m, warp * QW + j).init();
   }
 
-  WarpList<KW> list[QW];
+  // Each query's threshold score, the same on every lane: a candidate
+  // below it is dropped. Its index half and the count of pending
+  // candidates sit in shared memory (meta), read only where one is taken.
+  float th[QW];
 #pragma unroll
-  for (int j = 0; j < QW; ++j) list[j].init();
+  for (int j = 0; j < QW; ++j) th[j] = qb + j < B ? neg_inf() : __int_as_float(0x7f800000);
   const int tiles = (n1 - n0 + TR - 1) / TR;
   if (tiles > 0) load_tile<C, TR>(ring, dict, n0, min(TR, n1 - n0), D, vec);
   for (int t = 0; t < tiles; ++t) {
@@ -358,10 +355,22 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncthreads();  // this tile (and the queries) are in shared memory
     if (active) {
-      if (bars != nullptr) {  // the bars the other splits have raised so far
-        const unsigned key = lane < QW && qb + lane < B ? __ldcg(bars + qb + lane) : 0u;
+      if (tops != nullptr && t > 0 && (t & (t - 1)) == 0) {
+        // At tiles 1, 2, 4, 8, ...: publish each query's best so far and
+        // raise its threshold to the bound from all its splits' bests.
 #pragma unroll
-        for (int j = 0; j < QW; ++j) list[j].raise_bar(key_score(__shfl_sync(kFull, key, j)));
+        for (int j = 0; j < QW; ++j) {
+          if (qb + j >= B) break;
+          const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
+          unsigned* q_tops = tops + static_cast<long long>(qb + j) * splits;
+          if (lane == 0 && sel.v[0] > neg_inf()) atomicMax(q_tops + split, score_key(sel.v[0]));
+          const float bound = tops_bound(q_tops, splits, k);
+          if (bound > th[j]) {
+            th[j] = bound;
+            if (lane == 0) sel.meta[0] = INT_MAX;
+          }
+        }
+        __syncwarp();
       }
       for (int j0 = 0; j0 < rows; j0 += S) {
         float4 row[R][C];
@@ -373,47 +382,105 @@ __global__ void __launch_bounds__(kWarps * 32)
           }
         }
         const int first = j0 + lane * R;  // the lane's first row in the tile
+        // All QW * R scores first, with no branch between them, so that the
+        // FMA chains of different queries interleave.
+        float acc[QW][R];
 #pragma unroll
         for (int j = 0; j < QW; ++j) {
-          if (qb + j >= B) break;  // warp-uniform: the last block's spare queries
-          float acc[R];
 #pragma unroll
-          for (int u = 0; u < R; ++u) acc[u] = 0.f;
+          for (int u = 0; u < R; ++u) acc[j][u] = 0.f;
+        }
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int j = 0; j < QW; ++j) {
             const float4 qv = qs[(warp * QW + j) * C + c];
 #pragma unroll
             for (int u = 0; u < R; ++u) {
-              acc[u] = fmaf(qv.x, row[u][c].x, acc[u]);
-              acc[u] = fmaf(qv.y, row[u][c].y, acc[u]);
-              acc[u] = fmaf(qv.z, row[u][c].z, acc[u]);
-              acc[u] = fmaf(qv.w, row[u][c].w, acc[u]);
-            }
-          }
-          bool any = false;
-#pragma unroll
-          for (int u = 0; u < R; ++u) {
-            const int col = t0 + first + u;
-            acc[u] = col < n_valid ? acc[u] : neg_inf();
-            any |= first + u < rows && list[j].beats(acc[u], col);
-          }
-          if (__ballot_sync(kFull, any)) {
-#pragma unroll
-            for (int u = 0; u < R; ++u) {
-              list[j].offer(acc[u], t0 + first + u, first + u < rows, k);
+              acc[j][u] = fmaf(qv.x, row[u][c].x, acc[j][u]);
+              acc[j][u] = fmaf(qv.y, row[u][c].y, acc[j][u]);
+              acc[j][u] = fmaf(qv.z, row[u][c].z, acc[j][u]);
+              acc[j][u] = fmaf(qv.w, row[u][c].w, acc[j][u]);
             }
           }
         }
-      }
-      if (bars != nullptr) {  // publish each list's k-th where it passed the bar
+        if (t0 + j0 + S > n_valid) {  // warp-uniform: a step reaching the masked columns
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if (t0 + first + u >= n_valid) {
+#pragma unroll
+              for (int j = 0; j < QW; ++j) acc[j][u] = neg_inf();
+            }
+          }
+        }
+        if (t == 0 && j0 == 0 && k <= 32) {
+          // A split's first step seeds each threshold: the k-th highest of
+          // the 32 lanes' best scores. Those k scores are candidates of this
+          // split, so the query's k-th best reaches it, and the first step
+          // takes ~k candidates instead of all 32 * R. The highest is
+          // published at once as the split's best.
+#pragma unroll
+          for (int j = 0; j < QW; ++j) {
+            float best = neg_inf();
+#pragma unroll
+            for (int u = 0; u < R; ++u) best = first + u < rows ? fmaxf(best, acc[j][u]) : best;
+            const float sorted = warp_sort_scores(best);
+            const float seed = __shfl_sync(kFull, sorted, k - 1);
+            if (tops != nullptr && lane == 0 && qb + j < B && sorted > neg_inf()) {
+              atomicMax(tops + static_cast<long long>(qb + j) * splits + split, score_key(sorted));
+            }
+            if (seed > th[j]) {
+              th[j] = seed;
+              if (lane == 0) Sel<KW>(sel_v, sel_i, sel_m, warp * QW + j).meta[0] = INT_MAX;
+            }
+          }
+          __syncwarp();
+        }
+        // Bit j * R + u: score (j, u) reaches its query's threshold.
+        unsigned take = 0;
 #pragma unroll
         for (int j = 0; j < QW; ++j) {
-          if (qb + j >= B) break;
-          const float kv = list[j].kth(k);
-          if (kv > list[j].bar) {
-            if (lane == 0) atomicMax(bars + qb + j, score_key(kv));
-            list[j].raise_bar(kv);
+#pragma unroll
+          for (int u = 0; u < R; ++u) take |= (acc[j][u] >= th[j] ? 1u : 0u) << (j * R + u);
+        }
+        if (j0 + S > rows) {  // warp-uniform: the last tile's rows past its end
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if (first + u >= rows) {
+#pragma unroll
+              for (int j = 0; j < QW; ++j) take &= ~(1u << (j * R + u));
+            }
           }
+        }
+        if (__ballot_sync(kFull, take != 0) == 0) continue;
+        // Rare: append the candidates that beat their threshold in the
+        // order of `better`, and merge 32 at a time into the list.
+#pragma unroll
+        for (int j = 0; j < QW; ++j) {
+          const unsigned tj = take >> (j * R);
+          if (__ballot_sync(kFull, (tj & ((1u << R) - 1u)) != 0) == 0) continue;
+          const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
+          Threshold cur{th[j], sel.meta[0]};
+          int pending = sel.meta[1];
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const int col = t0 + first + u;
+            const bool ok = ((tj >> u) & 1u) && better(acc[j][u], col, cur.v, cur.i);
+            const unsigned m = __ballot_sync(kFull, ok);
+            sel.append(acc[j][u], col, ok, m, pending);
+            pending += __popc(m);
+            if (pending >= 32) {
+              cur = flush<KW>(sel.v, sel.i, pending, k, cur);
+              pending = 0;
+            }
+          }
+          th[j] = cur.v;
+          __syncwarp();
+          if (lane == 0) {
+            sel.meta[0] = cur.i;
+            sel.meta[1] = pending;
+          }
+          __syncwarp();
         }
       }
     }
@@ -424,32 +491,55 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int j = 0; j < QW; ++j) {
     const int b = qb + j;
     if (b >= B) break;
+    const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
+    const int pending = sel.meta[1];
+    if (pending > 0) flush<KW>(sel.v, sel.i, pending, k, Threshold{th[j], sel.meta[0]});
     const long long base = (static_cast<long long>(b) * splits + split) * k;
     if (out_i64 != nullptr) {
-      list[j].store(out_v + base, out_i64 + base, k);
+      sel.store(out_v + base, out_i64 + base, k);
     } else {
-      list[j].store(out_v + base, out_i32 + base, k);
+      sel.store(out_v + base, out_i32 + base, k);
     }
   }
 }
 
-// grid: ceil(B / kWarps). Merges the splits' (B, m = splits * k) lists.
+// grid: ceil(B / kWarps). Merges the splits' (B, splits * k) lists, one
+// warp per query, taking only entries that reach the bound from the
+// splits' final bests.
 template <int KW>
 __global__ void __launch_bounds__(kWarps * 32)
-    topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i, int B, int m,
-               int k, float* __restrict__ out_v, long long* __restrict__ out_i) {
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
+               const unsigned* __restrict__ tops, int B, int splits, int k,
+               float* __restrict__ out_v, long long* __restrict__ out_i) {
+  __shared__ float sel_v[kWarps * Sel<KW>::kEntries];
+  __shared__ int sel_i[kWarps * Sel<KW>::kEntries];
+  __shared__ int sel_m[kWarps * 2];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;  // the same on all lanes of a warp
   const int lane = threadIdx.x & 31;
-  WarpList<KW> list;
-  list.init();
+  const Sel<KW> sel(sel_v, sel_i, sel_m, warp);
+  sel.init();
+  Threshold th{tops_bound(tops + static_cast<long long>(b) * splits, splits, k), INT_MAX};
+  int pending = 0;
+  const int m = splits * k;
   const long long base = static_cast<long long>(b) * m;
   for (int j0 = 0; j0 < m; j0 += 32) {
     const int j = j0 + lane;
-    const bool ok = j < m;
-    list.offer(ok ? part_v[base + j] : neg_inf(), ok ? part_i[base + j] : INT_MAX, ok, k);
+    const float s = j < m ? part_v[base + j] : neg_inf();
+    const int idx = j < m ? part_i[base + j] : INT_MAX;
+    const bool take = j < m && better(s, idx, th.v, th.i);
+    const unsigned mask = __ballot_sync(kFull, take);
+    if (mask == 0) continue;
+    sel.append(s, idx, take, mask, pending);
+    pending += __popc(mask);
+    if (pending >= 32) {
+      th = flush<KW>(sel.v, sel.i, pending, k, th);
+      pending = 0;
+    }
   }
-  list.store(out_v + static_cast<long long>(b) * k, out_i + static_cast<long long>(b) * k, k);
+  if (pending > 0) flush<KW>(sel.v, sel.i, pending, k, th);
+  sel.store(out_v + static_cast<long long>(b) * k, out_i + static_cast<long long>(b) * k, k);
 }
 
 struct Args {
@@ -459,13 +549,15 @@ struct Args {
   long long* out_i;
   float* part_v;
   int* part_i;
-  unsigned* bars;
+  unsigned* tops;
   int B, N, D, k, n_valid, splits, qw;
 };
 
 template <int DMAX, int KW, int QW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = (2 * kTileFloats + kWarps * QW * DMAX) * 4;  // two tiles, the queries
+  // Two tiles, the block's queries and their selection state.
+  constexpr int bytes =
+      (2 * kTileFloats + kWarps * QW * DMAX) * 4 + kWarps * QW * (Sel<KW>::kEntries + 1) * 8;
   cudaError_t e = cudaFuncSetAttribute(topk_partial<DMAX, KW, QW>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
@@ -476,15 +568,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, nullptr, a.out_v, nullptr, a.out_i);
     return cudaGetLastError();
   }
-  e = cudaMemsetAsync(a.bars, 0, sizeof(unsigned) * a.B, stream);
+  e = cudaMemsetAsync(a.tops, 0, sizeof(unsigned) * a.B * a.splits, stream);
   if (e != cudaSuccess) return e;
   topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, bytes, stream>>>(
-      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.bars, a.part_v, a.part_i,
+      a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.tops, a.part_v, a.part_i,
       nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   topk_merge<KW><<<(a.B + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-      a.part_v, a.part_i, a.B, a.splits * a.k, a.k, a.out_v, a.out_i);
+      a.part_v, a.part_i, a.tops, a.B, a.splits, a.k, a.out_v, a.out_i);
   return cudaGetLastError();
 }
 
@@ -507,14 +599,13 @@ cudaError_t launch_k(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
-// part_v / part_i / bars: (B, splits, k) f32, (B, splits, k) int32 and
-// (B,) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
+// part_v / part_i / tops: (B, splits, k) f32, (B, splits, k) int32 and
+// (B, splits) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
 // or 8. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64. Returns
 // cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,
-                             void* part_v, void* part_i, void* bars, int B, int N, int D, int k,
-                             int n_valid,
-                             int splits, int queries_per_warp, void* stream) {
+                             void* part_v, void* part_i, void* tops, int B, int N, int D, int k,
+                             int n_valid, int splits, int queries_per_warp, void* stream) {
   const int qw = queries_per_warp;
   if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1 || (qw != 1 && qw != 4 && qw != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -522,7 +613,7 @@ int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void*
   const Args a{static_cast<const float*>(q), static_cast<const float*>(dict),
                static_cast<float*>(out_v),   static_cast<long long*>(out_i),
                static_cast<float*>(part_v),  static_cast<int*>(part_i),
-               static_cast<unsigned*>(bars), B, N, D, k, n_valid, splits, qw};
+               static_cast<unsigned*>(tops), B, N, D, k, n_valid, splits, qw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (D <= 16) {

@@ -111,11 +111,11 @@ def cosine_topk_fused(
         return out_v, out_i
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qw, splits = _plan(b, n, k, d, sms)
-    part_v = part_i = bars = None
+    part_v = part_i = tops = None
     if splits > 1:
         part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-        bars = torch.empty((b,), dtype=torch.int32, device=dev)
+        tops = torch.empty((b, splits), dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -123,7 +123,7 @@ def cosine_topk_fused(
             queries.data_ptr(), dictionary.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
             None if part_v is None else part_v.data_ptr(),
             None if part_i is None else part_i.data_ptr(),
-            None if bars is None else bars.data_ptr(),
+            None if tops is None else tops.data_ptr(),
             b, n, d, k, n_valid, splits, qw, stream,
         )
     _build.check(lib, code, "cosine_topk_fused")
