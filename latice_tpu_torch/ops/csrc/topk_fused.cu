@@ -43,16 +43,16 @@
 // top-k and a second kernel merges them. A split's list alone would take
 // in ~k * (1 + ln(rows / k)) candidates, and the splits' k-th scores are
 // all about the same quantile, so a bar made of the highest of them drops
-// little. Instead each split publishes its best score so far in its own
-// slot of a (B, splits) table (atomicMax of an order-preserving key), on
-// its first step and again at tiles 1, 2, 4, 8, ...; at those tiles each
-// query's threshold rises to the k-th highest of the 32 lanes' maxima over
-// its slots: k rows of k different splits reach that score, so the
-// query's k-th best does too. Candidates strictly below a threshold are
-// dropped and ties stay, so (score, index) order still decides; the merge
-// starts from the same bound over the final slots. Only rows that cannot
-// be in the answer are dropped, so the result does not depend on the
-// order of the atomics.
+// little. Instead each query has 32 slots in device memory, and split s
+// raises slot s % 32 to its best score so far (atomicMax of an
+// order-preserving key), on its first step and again at steps 1, 2, 4,
+// 8, ...; at those steps the query's threshold rises to the k-th highest
+// slot. The 32 slots hold rows of disjoint sets of splits, so k rows reach
+// that score and so does the query's k-th best. Candidates strictly below
+// a threshold are dropped and ties stay, so (score, index) order still
+// decides; the merge starts from the same bound over the final slots.
+// Only rows that cannot be in the answer are dropped, so the result does
+// not depend on the order of the atomics.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -173,14 +173,12 @@ __device__ __forceinline__ float warp_sort_scores(float v) {
   return v;
 }
 
-// A score the query's k-th best is known to reach, from its splits' best
-// scores (tops[s] is split s's, as a key; 0 where none yet): the k-th
-// highest of the 32 lanes' maxima over the slots, each a row of another
-// split. -inf where k > 32 or fewer than k slots are written.
-__device__ __forceinline__ float tops_bound(const unsigned* tops, int splits, int k) {
+// A score the query's k-th best is known to reach, from its 32 slots of
+// split bests (keys; 0 where none yet): the k-th highest slot. -inf where
+// k > 32 or fewer than k slots are written.
+__device__ __forceinline__ float tops_bound(const unsigned* tops, int k) {
   const int lane = threadIdx.x & 31;
-  float m = neg_inf();  // fmaxf drops the NaN of an unwritten slot
-  for (int s = lane; s < splits; s += 32) m = fmaxf(m, key_score(__ldcg(tops + s)));
+  const float m = fmaxf(neg_inf(), key_score(__ldcg(tops + lane)));  // drops NaN
   return k <= 32 ? __shfl_sync(kFull, warp_sort_scores(m), k - 1) : neg_inf();
 }
 
@@ -323,10 +321,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int j = 0; j < QW; ++j) {
     const int b = qb + j;
     const float* src = q + static_cast<long long>(b) * D;
+    float x[DMAX];
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) x[d] = b < B && d < D ? src[d] : 0.f;
     float ss = 0.f;
-    if (b < B) {
-      for (int d = 0; d < D; ++d) ss = fmaf(src[d], src[d], ss);
-    }
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) ss = fmaf(x[d], x[d], ss);
     float norm = sqrtf(ss);
     if (norm == 0.f) norm = 1.f;
     float* dst = reinterpret_cast<float*>(qs + (warp * QW + j) * C);
@@ -340,6 +340,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   float th[QW];
 #pragma unroll
   for (int j = 0; j < QW; ++j) th[j] = qb + j < B ? neg_inf() : __int_as_float(0x7f800000);
+  int step = 0;  // steps of this split so far
   const int tiles = (n1 - n0 + TR - 1) / TR;
   if (tiles > 0) load_tile<C, TR>(ring, dict, n0, min(TR, n1 - n0), D, vec);
   for (int t = 0; t < tiles; ++t) {
@@ -355,24 +356,28 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncthreads();  // this tile (and the queries) are in shared memory
     if (active) {
-      if (tops != nullptr && t > 0 && (t & (t - 1)) == 0) {
-        // At tiles 1, 2, 4, 8, ...: publish each query's best so far and
-        // raise its threshold to the bound from all its splits' bests.
+      for (int j0 = 0; j0 < rows; j0 += S) {
+        // At steps 1, 2, 4, 8, ... of the split each query publishes its
+        // best so far (listed or pending) and reads its slots; the reads
+        // land while the step's FMAs run, and raise the thresholds after.
+        const int st = step++;
+        const bool refresh = tops != nullptr && st > 0 && (st & (st - 1)) == 0;
+        unsigned slot[QW];
+        if (refresh) {
 #pragma unroll
-        for (int j = 0; j < QW; ++j) {
-          if (qb + j >= B) break;
-          const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
-          unsigned* q_tops = tops + static_cast<long long>(qb + j) * splits;
-          if (lane == 0 && sel.v[0] > neg_inf()) atomicMax(q_tops + split, score_key(sel.v[0]));
-          const float bound = tops_bound(q_tops, splits, k);
-          if (bound > th[j]) {
-            th[j] = bound;
-            if (lane == 0) sel.meta[0] = INT_MAX;
+          for (int j = 0; j < QW; ++j) {
+            const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
+            unsigned own = lane < sel.meta[1] ? score_key(sel.pend_v()[lane]) : 0u;
+            own = __reduce_max_sync(kFull, max(own, score_key(sel.v[0])));
+            if (lane == 0 && qb + j < B && own > score_key(neg_inf())) {
+              atomicMax(tops + (qb + j) * 32 + (split & 31), own);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < QW; ++j) {
+            slot[j] = qb + j < B ? __ldcg(tops + (qb + j) * 32 + lane) : 0u;
           }
         }
-        __syncwarp();
-      }
-      for (int j0 = 0; j0 < rows; j0 += S) {
         float4 row[R][C];
 #pragma unroll
         for (int u = 0; u < R; ++u) {
@@ -404,6 +409,22 @@ __global__ void __launch_bounds__(kWarps * 32)
             }
           }
         }
+        if (refresh) {
+          float m[QW];
+#pragma unroll
+          for (int j = 0; j < QW; ++j) {
+            m[j] = warp_sort_scores(fmaxf(neg_inf(), key_score(slot[j])));  // drops NaN
+          }
+#pragma unroll
+          for (int j = 0; j < QW; ++j) {
+            const float bound = k <= 32 ? __shfl_sync(kFull, m[j], k - 1) : neg_inf();
+            if (bound > th[j]) {
+              th[j] = bound;
+              if (lane == 0) Sel<KW>(sel_v, sel_i, sel_m, warp * QW + j).meta[0] = INT_MAX;
+            }
+          }
+          __syncwarp();
+        }
         if (t0 + j0 + S > n_valid) {  // warp-uniform: a step reaching the masked columns
 #pragma unroll
           for (int u = 0; u < R; ++u) {
@@ -427,7 +448,7 @@ __global__ void __launch_bounds__(kWarps * 32)
             const float sorted = warp_sort_scores(best);
             const float seed = __shfl_sync(kFull, sorted, k - 1);
             if (tops != nullptr && lane == 0 && qb + j < B && sorted > neg_inf()) {
-              atomicMax(tops + static_cast<long long>(qb + j) * splits + split, score_key(sorted));
+              atomicMax(tops + (qb + j) * 32 + (split & 31), score_key(sorted));
             }
             if (seed > th[j]) {
               th[j] = seed;
@@ -520,22 +541,30 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x & 31;
   const Sel<KW> sel(sel_v, sel_i, sel_m, warp);
   sel.init();
-  Threshold th{tops_bound(tops + static_cast<long long>(b) * splits, splits, k), INT_MAX};
+  Threshold th{tops_bound(tops + b * 32, k), INT_MAX};
   int pending = 0;
   const int m = splits * k;
   const long long base = static_cast<long long>(b) * m;
-  for (int j0 = 0; j0 < m; j0 += 32) {
-    const int j = j0 + lane;
-    const float s = j < m ? part_v[base + j] : neg_inf();
-    const int idx = j < m ? part_i[base + j] : INT_MAX;
-    const bool take = j < m && better(s, idx, th.v, th.i);
-    const unsigned mask = __ballot_sync(kFull, take);
-    if (mask == 0) continue;
-    sel.append(s, idx, take, mask, pending);
-    pending += __popc(mask);
-    if (pending >= 32) {
-      th = flush<KW>(sel.v, sel.i, pending, k, th);
-      pending = 0;
+  for (int j0 = 0; j0 < m; j0 += 128) {  // four loads in flight per lane
+    float s[4];
+    int idx[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u + lane;
+      s[u] = j < m ? part_v[base + j] : neg_inf();
+      idx[u] = j < m ? part_i[base + j] : INT_MAX;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool take = j0 + 32 * u + lane < m && better(s[u], idx[u], th.v, th.i);
+      const unsigned mask = __ballot_sync(kFull, take);
+      if (mask == 0) continue;
+      sel.append(s[u], idx[u], take, mask, pending);
+      pending += __popc(mask);
+      if (pending >= 32) {
+        th = flush<KW>(sel.v, sel.i, pending, k, th);
+        pending = 0;
+      }
     }
   }
   if (pending > 0) flush<KW>(sel.v, sel.i, pending, k, th);
@@ -568,7 +597,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, 1, vec, nullptr, a.out_v, nullptr, a.out_i);
     return cudaGetLastError();
   }
-  e = cudaMemsetAsync(a.tops, 0, sizeof(unsigned) * a.B * a.splits, stream);
+  e = cudaMemsetAsync(a.tops, 0, sizeof(unsigned) * a.B * 32, stream);
   if (e != cudaSuccess) return e;
   topk_partial<DMAX, KW, QW><<<grid, kWarps * 32, bytes, stream>>>(
       a.q, a.dict, a.B, a.N, a.D, a.k, a.n_valid, a.splits, vec, a.tops, a.part_v, a.part_i,
@@ -600,7 +629,7 @@ extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
 // part_v / part_i / tops: (B, splits, k) f32, (B, splits, k) int32 and
-// (B, splits) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
+// (B, 32) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
 // or 8. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64. Returns
 // cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,

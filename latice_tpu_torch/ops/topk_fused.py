@@ -115,7 +115,7 @@ def cosine_topk_fused(
     if splits > 1:
         part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-        tops = torch.empty((b, splits), dtype=torch.int32, device=dev)
+        tops = torch.empty((b, 32), dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
