@@ -518,22 +518,25 @@ def check_topk(gen: torch.Generator) -> dict:
 
 
 def sweep_topk_plan(gen: torch.Generator) -> None:
-    """K1 at both timed shapes with the planner aiming at 1, 2, 4 or 8
+    """K1 at both timed shapes with the planner aiming at 1, 2 or 4
     blocks per SM (2 is the default): how the split count trades the SMs'
-    fill against each split's own list."""
+    fill against each split's own selection."""
     from latice_tpu_torch.ops import cosine_topk_fused, topk_fused
 
     q = torch.randn((BATCH, LATENT), device="cuda", generator=gen)
-    rows, default = [], topk_fused._BLOCKS_PER_SM
+    dicts = {n: _unit_rows(n, LATENT, gen) for n in (DICT_ROWS, BIG_DICT_ROWS)}
+    rows = []
+    default = topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM
     try:
-        for per_sm in (1, 2, 4, 8):
-            topk_fused._BLOCKS_PER_SM = per_sm
-            for n in (DICT_ROWS, BIG_DICT_ROWS):
-                d = _unit_rows(n, LATENT, gen)
-                rows.append(dict(blocks_per_sm=per_sm, N=n, plan=_k1_plan(BATCH, n),
-                                 ms=cuda_ms(lambda: cosine_topk_fused(q, d, TOP_N))))
+        for qws in ((4, 1),):
+            for per_sm in (1, 2, 4):
+                topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM = qws, per_sm
+                for n, d in dicts.items():
+                    rows.append(dict(max_queries_per_warp=qws[0], blocks_per_sm=per_sm, N=n,
+                                     plan=_k1_plan(BATCH, n),
+                                     ms=cuda_ms(lambda: cosine_topk_fused(q, d, TOP_N))))
     finally:
-        topk_fused._BLOCKS_PER_SM = default
+        topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM = default
     emit("k1_plan_sweep", shape=dict(B=BATCH, D=LATENT, k=TOP_N), rows=rows)
 
 

@@ -13,8 +13,8 @@
 // So every byte a warp reads from shared memory has to feed several FMAs,
 // and the selection has to cost little beside the FMAs.
 //
-// Scoring: a block of 8 warps owns 8 * QW queries (QW = 1, 4 or 8 per
-// warp, chosen by the caller from B) and one split of the dictionary,
+// Scoring: a block of 8 warps owns 8 * QW queries (QW = 1 or 4 per warp,
+// chosen by the caller from B) and one split of the dictionary,
 // which it streams through shared memory in tiles of 16 KB, two in a ring:
 // cp.async fills the next tile while the warps score this one. A tile is
 // row-major as in device memory, its 16-byte chunks XOR-swizzled so that
@@ -30,13 +30,14 @@
 // the query's threshold score (the list's k-th entry) in registers. A step
 // first computes all QW * R scores with no branch between them, so the FMA
 // chains of different queries interleave, then folds the compares with
-// the thresholds into one bit mask per lane and spends one ballot. Only
-// where a candidate reaches its threshold does the warp take the slow
-// path: check it exactly, append it to the buffer (a ballot gives each its
-// slot), and once 32 are pending call one routine, shared by every query
-// and not inlined, that sorts them with a warp-wide bitonic network and
-// merges the sorted run into the list. Candidates are ordered by (score
-// desc, index asc) throughout, the counterpart of _extract_topk_tile.
+// the thresholds into one bit mask per lane and ORs the masks across the
+// warp. Only for the (query, row) pairs some lane took does the warp take
+// the slow path: check each candidate exactly, append it to the buffer (a
+// ballot gives each its slot), and once 32 are pending call one routine,
+// shared by every query and not inlined, that sorts them with a warp-wide
+// bitonic network and merges the sorted run into the list. Candidates are
+// ordered by (score desc, index asc) throughout, the counterpart of
+// _extract_topk_tile.
 //
 // Splits: with few queries the dictionary is cut into splits across
 // blockIdx.y so that every SM has work; each split writes its partial
@@ -473,20 +474,22 @@ __global__ void __launch_bounds__(kWarps * 32)
             }
           }
         }
-        if (__ballot_sync(kFull, take != 0) == 0) continue;
-        // Rare: append the candidates that beat their threshold in the
-        // order of `better`, and merge 32 at a time into the list.
+        // Rare: the (query, row) pairs some lane took, one bit each.
+        const unsigned taken = __reduce_or_sync(kFull, take);
+        if (taken == 0) continue;
+        // Append those that beat their threshold exactly, in the order of
+        // `better`, and merge 32 at a time into the list.
 #pragma unroll
         for (int j = 0; j < QW; ++j) {
-          const unsigned tj = take >> (j * R);
-          if (__ballot_sync(kFull, (tj & ((1u << R) - 1u)) != 0) == 0) continue;
+          if (((taken >> (j * R)) & ((1u << R) - 1u)) == 0) continue;  // warp-uniform
           const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
           Threshold cur{th[j], sel.meta[0]};
           int pending = sel.meta[1];
 #pragma unroll
           for (int u = 0; u < R; ++u) {
+            if (((taken >> (j * R + u)) & 1u) == 0) continue;
             const int col = t0 + first + u;
-            const bool ok = ((tj >> u) & 1u) && better(acc[j][u], col, cur.v, cur.i);
+            const bool ok = ((take >> (j * R + u)) & 1u) && better(acc[j][u], col, cur.v, cur.i);
             const unsigned m = __ballot_sync(kFull, ok);
             sel.append(acc[j][u], col, ok, m, pending);
             pending += __popc(m);
@@ -611,11 +614,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <int DMAX, int KW>
 cudaError_t launch_qw(const Args& a, cudaStream_t stream) {
-  switch (a.qw) {
-    case 1: return launch<DMAX, KW, 1>(a, stream);
-    case 4: return launch<DMAX, KW, 4>(a, stream);
-    default: return launch<DMAX, KW, 8>(a, stream);
-  }
+  return a.qw == 1 ? launch<DMAX, KW, 1>(a, stream) : launch<DMAX, KW, 4>(a, stream);
 }
 
 template <int DMAX>
@@ -629,14 +628,14 @@ extern "C" {
 
 // q: (B, D) f32; dict: (N, D) f32; out_v: (B, k) f32; out_i: (B, k) int64;
 // part_v / part_i / tops: (B, splits, k) f32, (B, splits, k) int32 and
-// (B, 32) int32 scratch, unused when splits == 1. queries_per_warp is 1, 4
-// or 8. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64. Returns
+// (B, 32) int32 scratch, unused when splits == 1. queries_per_warp is 1
+// or 4. Requires 1 <= k <= 64, k <= N, 1 <= D <= 64. Returns
 // cudaGetLastError() after the launches.
 int latice_cosine_topk_fused(const void* q, const void* dict, void* out_v, void* out_i,
                              void* part_v, void* part_i, void* tops, int B, int N, int D, int k,
                              int n_valid, int splits, int queries_per_warp, void* stream) {
   const int qw = queries_per_warp;
-  if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1 || (qw != 1 && qw != 4 && qw != 8)) {
+  if (k < 1 || k > 64 || D < 1 || D > 64 || splits < 1 || (qw != 1 && qw != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(q), static_cast<const float*>(dict),

@@ -28,7 +28,7 @@ __all__ = ["cosine_topk_fused", "cosine_topk_fused_plain"]
 _MAX_K = 64
 _MAX_D = 64
 _WARPS_PER_BLOCK = 8  # as kWarps in the source
-_QUERIES_PER_WARP = (8, 4, 1)  # the kernel's template set, largest first
+_QUERIES_PER_WARP = (4, 1)  # the kernel's template set, largest first
 _MIN_SPLIT_ROWS = 1024
 _BLOCKS_PER_SM = 2
 
@@ -143,6 +143,10 @@ def _plan(b: int, n: int, k: int, d: int, sms: int) -> tuple[int, int]:
     whole block of queries. The dictionary is then cut into splits so that
     about `_BLOCKS_PER_SM` blocks per SM have work, each split keeping at
     least ``max(_MIN_SPLIT_ROWS, k)`` rows. ``d`` does not change the plan.
+    Four queries per warp, not eight: on an H100 at B=256 the extra query
+    blocks halve the splits, and with them each query's list fills and
+    merges, which costs more than the shared loads eight would save
+    (PERF.md).
     """
     qw = next(q for q in _QUERIES_PER_WARP if q == 1 or b >= q * _WARPS_PER_BLOCK)
     query_blocks = math.ceil(b / (qw * _WARPS_PER_BLOCK))

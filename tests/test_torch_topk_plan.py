@@ -42,13 +42,13 @@ def test_plan_keeps_splits_full_and_covers_the_batch(b, n):
         assert blocks * splits >= min(k1._BLOCKS_PER_SM * H100_SMS, blocks * (n // max(1024, k)))
 
 
-@pytest.mark.parametrize("b,qw", [(1, 1), (13, 1), (31, 1), (32, 4), (63, 4), (64, 8), (257, 8)])
+@pytest.mark.parametrize("b,qw", [(1, 1), (13, 1), (31, 1), (32, 4), (64, 4), (257, 4)])
 def test_plan_queries_per_warp_fill_a_block(b, qw):
     assert k1._plan(b, 100_000, 20, 16, H100_SMS)[0] == qw
 
 
 def test_plan_ignores_the_width():
-    assert {k1._plan(256, 100_000, 20, d, H100_SMS) for d in (1, 16, 33, 64)} == {(8, 66)}
+    assert {k1._plan(256, 100_000, 20, d, H100_SMS) for d in (1, 16, 33, 64)} == {(4, 33)}
 
 
 def _unit(rng, n, d=16):
