@@ -525,18 +525,15 @@ def sweep_topk_plan(gen: torch.Generator) -> None:
 
     q = torch.randn((BATCH, LATENT), device="cuda", generator=gen)
     dicts = {n: _unit_rows(n, LATENT, gen) for n in (DICT_ROWS, BIG_DICT_ROWS)}
-    rows = []
-    default = topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM
+    rows, default = [], topk_fused._BLOCKS_PER_SM
     try:
-        for qws in ((4, 1),):
-            for per_sm in (1, 2, 4):
-                topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM = qws, per_sm
-                for n, d in dicts.items():
-                    rows.append(dict(max_queries_per_warp=qws[0], blocks_per_sm=per_sm, N=n,
-                                     plan=_k1_plan(BATCH, n),
-                                     ms=cuda_ms(lambda: cosine_topk_fused(q, d, TOP_N))))
+        for per_sm in (1, 2, 4):
+            topk_fused._BLOCKS_PER_SM = per_sm
+            for n, d in dicts.items():
+                rows.append(dict(blocks_per_sm=per_sm, N=n, plan=_k1_plan(BATCH, n),
+                                 ms=cuda_ms(lambda: cosine_topk_fused(q, d, TOP_N))))
     finally:
-        topk_fused._QUERIES_PER_WARP, topk_fused._BLOCKS_PER_SM = default
+        topk_fused._BLOCKS_PER_SM = default
     emit("k1_plan_sweep", shape=dict(B=BATCH, D=LATENT, k=TOP_N), rows=rows)
 
 

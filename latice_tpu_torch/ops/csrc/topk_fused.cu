@@ -15,7 +15,7 @@
 //
 // Scoring: a block of 8 warps owns 8 * QW queries (QW = 1 or 4 per warp,
 // chosen by the caller from B) and one split of the dictionary,
-// which it streams through shared memory in tiles of 16 KB, two in a ring:
+// which it streams through shared memory in tiles of 32 KB, two in a ring:
 // cp.async fills the next tile while the warps score this one. A tile is
 // row-major as in device memory, its 16-byte chunks XOR-swizzled so that
 // the 8 lanes of a quarter-warp read 8 distinct bank groups. Each lane
@@ -63,7 +63,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileFloats = 4096;  // one 16 KB tile of dictionary rows
+constexpr int kTileFloats = 8192;  // one 32 KB tile of dictionary rows
 constexpr int kPending = 64;       // a query's buffer: up to 31 waiting, one ballot's 32
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
