@@ -435,25 +435,38 @@ __global__ void __launch_bounds__(kWarps * 32)
             }
           }
         }
+        unsigned listed = 0;  // bit j * R + u: score (j, u) is in its list already
         if (t == 0 && j0 == 0 && k <= 32) {
-          // A split's first step seeds each threshold: the k-th highest of
-          // the 32 lanes' best scores. Those k scores are candidates of this
-          // split, so the query's k-th best reaches it, and the first step
-          // takes ~k candidates instead of all 32 * R. The highest is
-          // published at once as the split's best.
+          // A split's first step fills each list with the 32 lanes' best
+          // candidates, sorted, and their k-th becomes the threshold: k
+          // rows of this split reach it, so the query's k-th best does too.
+          // The step then takes only the other candidates above it. The
+          // highest is published at once as the split's best.
 #pragma unroll
           for (int j = 0; j < QW; ++j) {
-            float best = neg_inf();
+            float bv = neg_inf();
+            int bi = INT_MAX, bu = -1;
 #pragma unroll
-            for (int u = 0; u < R; ++u) best = first + u < rows ? fmaxf(best, acc[j][u]) : best;
-            const float sorted = warp_sort_scores(best);
-            const float seed = __shfl_sync(kFull, sorted, k - 1);
-            if (tops != nullptr && lane == 0 && qb + j < B && sorted > neg_inf()) {
-              atomicMax(tops + (qb + j) * 32 + (split & 31), score_key(sorted));
+            for (int u = 0; u < R; ++u) {
+              if (first + u < rows && better(acc[j][u], t0 + first + u, bv, bi)) {
+                bv = acc[j][u];
+                bi = t0 + first + u;
+                bu = u;
+              }
             }
-            if (seed > th[j]) {
-              th[j] = seed;
-              if (lane == 0) Sel<KW>(sel_v, sel_i, sel_m, warp * QW + j).meta[0] = INT_MAX;
+            if (bu >= 0) listed |= 1u << (j * R + bu);
+            warp_sort(bv, bi);
+            const Sel<KW> sel(sel_v, sel_i, sel_m, warp * QW + j);
+            sel.v[lane] = bv;
+            sel.i[lane] = bi;
+            const float seed_v = __shfl_sync(kFull, bv, k - 1);
+            const int seed_i = __shfl_sync(kFull, bi, k - 1);
+            if (tops != nullptr && lane == 0 && qb + j < B && bv > neg_inf()) {
+              atomicMax(tops + (qb + j) * 32 + (split & 31), score_key(bv));
+            }
+            if (qb + j < B) {
+              th[j] = seed_v;
+              if (lane == 0) sel.meta[0] = seed_i;
             }
           }
           __syncwarp();
@@ -465,6 +478,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
           for (int u = 0; u < R; ++u) take |= (acc[j][u] >= th[j] ? 1u : 0u) << (j * R + u);
         }
+        take &= ~listed;
         if (j0 + S > rows) {  // warp-uniform: the last tile's rows past its end
 #pragma unroll
           for (int u = 0; u < R; ++u) {
