@@ -14,8 +14,8 @@
 // and the selection has to cost little beside the FMAs.
 //
 // Scoring: a block of 8 warps owns 8 * QW queries (QW = 1 or 4 per warp,
-// chosen by the caller from B) and one split of the dictionary,
-// which it streams through shared memory in tiles of 32 KB, two in a ring:
+// chosen by the caller from B) and one split of the dictionary, which it
+// streams through shared memory in tiles of 32 KB, two in a ring:
 // cp.async fills the next tile while the warps score this one. A tile is
 // row-major as in device memory, its 16-byte chunks XOR-swizzled so that
 // the 8 lanes of a quarter-warp read 8 distinct bank groups. Each lane
@@ -35,9 +35,10 @@
 // the slow path: check each candidate exactly, append it to the buffer (a
 // ballot gives each its slot), and once 32 are pending call one routine,
 // shared by every query and not inlined, that sorts them with a warp-wide
-// bitonic network and merges the sorted run into the list. Candidates are
-// ordered by (score desc, index asc) throughout, the counterpart of
-// _extract_topk_tile.
+// bitonic network and merges the sorted run into the list. A split's first
+// step fills each list at once with its 32 lanes' best candidates, sorted
+// by the same network. Candidates are ordered by (score desc, index asc)
+// throughout, the counterpart of _extract_topk_tile.
 //
 // Splits: with few queries the dictionary is cut into splits across
 // blockIdx.y so that every SM has work; each split writes its partial
