@@ -10,9 +10,10 @@ exits nonzero without its last line (phases 10 and 11 run between 6 and
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
 3. kernels: each kernel against its plain torch twin on the card at the
-   shapes its paths give it (serving: B=256 encoder; training: B=64, the
-   19 InstanceNorm shapes of encoder and decoder, f32 and bf16; K3 at
-   B=256, C=32, 128x128 and at B=3, 64x64), and timed
+   shapes its paths give it (serving: B=256 encoder and top-k, the top-k
+   also over 1,000,000 rows; training: B=64, the 19 InstanceNorm shapes
+   of encoder and decoder, f32 and bf16; K3 at B=256, C=32, 128x128 and
+   at B=3, 64x64), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
 4. serve: the full-width server (inplanes 32, latent 16, 5 stages, a
@@ -52,6 +53,8 @@ exits nonzero without its last line (phases 10 and 11 run between 6 and
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
+and a sweep of its launch plan, and prints no verdict line.
 TF32 is off throughout, so every f32 product is full f32.
 """
 
@@ -391,7 +394,7 @@ def _k1_plan(b: int, n: int, k: int = TOP_N, d: int = LATENT) -> tuple[int, int]
 
 def _k1_split_cases(dic: torch.Tensor, gen: torch.Generator, cases: dict) -> None:
     """Duplicates across split boundaries, and every query's top-k in one
-    split (the splits' shared bar prunes the others), at B=64."""
+    split (the bound the splits share prunes the others), at B=64."""
     from latice_tpu_torch.ops import topk_fused
 
     b, n = 64, dic.shape[0]
