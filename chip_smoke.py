@@ -12,16 +12,19 @@ exits nonzero without its last line (phases 10 and 11 run between 6 and
 3. kernels: each kernel against its plain torch twin on the card at the
    shapes its paths give it (serving: B=256 encoder and top-k, the top-k
    also over 1,000,000 rows; training: B=64, the 19 InstanceNorm shapes
-   of encoder and decoder, f32 and bf16; K3 at B=256, C=32, 128x128 and
-   at B=3, 64x64), and timed
+   of encoder and decoder, f32 and bf16; K3 at B=256, C=32, 128x128, at
+   C=16 and C=64, at B=1 and B=257, and at 40x24 and 64x64), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
-4. serve: the full-width server (inplanes 32, latent 16, 5 stages, a
-   100,000-entry dictionary, batch 256, fused engine) answers /healthz,
-   /index and /encode over HTTP; the kernels' launch counters, zeroed just
-   before, must show 10 InstanceNorm launches and 1 top-k launch per batch.
-5. parity: 64 patterns through the card's service and through a CPU
-   pipeline (the plain twins) built from the same files.
+4. serve: the full-width server as ``python -m latice_tpu_torch.cli.serve``
+   builds it (`cli.serve.build_service`: inplanes 32, latent 16, 5 stages,
+   16-mixed, a 100,000-entry dictionary, batch 256, fused engine) answers
+   /healthz, /index and /encode over HTTP; the kernels' launch counters,
+   zeroed just before, must show 10 InstanceNorm launches and 1 top-k
+   launch per batch.
+5. parity: 64 patterns through the card's service and through the same
+   service built on the CPU (the plain twins), both 16-mixed; then the f32
+   model on the card against an f32 CPU pipeline built from the same files.
 6. profile: torch.profiler over one /index call of two batches; device
    time by kernel group and the device's idle share of the wall time.
 7. train: ``latice_tpu_torch.cli.train``'s path on the ``conf/`` tree at
@@ -54,8 +57,14 @@ exits nonzero without its last line (phases 10 and 11 run between 6 and
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
-and a sweep of its launch plan, and prints no verdict line.
-TF32 is off throughout, so every f32 product is full f32.
+and a sweep of its launch plan, and prints no verdict line;
+``--stage0-only`` runs phases 1 and 2 and the stage-0 kernel's checks and
+times, and prints no verdict line.
+Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
+and the port's f32 models turn it off around their own forward and
+backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
+every convolution. K3's twin convolves bf16-valued operands, which TF32
+represents exactly.
 """
 
 from __future__ import annotations
@@ -633,11 +642,23 @@ def _request(url: str, body: bytes | None = None) -> dict:
         return json.loads(r.read(), parse_constant=reject)
 
 
+def _cli_service(ckpt: str, npz: str, device: str, batch: int):
+    """The service ``python -m latice_tpu_torch.cli.serve`` builds (its model
+    at 16-mixed), on ``device``, fused engine."""
+    from latice_tpu_torch.cli.serve import build_service, parse_args
+
+    return build_service(parse_args([
+        "--db", npz, "--checkpoint", ckpt, "--inplanes", str(INPLANES),
+        "--latent-dim", str(LATENT), "--batch-size", str(batch), "--top-n", str(TOP_N),
+        "--engine", "fused", "--device", device,
+    ]))
+
+
 def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
     from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
-    from latice_tpu_torch.models import VariationalAutoEncoderRawData, load_checkpoint
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
     from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
-    from latice_tpu_torch.serve import IndexService, make_server
+    from latice_tpu_torch.serve import make_server
 
     ckpt, npz = f"{workdir}/vae.pt", f"{workdir}/latent_index.npz"
     model = VariationalAutoEncoderRawData(INPLANES, LATENT)
@@ -649,11 +670,9 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
     db.add_vectors(vecs, orients)
     db.save()
 
-    service = IndexService(
-        load_checkpoint(ckpt, INPLANES, LATENT, device="cuda"),
-        TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT)),
-        top_n=TOP_N, batch_size=BATCH, engine="fused", device="cuda",
-    )
+    service = _cli_service(ckpt, npz, "cuda", BATCH)
+    if service.pipeline.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the serve CLI's model is not 16-mixed")
     warm_s = service.warmup()
     server = make_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -712,37 +731,111 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
     return launches, per_batch, service, ckpt, npz
 
 
-def phase_parity(service, ckpt: str, npz: str) -> None:
-    """The card's service path against a CPU pipeline over the same files."""
-    from latice_tpu_torch.index import (
-        IndexPipeline,
-        LatentVectorDatabaseConfig,
-        TorchLatentVectorDatabase,
-        l2_normalize,
-    )
-    from latice_tpu_torch.models import load_checkpoint
+def _conv_flag_probe(model: torch.nn.Module, seen: set) -> None:
+    """Hooks on every convolution of ``model`` that add the cuDNN
+    (allow_tf32, enabled) flags to ``seen`` as each one runs forward and
+    backward."""
 
-    db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT))
-    cpu = IndexPipeline(load_checkpoint(ckpt, INPLANES, LATENT, device="cpu"),
-                        db._vectors, db._orientations,
-                        top_n=TOP_N, batch_size=64, engine="fused", device="cpu")
-    x = np.random.default_rng(1).integers(0, 256, (64, 128, 128), dtype=np.uint8)
-    lat_gpu, lat_cpu = service.encode(x)["latents"], cpu.encode(x)
-    lat_err = float(np.abs(np.asarray(lat_gpu, np.float32) - lat_cpu).max())
-    if not lat_err <= 1e-4:
-        raise AssertionError(f"latents differ by {lat_err}")
-    res_gpu, res_cpu = service.pipeline(x), cpu(x)
-    scores = l2_normalize(torch.from_numpy(lat_cpu)) @ torch.from_numpy(db._vectors).T
+    def record(*_):
+        seen.add((torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled))
+
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            m.register_forward_pre_hook(record)
+            m.register_full_backward_pre_hook(record)
+
+
+def _tf32_at_defaults() -> None:
+    """Nothing in this script sets TF32: the port's f32 models must keep it
+    off by themselves (``device.no_tf32``)."""
+    if not (torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled):
+        raise AssertionError("cuDNN's TF32 flag is not at PyTorch's default (True)")
+
+
+def _index_rows_agree(res_gpu, res_cpu, lat_cpu, vectors, margin) -> tuple[int, int]:
+    """Rows whose top-n indices and success agree, where a row may differ
+    only if two of its first n+1 CPU scores lie within ``margin`` (a
+    scalar or one per row) of each other. Returns (equal rows, near-tie rows)."""
+    from latice_tpu_torch.index import l2_normalize
+
+    scores = l2_normalize(torch.from_numpy(lat_cpu)) @ torch.from_numpy(vectors).T
     head = torch.sort(scores, dim=1, descending=True).values[:, : TOP_N + 1]
-    # Latents agree to 1e-4, so scores closer than that may swap places.
-    near = (head[:, :-1] - head[:, 1:] <= 1e-4).any(dim=1).numpy()
+    gaps = (head[:, :-1] - head[:, 1:]).numpy()
+    near = (gaps <= np.reshape(margin, (-1, 1))).any(axis=1)
     same = (res_gpu.indices == res_cpu.indices).all(axis=1) & (
         res_gpu.success == res_cpu.success
     )
     if not np.all(same | near):
         raise AssertionError(f"{int((~same & ~near).sum())} rows differ without a near tie")
-    emit("parity", rows=len(x), latent_max_abs_err=lat_err, near_tie_rows=int(near.sum()),
-         equal_rows=int(same.sum()), success_rows=int(res_cpu.success.sum()))
+    return int(same.sum()), int(near.sum())
+
+
+def phase_parity(service, ckpt: str, npz: str) -> None:
+    """The card's serve-CLI service (16-mixed) against the same service
+    built on the CPU (plain twins, 16-mixed), on uint8 noise and on
+    synthetic band patterns; then the f32 model on the card against the
+    f32 CPU pipeline, with TF32 left at PyTorch's defaults.
+
+    At full width a 16-mixed latent lies ~5% (relative L2, median) from the
+    f32 model's on the card and on the CPU alike, so the two 16-mixed paths
+    are held to each other by that distance: the card's median and largest
+    per-row distance from the f32 CPU latents at most `GRAD_RATIO` times
+    the CPU 16-mixed path's, plus `GRAD_FLOOR`. Each row's largest element
+    difference over 3e-2 of its norm (the index CLI test's bf16 tolerance
+    at a tiny width) is reported beside it. A row's indices may differ where
+    two of its scores lie within twice the distance of its unit latents.
+    """
+    from latice_tpu_torch.index import IndexPipeline, l2_normalize
+    from latice_tpu_torch.models import load_checkpoint
+
+    _tf32_at_defaults()
+    noise = np.random.default_rng(1).integers(0, 256, (64, 128, 128), dtype=np.uint8)
+    bands = np.round(_synthetic_patterns(64, seed=1) * 255.0).astype(np.uint8)
+    cpu16 = _cli_service(ckpt, npz, "cpu", 64)
+    vectors, orients = cpu16._db._vectors, cpu16._db._orientations
+    knobs = dict(top_n=TOP_N, engine="fused")
+    cpu32 = IndexPipeline(load_checkpoint(ckpt, INPLANES, LATENT, device="cpu"), vectors, orients,
+                          batch_size=64, device="cpu", **knobs)
+
+    mixed16 = {}
+    for name, x in (("noise", noise), ("bands", bands)):
+        lat_gpu = np.asarray(service.encode(x)["latents"], np.float32)
+        lat_cpu = np.asarray(cpu16.encode(x)["latents"], np.float32)
+        lat_f32 = cpu32.encode(x)
+        f32_norm = np.linalg.norm(lat_f32, axis=1)
+        d_gpu = np.linalg.norm(lat_gpu - lat_f32, axis=1) / f32_norm
+        d_cpu = np.linalg.norm(lat_cpu - lat_f32, axis=1) / f32_norm
+        share = {stat: float(fn(d_gpu) / (GRAD_RATIO * fn(d_cpu) + GRAD_FLOOR))
+                 for stat, fn in (("median", np.median), ("max", np.max))}
+        elem = np.abs(lat_gpu - lat_cpu).max(axis=1) / (3e-2 * np.linalg.norm(lat_cpu, axis=1))
+        unit_dist = (l2_normalize(torch.from_numpy(lat_gpu))
+                     - l2_normalize(torch.from_numpy(lat_cpu))).norm(dim=1).numpy()
+        equal, near = _index_rows_agree(service.pipeline(x), cpu16.pipeline(x), lat_cpu,
+                                        vectors, 2.0 * unit_dist + 1e-6)
+        mixed16[name] = dict(
+            card_rel_dist_from_f32=dict(median=float(np.median(d_gpu)), max=float(d_gpu.max())),
+            cpu_rel_dist_from_f32=dict(median=float(np.median(d_cpu)), max=float(d_cpu.max())),
+            share_of_limit=share, elem_over_3e2_of_norm_max=float(elem.max()),
+            rows_past_3e2_of_norm=int((elem > 1).sum()), equal_rows=equal, near_tie_rows=near)
+        if not max(share.values()) <= 1.0:
+            raise AssertionError(f"16-mixed latents on {name}: {mixed16[name]}")
+
+    # f32: latents within 1e-4; scores closer than that may swap places.
+    gpu32_model = load_checkpoint(ckpt, INPLANES, LATENT, device="cuda")
+    seen = set()
+    _conv_flag_probe(gpu32_model, seen)
+    gpu32 = IndexPipeline(gpu32_model, vectors, orients, batch_size=BATCH, device="cuda", **knobs)
+    lat_gpu, lat_cpu = gpu32.encode(noise), cpu32.encode(noise)
+    lat_err = float(np.abs(lat_gpu - lat_cpu).max())
+    if not lat_err <= 1e-4:
+        raise AssertionError(f"f32 latents differ by {lat_err}")
+    if seen != {(False, True)}:
+        raise AssertionError(f"f32 convolutions ran with cuDNN (allow_tf32, enabled) in {seen}")
+    _tf32_at_defaults()
+    equal32, near32 = _index_rows_agree(gpu32(noise), cpu32(noise), lat_cpu, vectors, 1e-4)
+    emit("parity", rows=len(noise), mixed16=mixed16,
+         f32=dict(latent_max_abs_err=lat_err, equal_rows=equal32, near_tie_rows=near32,
+                  conv_flags_seen=sorted(seen), tf32_default=True))
 
 
 def _kernel_group(name: str) -> str:
@@ -1108,9 +1201,10 @@ def _aten_norm(self, x):
     return F.leaky_relu(F.instance_norm(x, eps=1e-5), 0.02)
 
 
-def _grad_step(state: dict, dev: str, batch, patch=None, dtype=torch.float32):
+def _grad_step(state: dict, dev: str, batch, patch=None, dtype=torch.float32, seen=None):
     """One train step on ``dev`` in ``dtype`` from ``state``, under the
-    context ``patch`` if given: (loss, {name: grad as f64 on the CPU})."""
+    context ``patch`` if given: (loss, {name: grad as f64 on the CPU}). With
+    ``seen``, collect the cuDNN flags each convolution ran with into it."""
     import contextlib
 
     from latice_tpu_torch.models import VariationalAutoEncoderRawData
@@ -1119,6 +1213,8 @@ def _grad_step(state: dict, dev: str, batch, patch=None, dtype=torch.float32):
     model = VariationalAutoEncoderRawData(INPLANES, LATENT)
     model.load_state_dict(state)
     model.to(dev, dtype)
+    if seen is not None:
+        _conv_flag_probe(model, seen)
     x, mask, eps = (t.to(dev, dtype) for t in batch)
     step = make_train_step(VAELoss(kl_lambda=5e-6))
     with patch or contextlib.nullcontext():
@@ -1155,8 +1251,14 @@ def phase_train_parity() -> None:
         torch.ones(n),
         torch.from_numpy(np.random.default_rng(7).normal(size=(n, LATENT)).astype(np.float32)),
     )
+    _tf32_at_defaults()
     l_cpu, g_cpu = _grad_step(state, "cpu", batch)
-    l_gpu, g_gpu = _grad_step(state, "cuda", batch)
+    seen = set()
+    l_gpu, g_gpu = _grad_step(state, "cuda", batch, seen=seen)
+    if seen != {(False, True)}:
+        raise AssertionError(f"f32 step's convolutions ran with cuDNN (allow_tf32, enabled) "
+                             f"in {sorted(seen)}")
+    _tf32_at_defaults()
     _, g_wrong = _grad_step(state, "cuda", batch, mock.patch.object(
         fused_norm, "instance_norm_leaky_relu_backward", _backward_without_means))
     _, g_ref = _grad_step(state, "cpu", batch, mock.patch.object(
@@ -1188,7 +1290,7 @@ def phase_train_parity() -> None:
                                                for k in g_ref if k not in held),
          leaves={k: dict(scale=g_ref[k].abs().max().item(), card=card[k], cpu=cpu[k],
                          wrong_k2b=wrong[k]) for k in held},
-         encoder_weights_with_grad=sum(1 for k in g_gpu if k.startswith("encoder.")
+         conv_flags_seen=sorted(seen), encoder_weights_with_grad=sum(1 for k in g_gpu if k.startswith("encoder.")
                                        and k.endswith(".weight")) - len(dead))
     if not loss_rel <= 1e-5:
         raise AssertionError(f"train step loss: card {l_gpu}, CPU {l_cpu}")
@@ -1264,8 +1366,6 @@ def main() -> int:
         return 1
     import latice_tpu_torch  # noqa: F401  (fail before any output outside a checkout)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1273,6 +1373,10 @@ def main() -> int:
         k1 = check_topk(gen)
         sweep_topk_plan(gen)
         print(json.dumps({"kernels": [k1]}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--stage0-only"]:  # K3's checks and times alone; no verdict line
+        print(json.dumps({"kernels": [check_stage0(gen)]}), flush=True)
         print(smi, flush=True)
         return 0
     k2f, k1 = check_norm(gen), check_topk(gen)

@@ -6,8 +6,10 @@
 
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
-without one the weights are random, drawn from a fixed seed. Clients POST
-raw ``.npy`` bytes to ``/index`` and ``/encode``.
+without one the weights are random, drawn from a fixed seed. The model
+computes at ``16-mixed`` (bf16 autocast), the precision the JAX serve CLI
+builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
+``/encode``.
 """
 
 from __future__ import annotations
@@ -16,10 +18,8 @@ import argparse
 import json
 import logging
 
-logger = logging.getLogger(__name__)
 
-
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--db", required=True, help="dictionary npz (index.py build)")
     p.add_argument("--checkpoint", default=None, help="reference-layout .pt state dict")
@@ -45,30 +45,27 @@ def main(argv=None) -> None:
         "--max-body-mb", type=int, default=1024,
         help="reject request bodies larger than this with 413 (default: %(default)s MiB)",
     )
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    return p.parse_args(argv)
 
-    import torch
 
+def build_service(args: argparse.Namespace):
+    """The `serve.IndexService` that ``main`` serves: the model from
+    ``cli._common._load_model`` (``16-mixed``, eval mode, on the device,
+    the precision the JAX CLI builds its model at) over the ``--db``
+    dictionary. Binds no socket."""
+    from latice_tpu_torch.cli._common import _load_model
     from latice_tpu_torch.device import resolve_device
     from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
-    from latice_tpu_torch.models import VariationalAutoEncoderRawData, load_checkpoint
-    from latice_tpu_torch.serve import IndexService, make_server
+    from latice_tpu_torch.serve import IndexService
 
     device = resolve_device(args.device)
-    if args.checkpoint:
-        model = load_checkpoint(args.checkpoint, args.inplanes, args.latent_dim, device=device)
-    else:
-        logger.warning("No checkpoint given; using random weights")
-        model = VariationalAutoEncoderRawData(args.inplanes, args.latent_dim)
-        model.init_weights(torch.Generator().manual_seed(0))
+    model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
         LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim)
     )
     if db.get_count() == 0:
         raise SystemExit(f"dictionary {args.db} is empty or missing: build it first")
-
-    service = IndexService(
+    return IndexService(
         model,
         db,
         top_n=args.top_n,
@@ -79,16 +76,26 @@ def main(argv=None) -> None:
         engine=args.engine,
         device=device,
     )
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from latice_tpu_torch.serve import make_server
+
+    service = build_service(args)
     warm_s = service.warmup()
     server = make_server(service, args.host, args.port)
+    health = service.health()
     print(
         json.dumps(
             {
                 "status": "serving",
                 "mode": "latent",
                 "addr": f"http://{args.host}:{server.server_address[1]}",
-                "count": db.get_count(),
-                "device": str(device),
+                "count": health["count"],
+                "device": str(service.pipeline.device),
                 "engine": args.engine,
                 "warmup_s": round(warm_s, 1),
             }

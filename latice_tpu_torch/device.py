@@ -1,10 +1,12 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the f32 convolution scope."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["no_tf32", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -22,3 +24,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions in full float32 inside the block.
+
+    ``torch.backends.cudnn.allow_tf32`` (True by default) is False inside
+    and restored on exit; every other cuDNN setting is left as it is.
+    ``torch.backends.cudnn.flags(allow_tf32=False)`` is not the same: its
+    other arguments default to ``enabled=False``, which switches cuDNN off.
+    The flag is process-wide, so callers that run concurrently serialise
+    around the block (`serve.IndexService` holds its lock).
+    """
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

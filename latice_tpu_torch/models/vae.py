@@ -20,19 +20,20 @@ fused CUDA kernels forward and backward on the card, their plain torch
 twins on the CPU.
 
 Precision follows ``latice_tpu.train.module.VAEModule.with_precision``:
-``"32"`` computes in float32; ``"16-mixed"`` runs the encoder and decoder
-under bfloat16 autocast with float32 parameters, and ``mu`` and ``logvar``
-come out in float32, as the JAX model casts them.
+``"32"`` computes in float32, its convolutions in full float32 (TF32 off
+inside the model's forward, `device.no_tf32`); ``"16-mixed"`` runs the
+encoder and decoder under bfloat16 autocast with float32 parameters, and
+``mu`` and ``logvar`` come out in float32, as the JAX model casts them.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from latice_tpu_torch.device import no_tf32
 from latice_tpu_torch.ops.fused_norm import InstanceNormLeakyReLUFunction
 
 __all__ = [
@@ -191,7 +192,7 @@ class VariationalAutoEncoderRawData(nn.Module):
 
     def _autocast(self, x: torch.Tensor):
         if self.compute_dtype == torch.float32:
-            return contextlib.nullcontext()
+            return no_tf32()
         return torch.autocast(x.device.type, dtype=self.compute_dtype)
 
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -29,17 +29,16 @@
 //       shared memory; then conv2 runs as an implicit GEMM (M = 256 pixels,
 //       N = C, K = 9*C) on the tensor cores, mma.sync m16n8k16 with bf16
 //       operands and f32 accumulation, each warp owning two output rows.
-//       acc2 + b2 goes to device memory in f32 with the tile's per-channel
-//       partial sums.
+//       The epilogue adds b2, sums each channel over the tile's pixels and
+//       writes only the 2x2 maxima of acc2 = conv2 + b2, in f32.
 //   (c) finish: one block per (image, channel) plane sums the tile partials
-//       in order, then normalizes, applies LeakyReLU, rounds to bf16 and
-//       max-pools. Normalization with rstd > 0, LeakyReLU and bf16 rounding
-//       are all monotone non-decreasing, so the max of the transformed
-//       values equals the transform of the max: the kernel pools the f32
-//       acc2 first and transforms one value per output, exactly equal to
-//       pooling the bf16 activations.
-// The f32 acc2 round trip (~1.07 GB at B=256, C=32: 0.32 ms at 3.35 TB/s)
-// is this design's own byte floor; keeping acc2 on chip is later work.
+//       in order, then normalizes, applies LeakyReLU and rounds the pooled
+//       maxima to bf16. Normalization with rstd > 0, LeakyReLU and bf16
+//       rounding are all monotone non-decreasing, so the max of the
+//       transformed values equals the transform of the max: pooling the f32
+//       acc2 first is exactly equal to pooling the bf16 activations.
+// The pooled f32 maxima make a round trip through device memory (~0.27 GB
+// at B=256, C=32: 0.08 ms at 3.35 TB/s), this design's own byte floor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,14 +170,15 @@ __global__ void __launch_bounds__(kStatsThreads)
   }
 }
 
-// (b) grid: (tiles, B). w2t: (9, C, C) bf16, [ky*3+kx][co][ci]. acc2: (B, C,
-// H, W) f32. part: (B, tiles, C, 2) per-tile (sum, sum of squares) of acc2.
+// (b) grid: (tiles, B). w2t: (9, C, C) bf16, [ky*3+kx][co][ci]. pooled: (B,
+// C, H/2, W/2) f32, the 2x2 maxima of acc2 = conv2 + b2. part: (B, tiles, C,
+// 2) per-tile (sum, sum of squares) of acc2.
 template <int C>
 __global__ void __launch_bounds__(kThreads)
     stage0_conv2(const float* __restrict__ x, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ stats1,
                  const __nv_bfloat16* __restrict__ w2t, const float* __restrict__ b2,
-                 float* __restrict__ acc2, float* __restrict__ part, int h, int w, int tiles_x,
+                 float* __restrict__ pooled, float* __restrict__ part, int h, int w, int tiles_x,
                  float slope) {
   using S = Conv2Smem<C>;
   constexpr int P = S::kPitch;
@@ -276,15 +276,16 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // Epilogue: + b2, acc2 to device memory, the tile's per-channel sums.
-  // Fragment element e of (r, j) is output row 2*warp + r, column g + 8*(e/2),
-  // channel j*8 + 2t + e%2.
+  // Epilogue: + b2, the tile's per-channel sums over every pixel, then the
+  // 2x2 max of acc2 + b2 to device memory. Fragment element e of (r, j) is
+  // output row 2*warp + r, column g + 8*(e/2), channel j*8 + 2t + e%2: a
+  // thread holds both rows of a pool window, and lane g^1 (lane ^ 4) the
+  // window's other column.
   float s[NT][2], ss[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     s[j][0] = s[j][1] = ss[j][0] = ss[j][1] = 0.f;
   }
-  float* acc2_b = acc2 + static_cast<long long>(b) * C * h * w;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int oy = ty0 + 2 * warp + r;
@@ -294,12 +295,28 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int co = j * 8 + 2 * t + (e & 1);
         const int ox = tx0 + g + 8 * (e >> 1);
+        acc[r][j][e] += __ldg(b2 + co);
         if (oy < h && ox < w) {
-          const float v = acc[r][j][e] + __ldg(b2 + co);
-          acc2_b[(static_cast<long long>(co) * h + oy) * w + ox] = v;
+          const float v = acc[r][j][e];
           s[j][e & 1] += v;
           ss[j][e & 1] = fmaf(v, v, ss[j][e & 1]);
         }
+      }
+    }
+  }
+  const int oh = h / 2, ow = w / 2;
+  const int py = (ty0 + 2 * warp) / 2;
+  float* pooled_b = pooled + static_cast<long long>(b) * C * oh * ow;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float m = fmaxf(acc[0][j][e], acc[1][j][e]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+      const int co = j * 8 + 2 * t + (e & 1);
+      const int ox = tx0 + g + 8 * (e >> 1);
+      if ((g & 1) == 0 && py < oh && ox < w) {
+        pooled_b[(static_cast<long long>(co) * oh + py) * ow + ox / 2] = m;
       }
     }
   }
@@ -337,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // (c) grid: one block per (image, channel) plane. out: (B, C, H/2, W/2) bf16.
 __global__ void __launch_bounds__(256)
-    stage0_finish(const float* __restrict__ acc2, const float* __restrict__ part,
+    stage0_finish(const float* __restrict__ pooled, const float* __restrict__ part,
                   __nv_bfloat16* __restrict__ out, int channels, int tiles, int h, int w,
                   float eps, float slope) {
   __shared__ float st[2];
@@ -359,15 +376,11 @@ __global__ void __launch_bounds__(256)
   }
   __syncthreads();
   const float mean = st[0], rstd = st[1];
-  const int oh = h / 2, ow = w / 2;
-  const float* src = acc2 + plane * h * w;
-  __nv_bfloat16* dst = out + plane * oh * ow;
-  for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
-    const int oy = i / ow, ox = i - (i / ow) * ow;
-    const float2 top = *reinterpret_cast<const float2*>(src + (2 * oy) * w + 2 * ox);
-    const float2 bot = *reinterpret_cast<const float2*>(src + (2 * oy + 1) * w + 2 * ox);
-    const float m = fmaxf(fmaxf(top.x, top.y), fmaxf(bot.x, bot.y));
-    dst[i] = __float2bfloat16(lrelu((m - mean) * rstd, slope));
+  const int n_out = (h / 2) * (w / 2);
+  const float* src = pooled + plane * n_out;
+  __nv_bfloat16* dst = out + plane * n_out;
+  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+    dst[i] = __float2bfloat16(lrelu((src[i] - mean) * rstd, slope));
   }
 }
 
@@ -384,7 +397,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
 
 template <int C>
 int launch(const float* x, const float* w1, const float* b1, const __nv_bfloat16* w2t,
-           const float* b2, float* stats1, float* acc2, float* part, __nv_bfloat16* out,
+           const float* b2, float* stats1, float* pooled, float* part, __nv_bfloat16* out,
            int batch, int h, int w, float eps, float slope, cudaStream_t stream) {
   static bool done[64] = {};
   constexpr int smem = Conv2Smem<C>::kBytes;
@@ -396,10 +409,10 @@ int launch(const float* x, const float* w1, const float* b1, const __nv_bfloat16
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   stage0_conv2<C><<<dim3(tiles, batch), kThreads, smem, stream>>>(
-      x, w1, b1, stats1, w2t, b2, acc2, part, h, w, tiles_x, slope);
+      x, w1, b1, stats1, w2t, b2, pooled, part, h, w, tiles_x, slope);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  stage0_finish<<<batch * C, 256, 0, stream>>>(acc2, part, out, C, tiles, h, w, eps, slope);
+  stage0_finish<<<batch * C, 256, 0, stream>>>(pooled, part, out, C, tiles, h, w, eps, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -409,12 +422,12 @@ extern "C" {
 
 // x: (batch, 1, h, w) f32; w1: (C, 1, 3, 3) f32; b1, b2: (C,) f32;
 // w2t: (3, 3, C, C) bf16 = w2 (C, C, 3, 3) permuted to [ky][kx][co][ci];
-// scratch stats1 (batch, C, 2), acc2 (batch, C, h, w) and part (batch,
+// scratch stats1 (batch, C, 2), pooled (batch, C, h/2, w/2) and part (batch,
 // tiles, C, 2) f32, tiles = ceil(h/16) * ceil(w/16); out: (batch, C, h/2,
 // w/2) bf16. h and w even. C is 16, 32 or 64. Returns cudaGetLastError()
 // after the launches.
 int latice_stage0_fused(const void* x, const void* w1, const void* b1, const void* w2t,
-                        const void* b2, void* stats1, void* acc2, void* part, void* out,
+                        const void* b2, void* stats1, void* pooled, void* part, void* out,
                         int batch, int channels, int h, int w, float eps, float slope,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -424,13 +437,13 @@ int latice_stage0_fused(const void* x, const void* w1, const void* b1, const voi
   const __nv_bfloat16* w2b = static_cast<const __nv_bfloat16*>(w2t);
   const float* b2f = static_cast<const float*>(b2);
   float* st = static_cast<float*>(stats1);
-  float* a2 = static_cast<float*>(acc2);
+  float* pl = static_cast<float*>(pooled);
   float* pt = static_cast<float*>(part);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   switch (channels) {
-    case 16: return launch<16>(xf, w1f, b1f, w2b, b2f, st, a2, pt, o, batch, h, w, eps, slope, s);
-    case 32: return launch<32>(xf, w1f, b1f, w2b, b2f, st, a2, pt, o, batch, h, w, eps, slope, s);
-    case 64: return launch<64>(xf, w1f, b1f, w2b, b2f, st, a2, pt, o, batch, h, w, eps, slope, s);
+    case 16: return launch<16>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
+    case 32: return launch<32>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
+    case 64: return launch<64>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -113,14 +113,14 @@ def stage0_fused(
     tiles = -(-h // _TILE) * -(-w // _TILE)
     w2t = w2.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()  # [ky][kx][co][ci]
     stats1 = torch.empty((b, c, 2), dtype=torch.float32, device=dev)
-    acc2 = torch.empty((b, c, h, w), dtype=torch.float32, device=dev)
+    pooled = torch.empty((b, c, h // 2, w // 2), dtype=torch.float32, device=dev)
     part = torch.empty((b, tiles, c, 2), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.latice_stage0_fused(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-            stats1.data_ptr(), acc2.data_ptr(), part.data_ptr(), out.data_ptr(),
+            stats1.data_ptr(), pooled.data_ptr(), part.data_ptr(), out.data_ptr(),
             b, c, h, w, eps, slope, stream,
         )
     _build.check(lib, code, "stage0_fused")

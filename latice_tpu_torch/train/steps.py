@@ -14,12 +14,14 @@ noise is keyed by an integer the caller derives per (epoch, batch).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from latice_tpu_torch.device import no_tf32
 from latice_tpu_torch.train.loss import VAELoss
 
 __all__ = ["make_train_step", "make_eval_step", "keyed_generator"]
@@ -89,7 +91,11 @@ def make_train_step(
             out = model(batch, generator=gen, eps=eps)
         with record_function("train:loss"):
             losses = loss_fn(*out, batch, mask)
-        losses["loss"].backward()
+        # An f32 model's forward keeps TF32 off (its _autocast); the conv
+        # backward reads the flag again, so the f32 step keeps it off here too.
+        f32 = getattr(model, "compute_dtype", None) == torch.float32
+        with no_tf32() if f32 else contextlib.nullcontext():
+            losses["loss"].backward()
         metrics = _metrics(losses)
         with record_function("train:optimizer"):
             if skip_nonfinite_updates:
