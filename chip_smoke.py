@@ -549,29 +549,63 @@ def sweep_topk_plan(gen: torch.Generator) -> None:
     emit("k1_plan_sweep", shape=dict(B=BATCH, D=LATENT, k=TOP_N), rows=rows)
 
 
-def check_stage0(gen: torch.Generator) -> dict:
-    """K3 against its twin at the serving shape (B=256, C=32, 128x128) and at
-    an odd batch and size (B=3, 64x64: partial tiles of 16x16), uint8/255
-    inputs; then timed beside the twin and ATen's bf16 composition.
+STAGE0_CASES = {  # tag: (B, C, H, W) of K3's checks; the first is the timed serving shape
+    "b256_c32_128x128": (BATCH, INPLANES, 128, 128),
+    "b64_c16_128x128": (64, 16, 128, 128),
+    "b64_c64_128x128": (64, 64, 128, 128),
+    "b1_c32_128x128": (1, INPLANES, 128, 128),
+    "b257_c32_128x128": (257, INPLANES, 128, 128),
+    "b3_c32_40x24": (3, INPLANES, 40, 24),
+    "b3_c32_64x64": (3, INPLANES, 64, 64),
+}
 
-    Both outputs are bf16 and round f32 values that may sit on either side
-    of a tie, hence K2's bf16 rule. The bound counts the convolutions'
-    operations at the bf16 tensor-core peak against x read once and the
-    pooled output written once; ``design_byte_floor_ms`` is this design's
-    own floor, the f32 conv2 output written and read back once.
-    """
+
+def _stage0_weights(c: int) -> list[torch.Tensor]:
+    """(w1, b1, w2, b2) of the stage 0 of an encoder of width ``c``, from the
+    serve phase's weight seed, on the card."""
     from latice_tpu_torch.models import VariationalAutoEncoderRawData
-    from latice_tpu_torch.ops import stage0_fused, stage0_fused_reference
 
-    F = torch.nn.functional
-    # The full-width encoder's stage 0, from the serve phase's weight seed.
-    enc = VariationalAutoEncoderRawData(INPLANES, LATENT).init_weights(
+    enc = VariationalAutoEncoderRawData(c, LATENT).init_weights(
         torch.Generator().manual_seed(0)
     ).encoder
-    w1, b1, w2, b2 = (t.detach().cuda() for t in (enc[0][0].weight, enc[0][0].bias,
-                                                   enc[1][0].weight, enc[1][0].bias))
-    cases, inputs = {}, {}
-    for tag, (b, h, w) in {"b256_128x128": (BATCH, 128, 128), "b3_64x64": (3, 64, 64)}.items():
+    return [t.detach().cuda() for t in (enc[0][0].weight, enc[0][0].bias,
+                                         enc[1][0].weight, enc[1][0].bias)]
+
+
+def check_stage0(gen: torch.Generator) -> dict:
+    """K3 against its twin on every case of `STAGE0_CASES` (uint8/255
+    inputs): C = 16, 32 and 64; B = 1 and 257, the persistent grid's edges;
+    40x24, where tiles are partial and pool windows sit at tile edges. Each
+    case is timed beside the twin and ATen's bf16 composition, with the
+    device time of each launch from a trace and the planner's grid.
+
+    Both outputs are bf16 and round f32 values that may sit on either side
+    of a tie, hence K2's bf16 rule; two runs must be bitwise equal. The
+    bound counts the convolutions' operations at the bf16 tensor-core peak
+    against x read once and the pooled output written once;
+    ``design_byte_floor_ms`` is this design's own floor: x in, the pooled
+    f32 maxima written and read back, the bf16 output written.
+    """
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from latice_tpu_torch.ops import stage0_fused, stage0_fused_reference
+
+    s0 = importlib.import_module("latice_tpu_torch.ops.stage0_fused")  # the module
+
+    F = torch.nn.functional
+    lib = s0._lib()
+    for c in (16, 32, 64):
+        if lib.latice_stage0_smem_bytes(c) != s0._smem_bytes(c):
+            raise AssertionError(f"K3 shared memory at C={c}: the source's "
+                                 f"{lib.latice_stage0_smem_bytes(c)}, the planner's "
+                                 f"{s0._smem_bytes(c)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    passes = ("stage0_conv1_stats", "stage0_conv2", "stage0_finish")
+    cases = {}
+    for tag, (b, c, h, w) in STAGE0_CASES.items():
+        w1, b1, w2, b2 = _stage0_weights(c)
         x = torch.randint(0, 256, (b, 1, h, w), device="cuda", generator=gen).float() / 255.0
         got = stage0_fused(x, w1, b1, w2, b2)
         again = stage0_fused(x, w1, b1, w2, b2)
@@ -581,47 +615,52 @@ def check_stage0(gen: torch.Generator) -> dict:
             err = _within(got, want, K2_BF16_ATOL, K2_BF16_RTOL)
         except AssertionError as e:
             raise AssertionError(f"K3 at {tag}: {e}") from None
-        if got.shape != (b, INPLANES, h // 2, w // 2) or not torch.equal(got, again):
+        if got.shape != (b, c, h // 2, w // 2) or not torch.equal(got, again):
             raise AssertionError(f"K3 at {tag}: shape {tuple(got.shape)} or runs not bitwise equal")
-        cases[tag] = dict(max_abs_err=err, share_differing=(got != want).float().mean().item())
-        inputs[tag] = x
-    x = inputs["b256_128x128"]
-    bf = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+        bf = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
 
-    def aten():
-        h1 = F.leaky_relu(F.instance_norm(F.conv2d(x.to(torch.bfloat16), bf[0], bf[1], padding=1)),
-                          0.02)
-        h2 = F.leaky_relu(F.instance_norm(F.conv2d(h1, bf[2], bf[3], padding=1)), 0.02)
-        return F.max_pool2d(h2, 2)
+        def aten():
+            h1 = F.leaky_relu(F.instance_norm(F.conv2d(x.to(torch.bfloat16), bf[0], bf[1],
+                                                       padding=1)), 0.02)
+            h2 = F.leaky_relu(F.instance_norm(F.conv2d(h1, bf[2], bf[3], padding=1)), 0.02)
+            return F.max_pool2d(h2, 2)
 
-    times = dict(
-        ms=cuda_ms(lambda: stage0_fused(x, w1, b1, w2, b2)),
-        plain_ms=cuda_ms(lambda: stage0_fused_reference(x, w1, b1, w2, b2)),
-        library_ms=cuda_ms(aten),
-    )
-    # Device ms of each of the three launches, from a trace of 5 calls.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            stage0_fused(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-    passes = ("stage0_conv1_stats", "stage0_conv2", "stage0_finish")
-    split = {p: sum(t for n, t, _ in _device_kernels(prof) if p + "<" in n or p + "(" in n) / 5
-             for p in passes}
-    pixels = float(x.numel())
-    n_ops = pixels * (2 * 9 * INPLANES * INPLANES + 2 * 9 * INPLANES)
-    n_bytes = 4.0 * pixels + 2.0 * INPLANES * pixels / 4
-    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
-    floor_ms = 8.0 * INPLANES * pixels / PEAK_BYTES_PER_S * 1e3
-    emit("kernels", kernel="stage0_fused", cases=cases, shape=dict(B=BATCH, C=INPLANES, H=128,
-         W=128), gflop=n_ops / 1e9, design_byte_floor_ms=floor_ms, device_ms_by_pass=split,
-         **times)
+        times = dict(
+            ms=cuda_ms(lambda: stage0_fused(x, w1, b1, w2, b2)),
+            plain_ms=cuda_ms(lambda: stage0_fused_reference(x, w1, b1, w2, b2)),
+            library_ms=cuda_ms(aten),
+        )
+        # Device ms of each of the three launches, from a trace of 5 calls.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                stage0_fused(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+        split = {p: sum(t for n, t, _ in _device_kernels(prof) if p + "<" in n or p + "(" in n) / 5
+                 for p in passes}
+        pixels = float(x.numel())
+        n_ops = pixels * (2 * 9 * c * c + 2 * 9 * c)
+        n_bytes = 4.0 * pixels + 2.0 * c * pixels / 4
+        b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_BF16_PER_S)
+        floor_bytes = 4.0 * pixels + (2 * 4.0 + 2.0) * c * pixels / 4
+        cases[tag] = dict(
+            shape=dict(B=b, C=c, H=h, W=w), max_abs_err=err,
+            share_differing=(got != want).float().mean().item(),
+            plan=dict(zip(("blocks", "tile_h", "tile_w"), s0._plan(b, h, w, c, sms))),
+            gflop=n_ops / 1e9, bound_ms=b_ms, bound_by=b_by,
+            design_byte_floor_ms=floor_bytes / PEAK_BYTES_PER_S * 1e3,
+            device_ms_by_pass=split, **times,
+        )
+        del x, got, again, want
+    main = cases[next(iter(STAGE0_CASES))]
+    emit("kernels", kernel="stage0_fused", cases=cases)
     return dict(
         name="stage0_fused", route="cuda", source="latice_tpu_torch/ops/csrc/stage0_fused.cu",
         replaces="latice_tpu/ops/stage0_fused.py:214",
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-        bound_ms=b_ms, bound_by=b_by, design_byte_floor_ms=floor_ms, **times,
+        **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "design_byte_floor_ms", "plan", "device_ms_by_pass")},
+        cases={k: {f: v[f] for f in ("shape", "max_abs_err", "plan", "ms", "plain_ms",
+                                     "library_ms", "bound_ms")} for k, v in cases.items()},
         timed_as="B=256, C=32, 128x128, uint8/255 input; three launches per call",
     )
 

@@ -21,22 +21,38 @@
 // start, and one image's C=32 activation (1 MiB in bf16) is larger than a
 // block's shared memory.
 //   (a) conv1_stats: one block per image computes conv1 + b1 at every pixel
+//       in one pass (two at C=64), each thread holding all channels' sums,
 //       and reduces each channel's sum and sum of squares in a fixed order
 //       into (mean, rstd).
-//   (b) conv2: one block per 16x16 output tile recomputes conv1 on the tile
-//       plus a 1-pixel halo from x (9 FMAs a channel), normalizes, applies
-//       LeakyReLU, rounds to bf16 and zeroes the halo outside the image into
-//       shared memory; then conv2 runs as an implicit GEMM (M = 256 pixels,
-//       N = C, K = 9*C) on the tensor cores, mma.sync m16n8k16 with bf16
-//       operands and f32 accumulation, each warp owning two output rows.
-//       The epilogue adds b2, sums each channel over the tile's pixels and
-//       writes only the 2x2 maxima of acc2 = conv2 + b2, in f32.
-//   (c) finish: one block per (image, channel) plane sums the tile partials
-//       in order, then normalizes, applies LeakyReLU and rounds the pooled
-//       maxima to bf16. Normalization with rstd > 0, LeakyReLU and bf16
-//       rounding are all monotone non-decreasing, so the max of the
-//       transformed values equals the transform of the max: pooling the f32
-//       acc2 first is exactly equal to pooling the bf16 activations.
+//   (b) conv2, persistent: about two blocks per SM (the grid comes from the
+//       wrapper's planner) each stage w1, b1 and w2 once, then walk (image,
+//       16x32 tile) work items in a fixed order, item blockIdx.x + k *
+//       gridDim.x. While one item computes, the next item's 20x36 x window
+//       and its image's (mean, rstd) arrive by cp.async. Per item:
+//       - conv1 on the tile plus a 1-pixel halo (18x34 pixels): a thread
+//         takes one pixel, holds its 9 bf16-rounded x values in registers,
+//         computes all C channels (conv1, norm, LeakyReLU, bf16) and stores
+//         8 channels at a time with 16-byte stores; zero outside the image.
+//       - conv2 as an implicit GEMM on wgmma.mma_async m64nCk16 (bf16 in,
+//         f32 accumulate): each of the two warpgroups owns 64 output pixels
+//         at a time (2 rows x 32 columns) and walks K = 9*C tap by tap. A
+//         comes from registers through ldmatrix (each tap's shifted window
+//         does not line up with a shared-memory descriptor's 8-row core
+//         matrices; registers take any shift), double-buffered across taps;
+//         B (w2) comes from shared memory in the canonical K-major layout
+//         through a descriptor.
+//       - epilogue: + b2, each channel's sum and sum of squares over every
+//         pixel, and the 2x2 max of acc2 = conv2 + b2 (a thread holds both
+//         rows of a pool window, lane ^ 4 the other column), written in f32.
+//       The tile's partial sums go to device memory, reduced across warps in
+//       a fixed order.
+//   (c) finish: one block per (image, channel) plane; one warp sums the tile
+//       partials in a fixed order (lane-strided, then a butterfly), then the
+//       block normalizes, applies LeakyReLU and rounds the pooled maxima to
+//       bf16. Normalization with rstd > 0, LeakyReLU and bf16 rounding are
+//       all monotone non-decreasing, so the max of the transformed values
+//       equals the transform of the max: pooling the f32 acc2 first is
+//       exactly equal to pooling the bf16 activations.
 // The pooled f32 maxima make a round trip through device memory (~0.27 GB
 // at B=256, C=32: 0.08 ms at 3.35 TB/s), this design's own byte floor.
 
@@ -46,25 +62,31 @@
 
 namespace {
 
-constexpr int kTile = 16;          // output pixels per tile side
-constexpr int kHalo = kTile + 2;   // y1 tile with its 1-pixel halo
-constexpr int kXTile = kTile + 4;  // x tile feeding the halo's conv1
-constexpr int kWarps = 8;          // warp w owns output rows 2w and 2w+1
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStatsThreads = 512;
+constexpr int kTileH = 16, kTileW = 32;              // output pixels per tile
+constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2;  // y1 tile and its halo
+constexpr int kXH = kTileH + 4, kXW = kTileW + 4;        // x window of the halo's conv1
+constexpr int kThreads = 256;                        // two warpgroups
+constexpr int kWarps = kThreads / 32;
+constexpr int kStatsThreads = 256;
 
-// Shared memory of the conv2 block, in order: y1 tile [kHalo][kHalo][kPitch]
-// and w2 [9][C][kPitch] as bf16 (a pixel's or an output channel's C inputs
-// contiguous, padded by 8 so that the fragment loads of one warp hit 32
-// distinct banks), then the x tile, conv1's weights and bias, stats1 and the
-// cross-warp reduction, as f32.
+// Shared memory of the conv2 block, in order: w2 (9 taps x C x C bf16 in
+// wgmma's canonical K-major layout: [tap][ci/8][co/8][co%8][ci%8], each 8x8
+// core matrix 128 contiguous bytes), the y1 halo tile [kHaloH][kHaloW][kPitch]
+// bf16 (a pixel's C channels contiguous, padded by 8 so that ldmatrix's and
+// the 16-byte stores' rows hit distinct banks), two x windows and two
+// (mean, rstd) tables (cp.async double buffer), conv1's taps and bias as
+// [C][12] f32, and the cross-warp reduction. ops/stage0_fused.py:_smem_bytes
+// mirrors kBytes.
 template <int C>
 struct Conv2Smem {
   static constexpr int kPitch = C + 8;
-  static constexpr int kY1 = kHalo * kHalo * kPitch;
-  static constexpr int kW2 = 9 * C * kPitch;
-  static constexpr int kFloats = kXTile * kXTile + 9 * C + 3 * C + kWarps * C * 2;
-  static constexpr int kBytes = 2 * (kY1 + kW2) + 4 * kFloats;
+  static constexpr int kW2 = 9 * C * C * 2;
+  static constexpr int kY1 = kHaloH * kHaloW * kPitch * 2;
+  static constexpr int kX = 2 * kXH * kXW * 4;
+  static constexpr int kStats = 2 * C * 2 * 4;
+  static constexpr int kW1 = C * 12 * 4;
+  static constexpr int kRed = kWarps * C * 2 * 4;
+  static constexpr int kBytes = kW2 + kY1 + kX + kStats + kW1 + kRed;
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -90,41 +112,137 @@ __device__ __forceinline__ float conv1_at(const float* nb, const float* w, float
   return acc + bias;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+// 4 bytes from global to shared, or 4 zero bytes when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// A wgmma shared-memory matrix descriptor, no swizzle: start address, the
+// byte offset between core matrices along K (leading) and along M or N
+// (stride), each in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory writes of the generic proxy made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (64 x N, f32, wgmma's accumulator layout) += a (64 x 16 bf16, four
+// registers a thread, mma.sync's A layout per warp) * b (16 x N bf16, from
+// the descriptor), all 128 threads of the warpgroup together.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t desc) {
+  const int scale_d = 1;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t desc) {
+  const int scale_d = 1;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc) {
+  const int scale_d = 1;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // (a) grid: one block per image. stats1: (B, C, 2) = (mean, rstd) of conv1 + b1.
+// One pass over the image per group of up to 32 channels (one at C <= 32):
+// a thread holds a pixel's 9 x values and every channel's running sum and
+// sum of squares in registers; the sums are reduced over lanes by a
+// butterfly and over warps in order.
 template <int C>
 __global__ void __launch_bounds__(kStatsThreads)
     stage0_conv1_stats(const float* __restrict__ x, const float* __restrict__ w1,
                        const float* __restrict__ b1, float* __restrict__ stats1, int h, int w,
                        float eps) {
-  __shared__ float ws[9 * C];
-  __shared__ float bs[C];
-  __shared__ float red[kStatsThreads / 32][2][8];
+  constexpr int G = C < 32 ? C : 32;  // channels per pass
+  __shared__ __align__(16) float w1s[C * 12];  // [c][9 taps, bias, 0, 0]
+  __shared__ float red[kStatsThreads / 32][2 * G];
   const int b = blockIdx.x;
   const float* xi = x + static_cast<long long>(b) * h * w;
-  for (int i = threadIdx.x; i < 9 * C; i += blockDim.x) ws[i] = bf16_round(w1[i]);
-  for (int i = threadIdx.x; i < C; i += blockDim.x) bs[i] = b1[i];
+  for (int i = threadIdx.x; i < C * 12; i += kStatsThreads) {
+    const int c = i / 12, k = i % 12;
+    w1s[i] = k < 9 ? bf16_round(w1[c * 9 + k]) : (k == 9 ? b1[c] : 0.f);
+  }
   __syncthreads();
 
   const int hw = h * w;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int c0 = 0; c0 < C; c0 += 8) {
-    float s[8] = {}, ss[8] = {};
-    for (int p = threadIdx.x; p < hw; p += blockDim.x) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < C; c0 += G) {
+    float s[G], ss[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) s[j] = ss[j] = 0.f;
+    for (int p = threadIdx.x; p < hw; p += kStatsThreads) {
       const int y = p / w, xx = p - (p / w) * w;
       float nb[9];
 #pragma unroll
@@ -134,30 +252,33 @@ __global__ void __launch_bounds__(kStatsThreads)
         nb[k] = in ? bf16_round(__ldg(xi + yy * w + xk)) : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float v = conv1_at(nb, ws + (c0 + j) * 9, bs[c0 + j]);
+      for (int j = 0; j < G; ++j) {
+        const float4* wv = reinterpret_cast<const float4*>(w1s + (c0 + j) * 12);
+        const float4 wa = wv[0], wb = wv[1], wc = wv[2];
+        const float wk[9] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w, wc.x};
+        const float v = conv1_at(nb, wk, wc.y);
         s[j] += v;
         ss[j] = fmaf(v, v, ss[j]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < G; ++j) {
       s[j] = warp_sum(s[j]);
       ss[j] = warp_sum(ss[j]);
     }
     if (lane == 0) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        red[warp][0][j] = s[j];
-        red[warp][1][j] = ss[j];
+      for (int j = 0; j < G; ++j) {
+        red[warp][2 * j] = s[j];
+        red[warp][2 * j + 1] = ss[j];
       }
     }
     __syncthreads();
-    if (threadIdx.x < 8) {
+    if (threadIdx.x < G) {
       float ts = 0.f, tss = 0.f;
-      for (int i = 0; i < n_warps; ++i) {
-        ts += red[i][0][threadIdx.x];
-        tss += red[i][1][threadIdx.x];
+      for (int i = 0; i < kStatsThreads / 32; ++i) {
+        ts += red[i][2 * threadIdx.x];
+        tss += red[i][2 * threadIdx.x + 1];
       }
       const float n = static_cast<float>(hw);
       const float mean = ts / n;
@@ -170,186 +291,228 @@ __global__ void __launch_bounds__(kStatsThreads)
   }
 }
 
-// (b) grid: (tiles, B). w2t: (9, C, C) bf16, [ky*3+kx][co][ci]. pooled: (B,
-// C, H/2, W/2) f32, the 2x2 maxima of acc2 = conv2 + b2. part: (B, tiles, C,
-// 2) per-tile (sum, sum of squares) of acc2.
+// The x window of work item `item` (zeros outside the image) and its image's
+// (mean, rstd) into buffer `buf`, by cp.async; the caller commits.
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_window(const float* __restrict__ x,
+                                            const float* __restrict__ stats1, float* xs,
+                                            float* st, int item, int tiles, int tiles_x, int h,
+                                            int w) {
+  const int b = item / tiles, tile = item - (item / tiles) * tiles;
+  const int y0 = (tile / tiles_x) * kTileH - 2, x0 = (tile % tiles_x) * kTileW - 2;
+  const float* xi = x + static_cast<long long>(b) * h * w;
+  for (int i = threadIdx.x; i < kXH * kXW; i += kThreads) {
+    const int yy = y0 + i / kXW, xx = x0 + i % kXW;
+    const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+    cp_async4(smem_u32(xs + i), in ? xi + yy * w + xx : xi, in);
+  }
+  if (threadIdx.x < C / 2) {
+    cp_async16(smem_u32(st + 4 * threadIdx.x),
+               stats1 + static_cast<long long>(b) * C * 2 + 4 * threadIdx.x);
+  }
+}
+
+// (b) grid: `blocks` persistent blocks (the wrapper's plan). w2c: w2 as bf16
+// in the canonical layout of Conv2Smem. pooled: (B, C, H/2, W/2) f32, the
+// 2x2 maxima of acc2 = conv2 + b2. part: (B, tiles, C, 2) per-tile (sum, sum
+// of squares) of acc2.
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
     stage0_conv2(const float* __restrict__ x, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ stats1,
-                 const __nv_bfloat16* __restrict__ w2t, const float* __restrict__ b2,
-                 float* __restrict__ pooled, float* __restrict__ part, int h, int w, int tiles_x,
-                 float slope) {
+                 const __nv_bfloat16* __restrict__ w2c, const float* __restrict__ b2,
+                 float* __restrict__ pooled, float* __restrict__ part, int batch, int h, int w,
+                 int tiles_x, int tiles, float slope) {
   using S = Conv2Smem<C>;
   constexpr int P = S::kPitch;
-  constexpr int NT = C / 8;  // n-tiles of 8 output channels
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws2 = ys + S::kY1;
-  float* xs = reinterpret_cast<float*>(ws2 + S::kW2);
-  float* w1s = xs + kXTile * kXTile;
-  float* b1s = w1s + 9 * C;
-  float* mean1 = b1s + C;
-  float* rstd1 = mean1 + C;
-  float* red = rstd1 + C;
+  constexpr int KC = C / 16;  // k16 chunks of one tap
+  constexpr int NG = C / 8;   // core matrices along N (and along K) per tap
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + S::kW2);
+  float* xs = reinterpret_cast<float*>(smem + S::kW2 + S::kY1);
+  float* st = xs + 2 * kXH * kXW;
+  float* w1s = st + 2 * C * 2;
+  float* red = w1s + C * 12;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int ty0 = (tile / tiles_x) * kTile;
-  const int tx0 = (tile % tiles_x) * kTile;
-  const float* xi = x + static_cast<long long>(b) * h * w;
-
-  // Stage x (bf16-rounded, zero outside the image), conv1's weights, stats1
-  // and w2 (16-byte copies of its rows into the padded layout).
-  for (int i = tid; i < kXTile * kXTile; i += kThreads) {
-    const int yy = ty0 - 2 + i / kXTile, xx = tx0 - 2 + i % kXTile;
-    const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
-    xs[i] = in ? bf16_round(__ldg(xi + yy * w + xx)) : 0.f;
-  }
-  for (int i = tid; i < 9 * C; i += kThreads) w1s[i] = bf16_round(w1[i]);
-  for (int i = tid; i < C; i += kThreads) {
-    b1s[i] = b1[i];
-    mean1[i] = stats1[(static_cast<long long>(b) * C + i) * 2];
-    rstd1[i] = stats1[(static_cast<long long>(b) * C + i) * 2 + 1];
-  }
-  for (int i = tid; i < 9 * C * (C / 8); i += kThreads) {
-    const int row = i / (C / 8), q = i % (C / 8);
-    *reinterpret_cast<uint4*>(ws2 + row * P + q * 8) =
-        reinterpret_cast<const uint4*>(w2t + static_cast<long long>(row) * C)[q];
-  }
-  __syncthreads();
-
-  // y1 over the halo tile, two channels per item: conv1, norm, LeakyReLU,
-  // bf16; zero outside the image (SAME padding of the normalized y1).
-  for (int i = tid; i < kHalo * kHalo * (C / 2); i += kThreads) {
-    const int pix = i / (C / 2), c = 2 * (i % (C / 2));
-    const int hy = pix / kHalo, hx = pix % kHalo;
-    const int yy = ty0 - 1 + hy, xx = tx0 - 1 + hx;
-    __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-      float nb[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) nb[k] = xs[(hy + k / 3) * kXTile + hx + k % 3];
-      const float a0 = conv1_at(nb, w1s + c * 9, b1s[c]);
-      const float a1 = conv1_at(nb, w1s + (c + 1) * 9, b1s[c + 1]);
-      v = __floats2bfloat162_rn(lrelu((a0 - mean1[c]) * rstd1[c], slope),
-                                lrelu((a1 - mean1[c + 1]) * rstd1[c + 1], slope));
-    }
-    *reinterpret_cast<__nv_bfloat162*>(ys + pix * P + c) = v;
-  }
-  __syncthreads();
-
-  // conv2: per warp, two m16 tiles (output rows 2w, 2w+1; 16 pixels each)
-  // times NT n8 tiles, K walked tap by tap in chunks of 16 input channels.
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float acc[2][NT][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, and warp within it
+  const int total = batch * tiles;
+  const int oh = h / 2, ow = w / 2;
 
+  // Once per block: w2 (16-byte copies, already in its shared layout), conv1's
+  // bf16-rounded taps and bias, and the first item's window.
+  for (int i = tid; i < 9 * C * C / 8; i += kThreads) {
+    reinterpret_cast<uint4*>(w2s)[i] = reinterpret_cast<const uint4*>(w2c)[i];
+  }
+  for (int i = tid; i < C * 12; i += kThreads) {
+    const int c = i / 12, k = i % 12;
+    w1s[i] = k < 9 ? bf16_round(w1[c * 9 + k]) : (k == 9 ? b1[c] : 0.f);
+  }
+  if (blockIdx.x < total) load_window<C>(x, stats1, xs, st, blockIdx.x, tiles, tiles_x, h, w);
+  cp_async_commit();
+  fence_async_smem();
+  float b2r[NG][2];  // this thread's output channels 8j + 2t + e
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    b2r[j][0] = __ldg(b2 + 8 * j + 2 * t);
+    b2r[j][1] = __ldg(b2 + 8 * j + 2 * t + 1);
+  }
+
+  // ldmatrix row of this lane: M row m = (lane & 7) + 8 * ((lane >> 3) & 1)
+  // of its warp is output pixel (row m / 8, column 8 * wq + m % 8) of a
+  // 2x32 sub-tile; lanes 16-31 read the k16 chunk's upper 8 channels.
+  const uint32_t a_lane =
+      smem_u32(ys + (((lane >> 3) & 1) * kHaloW + 8 * wq + (lane & 7)) * P + 8 * (lane >> 4));
+  const uint64_t desc0 = wgmma_desc(smem_u32(w2s), NG * 128, 128);
+
+  int buf = 0;
+  for (int item = blockIdx.x; item < total; item += gridDim.x, buf ^= 1) {
+    const int b = item / tiles, tile = item - (item / tiles) * tiles;
+    const int ty0 = (tile / tiles_x) * kTileH, tx0 = (tile % tiles_x) * kTileW;
+    if (item + gridDim.x < total) {
+      load_window<C>(x, stats1, xs + (buf ^ 1) * kXH * kXW, st + (buf ^ 1) * C * 2,
+                     item + gridDim.x, tiles, tiles_x, h, w);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // y1 over the halo tile: one pixel a thread, all C channels.
+    const float* xb = xs + buf * kXH * kXW;
+    const float2* stb = reinterpret_cast<const float2*>(st + buf * C * 2);
+    for (int p = tid; p < kHaloH * kHaloW; p += kThreads) {
+      const int hy = p / kHaloW, hx = p - (p / kHaloW) * kHaloW;
+      const int yy = ty0 - 1 + hy, xx = tx0 - 1 + hx;
+      uint4* dst = reinterpret_cast<uint4*>(ys + p * P);
+      if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
+        float nb[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) nb[k] = bf16_round(xb[(hy + k / 3) * kXW + hx + k % 3]);
 #pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
+        for (int c0 = 0; c0 < C; c0 += 8) {
+          uint32_t packed[4];
 #pragma unroll
-    for (int kc = 0; kc < C; kc += 16) {
-      uint32_t a[2][4];
+          for (int q = 0; q < 4; ++q) {
+            float y[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const __nv_bfloat16* row = ys + ((2 * warp + r + ky) * kHalo + kx) * P + kc + 2 * t;
-        a[r][0] = ld32(row + g * P);
-        a[r][1] = ld32(row + (g + 8) * P);
-        a[r][2] = ld32(row + g * P + 8);
-        a[r][3] = ld32(row + (g + 8) * P + 8);
-      }
+            for (int e = 0; e < 2; ++e) {
+              const int c = c0 + 2 * q + e;
+              const float4* wv = reinterpret_cast<const float4*>(w1s + c * 12);
+              const float4 wa = wv[0], wb = wv[1], wc = wv[2];
+              const float wk[9] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w, wc.x};
+              const float2 ms = stb[c];
+              y[e] = lrelu((conv1_at(nb, wk, wc.y) - ms.x) * ms.y, slope);
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(y[0], y[1]);
+            packed[q] = *reinterpret_cast<const uint32_t*>(&v);
+          }
+          dst[c0 / 8] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* wrow = ws2 + (tap * C + j * 8 + g) * P + kc + 2 * t;
-        const uint32_t b0 = ld32(wrow), b1v = ld32(wrow + 8);
-        mma_bf16(acc[0][j], a[0], b0, b1v);
-        mma_bf16(acc[1][j], a[1], b0, b1v);
+        for (int c0 = 0; c0 < C; c0 += 8) dst[c0 / 8] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-  }
+    __syncthreads();
 
-  // Epilogue: + b2, the tile's per-channel sums over every pixel, then the
-  // 2x2 max of acc2 + b2 to device memory. Fragment element e of (r, j) is
-  // output row 2*warp + r, column g + 8*(e/2), channel j*8 + 2t + e%2: a
-  // thread holds both rows of a pool window, and lane g^1 (lane ^ 4) the
-  // window's other column.
-  float s[NT][2], ss[NT][2];
+    // conv2: warpgroup wg takes row pairs wg, wg + 2, ... of the tile.
+    float s[NG][2], ss[NG][2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = ss[j][0] = ss[j][1] = 0.f;
-  }
+    for (int j = 0; j < NG; ++j) s[j][0] = s[j][1] = ss[j][0] = ss[j][1] = 0.f;
+#pragma unroll 1
+    for (int rp = wg; rp < kTileH / 2; rp += 2) {
+      float acc[C / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int oy = ty0 + 2 * warp + r;
+      for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+      const uint32_t a_rp = a_lane + 2 * rp * kHaloW * P * 2;
+      uint32_t fa[2][KC][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int kc = 0; kc < KC; ++kc) ldmatrix_x4(fa[0][kc], a_rp + kc * 32);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int co = j * 8 + 2 * t + (e & 1);
-        const int ox = tx0 + g + 8 * (e >> 1);
-        acc[r][j][e] += __ldg(b2 + co);
-        if (oy < h && ox < w) {
-          const float v = acc[r][j][e];
-          s[j][e & 1] += v;
-          ss[j][e & 1] = fmaf(v, v, ss[j][e & 1]);
+      for (int tap = 0; tap < 9; ++tap) {
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          // B of (tap, kc): core matrices [tap][2kc .. 2kc+1][0 .. NG).
+          const uint32_t off = ((tap * NG + 2 * kc) * NG * 128) >> 4;
+          wgmma_rs<C>(acc, fa[tap & 1][kc], desc0 + off);
+        }
+        wgmma_commit();
+        if (tap + 1 < 9) {
+          wgmma_wait<1>();  // the previous tap's A registers are free again
+          const int ky = (tap + 1) / 3, kx = (tap + 1) % 3;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            ldmatrix_x4(fa[(tap + 1) & 1][kc], a_rp + ((ky * kHaloW + kx) * P) * 2 + kc * 32);
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) fence_operand(acc[i]);
+
+      // Epilogue. acc[4j + 2r + e] is output row 2rp + r, column 8wq + g,
+      // channel 8j + 2t + e.
+      const int oy = ty0 + 2 * rp, ox = tx0 + 8 * wq + g;
+      const bool valid = oy < h && ox < w;  // h, w and the origins even: whole windows
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v0 = acc[4 * j + e] + b2r[j][e];
+          const float v1 = acc[4 * j + 2 + e] + b2r[j][e];
+          if (valid) {
+            s[j][e] += v0;
+            ss[j][e] = fmaf(v0, v0, ss[j][e]);
+            s[j][e] += v1;
+            ss[j][e] = fmaf(v1, v1, ss[j][e]);
+          }
+          float m = fmaxf(v0, v1);
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          if (valid && (g & 1) == 0) {
+            const int c = 8 * j + 2 * t + e;
+            pooled[((static_cast<long long>(b) * C + c) * oh + oy / 2) * ow + ox / 2] = m;
+          }
         }
       }
     }
-  }
-  const int oh = h / 2, ow = w / 2;
-  const int py = (ty0 + 2 * warp) / 2;
-  float* pooled_b = pooled + static_cast<long long>(b) * C * oh * ow;
+
+    // The tile's per-channel sums: over g by shuffles, then over warps in order.
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float m = fmaxf(acc[0][j][e], acc[1][j][e]);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-      const int co = j * 8 + 2 * t + (e & 1);
-      const int ox = tx0 + g + 8 * (e >> 1);
-      if ((g & 1) == 0 && py < oh && ox < w) {
-        pooled_b[(static_cast<long long>(co) * oh + py) * ow + ox / 2] = m;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], o);
-        ss[j][e] += __shfl_xor_sync(0xffffffffu, ss[j][e], o);
-      }
-    }
-  }
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NG; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int co = j * 8 + 2 * t + e;
-        red[(warp * C + co) * 2] = s[j][e];
-        red[(warp * C + co) * 2 + 1] = ss[j][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], o);
+          ss[j][e] += __shfl_xor_sync(0xffffffffu, ss[j][e], o);
+        }
       }
     }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          red[(warp * C + c) * 2] = s[j][e];
+          red[(warp * C + c) * 2 + 1] = ss[j][e];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * C) {
+      const int c = tid >> 1, which = tid & 1;
+      float v = 0.f;
+      for (int i = 0; i < kWarps; ++i) v += red[(i * C + c) * 2 + which];
+      part[((static_cast<long long>(b) * tiles + tile) * C + c) * 2 + which] = v;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  if (tid < 2 * C) {
-    const int c = tid >> 1, which = tid & 1;
-    float v = 0.f;
-    for (int i = 0; i < kWarps; ++i) v += red[(i * C + c) * 2 + which];
-    const long long tiles = static_cast<long long>(gridDim.x);
-    part[((static_cast<long long>(b) * tiles + tile) * C + c) * 2 + which] = v;
-  }
+  cp_async_wait<0>();
 }
 
 // (c) grid: one block per (image, channel) plane. out: (B, C, H/2, W/2) bf16.
@@ -361,26 +524,42 @@ __global__ void __launch_bounds__(256)
   const long long plane = blockIdx.x;
   const long long b = plane / channels;
   const int c = static_cast<int>(plane % channels);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
     float s = 0.f, ss = 0.f;
-    for (int i = 0; i < tiles; ++i) {
+    for (int i = threadIdx.x; i < tiles; i += 32) {
       const float* p = part + ((b * tiles + i) * channels + c) * 2;
       s += p[0];
       ss += p[1];
     }
-    const float n = static_cast<float>(h) * static_cast<float>(w);
-    const float mean = s / n;
-    const float var = fmaxf(ss / n - mean * mean, 0.f);
-    st[0] = mean;
-    st[1] = rsqrtf(var + eps);
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (threadIdx.x == 0) {
+      const float n = static_cast<float>(h) * static_cast<float>(w);
+      const float mean = s / n;
+      const float var = fmaxf(ss / n - mean * mean, 0.f);
+      st[0] = mean;
+      st[1] = rsqrtf(var + eps);
+    }
   }
   __syncthreads();
   const float mean = st[0], rstd = st[1];
   const int n_out = (h / 2) * (w / 2);
   const float* src = pooled + plane * n_out;
   __nv_bfloat16* dst = out + plane * n_out;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    dst[i] = __float2bfloat16(lrelu((src[i] - mean) * rstd, slope));
+  if (n_out % 4 == 0) {
+    for (int i = threadIdx.x; i < n_out / 4; i += blockDim.x) {
+      const float4 m = reinterpret_cast<const float4*>(src)[i];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(lrelu((m.x - mean) * rstd, slope),
+                                                      lrelu((m.y - mean) * rstd, slope));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(lrelu((m.z - mean) * rstd, slope),
+                                                      lrelu((m.w - mean) * rstd, slope));
+      reinterpret_cast<__nv_bfloat162*>(dst)[2 * i] = lo;
+      reinterpret_cast<__nv_bfloat162*>(dst)[2 * i + 1] = hi;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+      dst[i] = __float2bfloat16(lrelu((src[i] - mean) * rstd, slope));
+    }
   }
 }
 
@@ -396,20 +575,20 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
 }
 
 template <int C>
-int launch(const float* x, const float* w1, const float* b1, const __nv_bfloat16* w2t,
+int launch(const float* x, const float* w1, const float* b1, const __nv_bfloat16* w2c,
            const float* b2, float* stats1, float* pooled, float* part, __nv_bfloat16* out,
-           int batch, int h, int w, float eps, float slope, cudaStream_t stream) {
+           int batch, int h, int w, int blocks, float eps, float slope, cudaStream_t stream) {
   static bool done[64] = {};
   constexpr int smem = Conv2Smem<C>::kBytes;
   cudaError_t e = allow_smem(stage0_conv2<C>, smem, done);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles_x = (w + kTile - 1) / kTile;
-  const int tiles = tiles_x * ((h + kTile - 1) / kTile);
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int tiles = tiles_x * ((h + kTileH - 1) / kTileH);
   stage0_conv1_stats<C><<<batch, kStatsThreads, 0, stream>>>(x, w1, b1, stats1, h, w, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  stage0_conv2<C><<<dim3(tiles, batch), kThreads, smem, stream>>>(
-      x, w1, b1, stats1, w2t, b2, pooled, part, h, w, tiles_x, slope);
+  stage0_conv2<C><<<blocks, kThreads, smem, stream>>>(x, w1, b1, stats1, w2c, b2, pooled, part,
+                                                      batch, h, w, tiles_x, tiles, slope);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   stage0_finish<<<batch * C, 256, 0, stream>>>(pooled, part, out, C, tiles, h, w, eps, slope);
@@ -420,31 +599,49 @@ int launch(const float* x, const float* w1, const float* b1, const __nv_bfloat16
 
 extern "C" {
 
-// x: (batch, 1, h, w) f32; w1: (C, 1, 3, 3) f32; b1, b2: (C,) f32;
-// w2t: (3, 3, C, C) bf16 = w2 (C, C, 3, 3) permuted to [ky][kx][co][ci];
-// scratch stats1 (batch, C, 2), pooled (batch, C, h/2, w/2) and part (batch,
-// tiles, C, 2) f32, tiles = ceil(h/16) * ceil(w/16); out: (batch, C, h/2,
-// w/2) bf16. h and w even. C is 16, 32 or 64. Returns cudaGetLastError()
-// after the launches.
-int latice_stage0_fused(const void* x, const void* w1, const void* b1, const void* w2t,
+// x: (batch, 1, h, w) f32; w1: (C, 1, 3, 3) f32; b1, b2: (C,) f32; w2c: w2
+// (C, C, 3, 3) as bf16 in the canonical layout [ky*3+kx][ci/8][co/8][co%8]
+// [ci%8]; scratch stats1 (batch, C, 2), pooled (batch, C, h/2, w/2) and part
+// (batch, tiles, C, 2) f32, tiles = ceil(h/tile_h) * ceil(w/tile_w); out:
+// (batch, C, h/2, w/2) bf16. h and w even; C is 16, 32 or 64; blocks >= 1
+// persistent conv2 blocks; tile_h and tile_w must be the kernel's own (the
+// wrapper's plan states them). Returns cudaGetLastError() after the launches.
+int latice_stage0_fused(const void* x, const void* w1, const void* b1, const void* w2c,
                         const void* b2, void* stats1, void* pooled, void* part, void* out,
-                        int batch, int channels, int h, int w, float eps, float slope,
-                        void* stream) {
+                        int batch, int channels, int h, int w, int blocks, int tile_h,
+                        int tile_w, float eps, float slope, void* stream) {
+  if (blocks < 1 || tile_h != kTileH || tile_w != kTileW) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
-  const __nv_bfloat16* w2b = static_cast<const __nv_bfloat16*>(w2t);
+  const __nv_bfloat16* w2b = static_cast<const __nv_bfloat16*>(w2c);
   const float* b2f = static_cast<const float*>(b2);
   float* st = static_cast<float*>(stats1);
   float* pl = static_cast<float*>(pooled);
   float* pt = static_cast<float*>(part);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   switch (channels) {
-    case 16: return launch<16>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
-    case 32: return launch<32>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
-    case 64: return launch<64>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, eps, slope, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16:
+      return launch<16>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, blocks, eps, slope, s);
+    case 32:
+      return launch<32>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, blocks, eps, slope, s);
+    case 64:
+      return launch<64>(xf, w1f, b1f, w2b, b2f, st, pl, pt, o, batch, h, w, blocks, eps, slope, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The conv2 block's shared memory in bytes at `channels` (0 if unsupported).
+int latice_stage0_smem_bytes(int channels) {
+  switch (channels) {
+    case 16: return Conv2Smem<16>::kBytes;
+    case 32: return Conv2Smem<32>::kBytes;
+    case 64: return Conv2Smem<64>::kBytes;
+    default: return 0;
   }
 }
 
