@@ -15,24 +15,25 @@
 // (18,432 at C=32), conv1 2*9*C; at B=256, 128x128, C=32 that is ~80 GFLOP,
 // 0.081 ms at the 989 TFLOP/s bf16 tensor-core peak, against ~82 MB of
 // unavoidable bytes (x in, the pooled bf16 out), 0.025 ms at 3.35 TB/s.
+// Both convolutions run on the tensor cores as wgmma.mma_async m64nCk16
+// with bf16 operands and f32 accumulation: conv1 with K = its 9 taps padded
+// to 16, conv2 with K = 9*C walked tap by tap.
 //
 // Design: three launches, no float atomics, so repeated runs are bitwise
 // equal. InstanceNorm needs a whole image's statistics before conv2 can
 // start, and one image's C=32 activation (1 MiB in bf16) is larger than a
 // block's shared memory.
 //   (a) conv1_stats: one block per image computes conv1 + b1 at every pixel
-//       in one pass (two at C=64), each thread holding all channels' sums,
-//       and reduces each channel's sum and sum of squares in a fixed order
-//       into (mean, rstd).
+//       on the tensor cores (below) and reduces each channel's sum and sum
+//       of squares in a fixed order into (mean, rstd).
 //   (b) conv2, persistent: about two blocks per SM (the grid comes from the
 //       wrapper's planner) each stage w1, b1 and w2 once, then walk (image,
 //       16x32 tile) work items in a fixed order, item blockIdx.x + k *
 //       gridDim.x. While one item computes, the next item's 20x36 x window
 //       and its image's (mean, rstd) arrive by cp.async. Per item:
-//       - conv1 on the tile plus a 1-pixel halo (18x34 pixels): a thread
-//         takes one pixel, holds its 9 bf16-rounded x values in registers,
-//         computes all C channels (conv1, norm, LeakyReLU, bf16) and stores
-//         8 channels at a time with 16-byte stores; zero outside the image.
+//       - conv1 on the tile plus a 1-pixel halo (18x34 pixels) on the
+//         tensor cores, 64 pixels at a time, then norm, LeakyReLU and bf16
+//         into shared memory; zero outside the image.
 //       - conv2 as an implicit GEMM on wgmma.mma_async m64nCk16 (bf16 in,
 //         f32 accumulate): each of the two warpgroups owns 64 output pixels
 //         at a time (2 rows x 32 columns) and walks K = 9*C tap by tap. A
@@ -65,33 +66,31 @@ namespace {
 constexpr int kTileH = 16, kTileW = 32;              // output pixels per tile
 constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2;  // y1 tile and its halo
 constexpr int kXH = kTileH + 4, kXW = kTileW + 4;        // x window of the halo's conv1
+constexpr int kHaloPix = kHaloH * kHaloW;
+constexpr int kHaloTiles = (kHaloPix + 63) / 64;         // m64 tiles of conv1 on the halo
 constexpr int kThreads = 256;                        // two warpgroups
 constexpr int kWarps = kThreads / 32;
 constexpr int kStatsThreads = 256;
 
 // Shared memory of the conv2 block, in order: w2 (9 taps x C x C bf16 in
 // wgmma's canonical K-major layout: [tap][ci/8][co/8][co%8][ci%8], each 8x8
-// core matrix 128 contiguous bytes), the y1 halo tile [kHaloH][kHaloW][kPitch]
-// bf16 (a pixel's C channels contiguous, padded by 8 so that ldmatrix's and
-// the 16-byte stores' rows hit distinct banks), two x windows and two
-// (mean, rstd) tables (cp.async double buffer), conv1's taps and bias as
-// [C][12] f32, and the cross-warp reduction. ops/stage0_fused.py:_smem_bytes
-// mirrors kBytes.
+// core matrix 128 contiguous bytes), w1 as conv1's B operand (stage_w1), the
+// y1 halo tile [kHaloH][kHaloW][kPitch] bf16 (a pixel's C channels
+// contiguous, padded by 8 so that ldmatrix's rows and the epilogue's stores
+// hit distinct banks), two x windows and two (mean, rstd) tables (cp.async
+// double buffer), and the cross-warp reduction. ops/stage0_fused.py:
+// _smem_bytes mirrors kBytes.
 template <int C>
 struct Conv2Smem {
   static constexpr int kPitch = C + 8;
   static constexpr int kW2 = 9 * C * C * 2;
+  static constexpr int kW1 = 16 * C * 2;
   static constexpr int kY1 = kHaloH * kHaloW * kPitch * 2;
   static constexpr int kX = 2 * kXH * kXW * 4;
   static constexpr int kStats = 2 * C * 2 * 4;
-  static constexpr int kW1 = C * 12 * 4;
   static constexpr int kRed = kWarps * C * 2 * 4;
-  static constexpr int kBytes = kW2 + kY1 + kX + kStats + kW1 + kRed;
+  static constexpr int kBytes = kW2 + kW1 + kY1 + kX + kStats + kRed;
 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 __device__ __forceinline__ float lrelu(float v, float slope) { return v >= 0.f ? v : slope * v; }
 
@@ -99,17 +98,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// conv1 + b1 of one channel at one pixel, from the pixel's 3x3 neighbourhood
-// nb (bf16-rounded x, zero outside the image) and the channel's bf16-rounded
-// taps w, both row-major. The products are exact in f32, so each fmaf adds
-// one exact product, in the TPU kernel's tap order; the bias comes last.
-__device__ __forceinline__ float conv1_at(const float* nb, const float* w, float bias) {
-  float acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc = fmaf(nb[k], w[k], acc);
-  return acc + bias;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -215,79 +203,153 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// conv1 runs on the tensor cores as wgmma m64nCk16: 64 pixels (M) by C
+// channels (N) by K = 16, the 9 taps and 7 zeros. Products of bf16 x and
+// bf16 w1 are exact in f32 and summed in f32; the bias comes after the taps.
+// B is w1 as a 16 x C matrix in the canonical K-major layout
+// [tap/8][c/8][c%8][tap%8], 32*C bytes, staged here by nthreads threads.
+template <int C>
+__device__ __forceinline__ void stage_w1(const float* __restrict__ w1, __nv_bfloat16* w1c,
+                                         int nthreads) {
+  for (int i = threadIdx.x; i < 16 * C; i += nthreads) {
+    const int tap = 8 * (i / (8 * C)) + i % 8, c = 8 * ((i / 64) % (C / 8)) + (i / 8) % 8;
+    w1c[i] = __float2bfloat16(tap < 9 ? w1[c * 9 + tap] : 0.f);
+  }
+}
+
+// conv1's A fragment for this thread's two M rows (mma.sync's A layout per
+// warp: K columns 2t, 2t+1, 2t+8, 2t+9) from v[r] = row r's inputs at taps
+// 2t, 2t+1 and 8; tap 8 is column 2t+8 of t == 0 alone, and columns 9..15
+// are zero. The inputs are rounded to bf16 here.
+__device__ __forceinline__ void conv1_fragment(uint32_t* a, const float (&v)[2][3], int t) {
+  a[0] = pack_bf16(v[0][0], v[0][1]);
+  a[1] = pack_bf16(v[1][0], v[1][1]);
+  a[2] = pack_bf16(t == 0 ? v[0][2] : 0.f, 0.f);
+  a[3] = pack_bf16(t == 0 ? v[1][2] : 0.f, 0.f);
+}
+
+// The inputs at taps 2t, 2t+1 and 8 of pixels p0 and p0 + 8 of an h x w
+// image, zero outside the image (SAME padding) and past its last pixel.
+__device__ __forceinline__ void conv1_inputs(float (&v)[2][3], const float* __restrict__ xi,
+                                             int p0, int t, int h, int w) {
+  const int taps[3] = {2 * t, 2 * t + 1, 8};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = p0 + 8 * r, y = p / w, xx = p - (p / w) * w;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int yy = y + taps[i] / 3 - 1, xk = xx + taps[i] % 3 - 1;
+      const bool in = p < h * w && yy >= 0 && yy < h && xk >= 0 && xk < w;
+      v[r][i] = in ? __ldg(xi + yy * w + xk) : 0.f;
+    }
+  }
+}
+
 // (a) grid: one block per image. stats1: (B, C, 2) = (mean, rstd) of conv1 + b1.
-// One pass over the image per group of up to 32 channels (one at C <= 32):
-// a thread holds a pixel's 9 x values and every channel's running sum and
-// sum of squares in registers; the sums are reduced over lanes by a
+// Each warpgroup takes every other m64 tile of the image's pixels, loading
+// the next tile's inputs while this one's wgmma runs; a thread sums its
+// pixels' values per channel, and the sums are reduced over lanes by a
 // butterfly and over warps in order.
 template <int C>
 __global__ void __launch_bounds__(kStatsThreads)
     stage0_conv1_stats(const float* __restrict__ x, const float* __restrict__ w1,
                        const float* __restrict__ b1, float* __restrict__ stats1, int h, int w,
                        float eps) {
-  constexpr int G = C < 32 ? C : 32;  // channels per pass
-  __shared__ __align__(16) float w1s[C * 12];  // [c][9 taps, bias, 0, 0]
-  __shared__ float red[kStatsThreads / 32][2 * G];
-  const int b = blockIdx.x;
-  const float* xi = x + static_cast<long long>(b) * h * w;
-  for (int i = threadIdx.x; i < C * 12; i += kStatsThreads) {
-    const int c = i / 12, k = i % 12;
-    w1s[i] = k < 9 ? bf16_round(w1[c * 9 + k]) : (k == 9 ? b1[c] : 0.f);
-  }
+  constexpr int NG = C / 8;
+  constexpr int kGroups = kStatsThreads / 128;  // warpgroups
+  __shared__ __align__(128) __nv_bfloat16 w1c[16 * C];
+  __shared__ float red[kStatsThreads / 32][2 * C];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, wq = warp & 3;
+  const int b = blockIdx.x, hw = h * w;
+  const float* xi = x + static_cast<long long>(b) * hw;
+  stage_w1<C>(w1, w1c, kStatsThreads);
+  fence_async_smem();
   __syncthreads();
 
-  const int hw = h * w;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c0 = 0; c0 < C; c0 += G) {
-    float s[G], ss[G];
+  float b1r[NG][2], s[NG][2], ss[NG][2];
 #pragma unroll
-    for (int j = 0; j < G; ++j) s[j] = ss[j] = 0.f;
-    for (int p = threadIdx.x; p < hw; p += kStatsThreads) {
-      const int y = p / w, xx = p - (p / w) * w;
-      float nb[9];
+  for (int j = 0; j < NG; ++j) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int yy = y + k / 3 - 1, xk = xx + k % 3 - 1;
-        const bool in = yy >= 0 && yy < h && xk >= 0 && xk < w;
-        nb[k] = in ? bf16_round(__ldg(xi + yy * w + xk)) : 0.f;
-      }
+    for (int e = 0; e < 2; ++e) {
+      b1r[j][e] = __ldg(b1 + 8 * j + 2 * t + e);
+      s[j][e] = ss[j][e] = 0.f;
+    }
+  }
+  const uint64_t desc = wgmma_desc(smem_u32(w1c), NG * 128, 128);
+  const int n_tiles = (hw + 63) / 64;
+  const int row = 16 * wq + g;  // this thread's M rows: row and row + 8
+  float v[2][3];
+  conv1_inputs(v, xi, 64 * wg + row, t, h, w);
+#pragma unroll 1
+  for (int q = wg; q < n_tiles; q += kGroups) {
+    uint32_t a[4];
+    conv1_fragment(a, v, t);
+    if (q + kGroups < n_tiles) conv1_inputs(v, xi, 64 * (q + kGroups) + row, t, h, w);
+    float acc[C / 2];
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float4* wv = reinterpret_cast<const float4*>(w1s + (c0 + j) * 12);
-        const float4 wa = wv[0], wb = wv[1], wc = wv[2];
-        const float wk[9] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w, wc.x};
-        const float v = conv1_at(nb, wk, wc.y);
-        s[j] += v;
-        ss[j] = fmaf(v, v, ss[j]);
+    for (int k = 0; k < C / 2; ++k) acc[k] = 0.f;
+    wgmma_fence();
+    wgmma_rs<C>(acc, a, desc);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < C / 2; ++k) fence_operand(acc[k]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (64 * q + row + 8 * r < hw) {
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float val = acc[4 * j + 2 * r + e] + b1r[j][e];
+            s[j][e] += val;
+            ss[j][e] = fmaf(val, val, ss[j][e]);
+          }
+        }
       }
     }
+  }
+
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      s[j] = warp_sum(s[j]);
-      ss[j] = warp_sum(ss[j]);
-    }
-    if (lane == 0) {
+  for (int j = 0; j < NG; ++j) {
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        red[warp][2 * j] = s[j];
-        red[warp][2 * j + 1] = ss[j];
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], o);
+        ss[j][e] += __shfl_xor_sync(0xffffffffu, ss[j][e], o);
       }
     }
-    __syncthreads();
-    if (threadIdx.x < G) {
-      float ts = 0.f, tss = 0.f;
-      for (int i = 0; i < kStatsThreads / 32; ++i) {
-        ts += red[i][2 * threadIdx.x];
-        tss += red[i][2 * threadIdx.x + 1];
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp][2 * (8 * j + 2 * t + e)] = s[j][e];
+        red[warp][2 * (8 * j + 2 * t + e) + 1] = ss[j][e];
       }
-      const float n = static_cast<float>(hw);
-      const float mean = ts / n;
-      const float var = fmaxf(tss / n - mean * mean, 0.f);
-      float* out = stats1 + (static_cast<long long>(b) * C + c0 + threadIdx.x) * 2;
-      out[0] = mean;
-      out[1] = rsqrtf(var + eps);
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  if (tid < C) {
+    float ts = 0.f, tss = 0.f;
+    for (int i = 0; i < kStatsThreads / 32; ++i) {
+      ts += red[i][2 * tid];
+      tss += red[i][2 * tid + 1];
+    }
+    const float n = static_cast<float>(hw);
+    const float mean = ts / n;
+    const float var = fmaxf(tss / n - mean * mean, 0.f);
+    float* out = stats1 + (static_cast<long long>(b) * C + tid) * 2;
+    out[0] = mean;
+    out[1] = rsqrtf(var + eps);
   }
 }
 
@@ -329,11 +391,11 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
   constexpr int NG = C / 8;   // core matrices along N (and along K) per tap
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + S::kW2);
-  float* xs = reinterpret_cast<float*>(smem + S::kW2 + S::kY1);
+  __nv_bfloat16* w1c = reinterpret_cast<__nv_bfloat16*>(smem + S::kW2);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + S::kW2 + S::kW1);
+  float* xs = reinterpret_cast<float*>(smem + S::kW2 + S::kW1 + S::kY1);
   float* st = xs + 2 * kXH * kXW;
-  float* w1s = st + 2 * C * 2;
-  float* red = w1s + C * 12;
+  float* red = st + 2 * C * 2;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -342,23 +404,24 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
   const int total = batch * tiles;
   const int oh = h / 2, ow = w / 2;
 
-  // Once per block: w2 (16-byte copies, already in its shared layout), conv1's
-  // bf16-rounded taps and bias, and the first item's window.
+  // Once per block: w2 (16-byte copies, already in its shared layout), w1,
+  // the biases of this thread's channels 8j + 2t + e, and the first item's
+  // window.
   for (int i = tid; i < 9 * C * C / 8; i += kThreads) {
     reinterpret_cast<uint4*>(w2s)[i] = reinterpret_cast<const uint4*>(w2c)[i];
   }
-  for (int i = tid; i < C * 12; i += kThreads) {
-    const int c = i / 12, k = i % 12;
-    w1s[i] = k < 9 ? bf16_round(w1[c * 9 + k]) : (k == 9 ? b1[c] : 0.f);
-  }
+  stage_w1<C>(w1, w1c, kThreads);
   if (blockIdx.x < total) load_window<C>(x, stats1, xs, st, blockIdx.x, tiles, tiles_x, h, w);
   cp_async_commit();
   fence_async_smem();
-  float b2r[NG][2];  // this thread's output channels 8j + 2t + e
+  float b1r[NG][2], b2r[NG][2];
 #pragma unroll
   for (int j = 0; j < NG; ++j) {
-    b2r[j][0] = __ldg(b2 + 8 * j + 2 * t);
-    b2r[j][1] = __ldg(b2 + 8 * j + 2 * t + 1);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      b1r[j][e] = __ldg(b1 + 8 * j + 2 * t + e);
+      b2r[j][e] = __ldg(b2 + 8 * j + 2 * t + e);
+    }
   }
 
   // ldmatrix row of this lane: M row m = (lane & 7) + 8 * ((lane >> 3) & 1)
@@ -367,6 +430,13 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
   const uint32_t a_lane =
       smem_u32(ys + (((lane >> 3) & 1) * kHaloW + 8 * wq + (lane & 7)) * P + 8 * (lane >> 4));
   const uint64_t desc0 = wgmma_desc(smem_u32(w2s), NG * 128, 128);
+  const uint64_t desc1 = wgmma_desc(smem_u32(w1c), NG * 128, 128);
+  int xoff[3];  // x window offsets of this thread's conv1 inputs: taps 2t, 2t+1, 8
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int tap = i < 2 ? 2 * t + i : 8;
+    xoff[i] = (tap / 3) * kXW + tap % 3;
+  }
 
   int buf = 0;
   for (int item = blockIdx.x; item < total; item += gridDim.x, buf ^= 1) {
@@ -380,40 +450,58 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
     cp_async_wait<1>();
     __syncthreads();
 
-    // y1 over the halo tile: one pixel a thread, all C channels.
-    const float* xb = xs + buf * kXH * kXW;
-    const float2* stb = reinterpret_cast<const float2*>(st + buf * C * 2);
-    for (int p = tid; p < kHaloH * kHaloW; p += kThreads) {
-      const int hy = p / kHaloW, hx = p - (p / kHaloW) * kHaloW;
-      const int yy = ty0 - 1 + hy, xx = tx0 - 1 + hx;
-      uint4* dst = reinterpret_cast<uint4*>(ys + p * P);
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
-        float nb[9];
+    // y1 over the halo tile: conv1 of its kHaloPix pixels on the tensor
+    // cores, 64 at a time (warpgroup wg takes tiles wg, wg + 2, ...), then
+    // norm, LeakyReLU and bf16 into ys; zero outside the image (SAME padding
+    // of the normalized y1).
+    {
+      const float* xb = xs + buf * kXH * kXW;
+      const float2* stb = reinterpret_cast<const float2*>(st + buf * C * 2);
+      float2 ms[NG][2];  // (mean, rstd) of this thread's channels
 #pragma unroll
-        for (int k = 0; k < 9; ++k) nb[k] = bf16_round(xb[(hy + k / 3) * kXW + hx + k % 3]);
+      for (int j = 0; j < NG; ++j) {
+        ms[j][0] = stb[8 * j + 2 * t];
+        ms[j][1] = stb[8 * j + 2 * t + 1];
+      }
 #pragma unroll 1
-        for (int c0 = 0; c0 < C; c0 += 8) {
-          uint32_t packed[4];
+      for (int q = wg; q < kHaloTiles; q += 2) {
+        const int p0 = 64 * q + 16 * wq + g;
+        float v[2][3];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float y[2];
+        for (int r = 0; r < 2; ++r) {
+          const int p = min(p0 + 8 * r, kHaloPix - 1);
+          const float* base = xb + (p / kHaloW) * kXW + p % kHaloW;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = c0 + 2 * q + e;
-              const float4* wv = reinterpret_cast<const float4*>(w1s + c * 12);
-              const float4 wa = wv[0], wb = wv[1], wc = wv[2];
-              const float wk[9] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w, wc.x};
-              const float2 ms = stb[c];
-              y[e] = lrelu((conv1_at(nb, wk, wc.y) - ms.x) * ms.y, slope);
-            }
-            const __nv_bfloat162 v = __floats2bfloat162_rn(y[0], y[1]);
-            packed[q] = *reinterpret_cast<const uint32_t*>(&v);
-          }
-          dst[c0 / 8] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          for (int i = 0; i < 3; ++i) v[r][i] = base[xoff[i]];
         }
-      } else {
+        uint32_t a[4];
+        conv1_fragment(a, v, t);
+        float acc1[C / 2];
 #pragma unroll
-        for (int c0 = 0; c0 < C; c0 += 8) dst[c0 / 8] = make_uint4(0u, 0u, 0u, 0u);
+        for (int k = 0; k < C / 2; ++k) acc1[k] = 0.f;
+        wgmma_fence();
+        wgmma_rs<C>(acc1, a, desc1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int k = 0; k < C / 2; ++k) fence_operand(acc1[k]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = p0 + 8 * r;
+          if (p < kHaloPix) {
+            const int yy = ty0 - 1 + p / kHaloW, xx = tx0 - 1 + p % kHaloW;
+            const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+#pragma unroll
+            for (int j = 0; j < NG; ++j) {
+              const float y0 = lrelu((acc1[4 * j + 2 * r] + b1r[j][0] - ms[j][0].x) * ms[j][0].y,
+                                     slope);
+              const float y1 =
+                  lrelu((acc1[4 * j + 2 * r + 1] + b1r[j][1] - ms[j][1].x) * ms[j][1].y, slope);
+              *reinterpret_cast<uint32_t*>(ys + p * P + 8 * j + 2 * t) =
+                  in ? pack_bf16(y0, y1) : 0u;
+            }
+          }
+        }
       }
     }
     __syncthreads();
