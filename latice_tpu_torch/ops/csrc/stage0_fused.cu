@@ -23,9 +23,9 @@
 // equal. InstanceNorm needs a whole image's statistics before conv2 can
 // start, and one image's C=32 activation (1 MiB in bf16) is larger than a
 // block's shared memory.
-//   (a) conv1_stats: one block per image computes conv1 + b1 at every pixel
-//       on the tensor cores (below) and reduces each channel's sum and sum
-//       of squares in a fixed order into (mean, rstd).
+//   (a) conv1_stats: one block of four warpgroups per image computes conv1
+//       + b1 at every pixel on the tensor cores and reduces each channel's
+//       sum and sum of squares in a fixed order into (mean, rstd).
 //   (b) conv2, persistent: about two blocks per SM (the grid comes from the
 //       wrapper's planner) each stage w1, b1 and w2 once, then walk (image,
 //       16x32 tile) work items in a fixed order, item blockIdx.x + k *
@@ -35,16 +35,18 @@
 //         tensor cores, 64 pixels at a time, then norm, LeakyReLU and bf16
 //         into shared memory; zero outside the image.
 //       - conv2 as an implicit GEMM on wgmma.mma_async m64nCk16 (bf16 in,
-//         f32 accumulate): each of the two warpgroups owns 64 output pixels
-//         at a time (2 rows x 32 columns) and walks K = 9*C tap by tap. A
-//         comes from registers through ldmatrix (each tap's shifted window
-//         does not line up with a shared-memory descriptor's 8-row core
+//         f32 accumulate): each of the two warpgroups owns two row pairs
+//         (2 x 64 output pixels, each 2 rows x 32 columns) at a time, their
+//         wgmma chains interleaved, and walks K = 9*C tap by tap. A comes
+//         from registers through ldmatrix (each tap's shifted window does
+//         not line up with a shared-memory descriptor's 8-row core
 //         matrices; registers take any shift), double-buffered across taps;
 //         B (w2) comes from shared memory in the canonical K-major layout
 //         through a descriptor.
 //       - epilogue: + b2, each channel's sum and sum of squares over every
 //         pixel, and the 2x2 max of acc2 = conv2 + b2 (a thread holds both
-//         rows of a pool window, lane ^ 4 the other column), written in f32.
+//         rows of a pool window, lane ^ 4 the other column) in f32, staged
+//         in shared memory and written 16 bytes a thread.
 //       The tile's partial sums go to device memory, reduced across warps in
 //       a fixed order.
 //   (c) finish: one block per (image, channel) plane; one warp sums the tile
@@ -66,11 +68,12 @@ namespace {
 constexpr int kTileH = 16, kTileW = 32;              // output pixels per tile
 constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2;  // y1 tile and its halo
 constexpr int kXH = kTileH + 4, kXW = kTileW + 4;        // x window of the halo's conv1
+constexpr int kPoolW = kTileW / 2;                      // pooled columns of a tile
 constexpr int kHaloPix = kHaloH * kHaloW;
 constexpr int kHaloTiles = (kHaloPix + 63) / 64;         // m64 tiles of conv1 on the halo
 constexpr int kThreads = 256;                        // two warpgroups
 constexpr int kWarps = kThreads / 32;
-constexpr int kStatsThreads = 256;
+constexpr int kStatsThreads = 512;     // four warpgroups
 
 // Shared memory of the conv2 block, in order: w2 (9 taps x C x C bf16 in
 // wgmma's canonical K-major layout: [tap][ci/8][co/8][co%8][ci%8], each 8x8
@@ -78,8 +81,9 @@ constexpr int kStatsThreads = 256;
 // y1 halo tile [kHaloH][kHaloW][kPitch] bf16 (a pixel's C channels
 // contiguous, padded by 8 so that ldmatrix's rows and the epilogue's stores
 // hit distinct banks), two x windows and two (mean, rstd) tables (cp.async
-// double buffer), and the cross-warp reduction. ops/stage0_fused.py:
-// _smem_bytes mirrors kBytes.
+// double buffer), the cross-warp reduction, and the pooled maxima of a row
+// pair per warpgroup, two buffers each, on their way to device memory.
+// ops/stage0_fused.py:_smem_bytes mirrors kBytes.
 template <int C>
 struct Conv2Smem {
   static constexpr int kPitch = C + 8;
@@ -89,7 +93,8 @@ struct Conv2Smem {
   static constexpr int kX = 2 * kXH * kXW * 4;
   static constexpr int kStats = 2 * C * 2 * 4;
   static constexpr int kRed = kWarps * C * 2 * 4;
-  static constexpr int kBytes = kW2 + kW1 + kY1 + kX + kStats + kRed;
+  static constexpr int kStage = 2 * 2 * C * kPoolW * 4;
+  static constexpr int kBytes = kW2 + kW1 + kY1 + kX + kStats + kRed + kStage;
 };
 
 __device__ __forceinline__ float lrelu(float v, float slope) { return v >= 0.f ? v : slope * v; }
@@ -154,6 +159,11 @@ __device__ __forceinline__ void fence_async_smem() {
 }
 
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Named barrier `id` among the 128 threads of one warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
 
 // d (64 x N, f32, wgmma's accumulator layout) += a (64 x 16 bf16, four
 // registers a thread, mma.sync's A layout per warp) * b (16 x N bf16, from
@@ -389,6 +399,7 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
   constexpr int P = S::kPitch;
   constexpr int KC = C / 16;  // k16 chunks of one tap
   constexpr int NG = C / 8;   // core matrices along N (and along K) per tap
+  constexpr int kSub = 2;    // row pairs a warpgroup takes at once
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* w1c = reinterpret_cast<__nv_bfloat16*>(smem + S::kW2);
@@ -396,6 +407,8 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
   float* xs = reinterpret_cast<float*>(smem + S::kW2 + S::kW1 + S::kY1);
   float* st = xs + 2 * kXH * kXW;
   float* red = st + 2 * C * 2;
+  float* stage = red + kWarps * C * 2;  // [buffer][warpgroup][C][kPoolW]
+  int stage_n = 0;                      // row pairs this warpgroup has staged
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -506,65 +519,107 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 1 : 2)
     }
     __syncthreads();
 
-    // conv2: warpgroup wg takes row pairs wg, wg + 2, ... of the tile.
+    // conv2: warpgroup wg takes kSub row pairs at a time, wg * kSub first,
+    // their wgmma chains interleaved so that one's A loads hide under the
+    // other's products.
     float s[NG][2], ss[NG][2];
 #pragma unroll
     for (int j = 0; j < NG; ++j) s[j][0] = s[j][1] = ss[j][0] = ss[j][1] = 0.f;
 #pragma unroll 1
-    for (int rp = wg; rp < kTileH / 2; rp += 2) {
-      float acc[C / 2];
+    for (int rp0 = wg * kSub; rp0 < kTileH / 2; rp0 += 2 * kSub) {
+      float acc[kSub][C / 2];
 #pragma unroll
-      for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
-      const uint32_t a_rp = a_lane + 2 * rp * kHaloW * P * 2;
-      uint32_t fa[2][KC][4];
+      for (int u = 0; u < kSub; ++u) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) ldmatrix_x4(fa[0][kc], a_rp + kc * 32);
+        for (int i = 0; i < C / 2; ++i) acc[u][i] = 0.f;
+      }
+      const uint32_t a_rp = a_lane + 2 * rp0 * kHaloW * P * 2;
+      constexpr uint32_t kRowPair = 2 * kHaloW * P * 2;  // bytes from one row pair to the next
+      uint32_t fa[2][kSub][KC][4];
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) ldmatrix_x4(fa[0][u][kc], a_rp + u * kRowPair + kc * 32);
+      }
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          // B of (tap, kc): core matrices [tap][2kc .. 2kc+1][0 .. NG).
-          const uint32_t off = ((tap * NG + 2 * kc) * NG * 128) >> 4;
-          wgmma_rs<C>(acc, fa[tap & 1][kc], desc0 + off);
+        for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            // B of (tap, kc): core matrices [tap][2kc .. 2kc+1][0 .. NG).
+            const uint32_t off = ((tap * NG + 2 * kc) * NG * 128) >> 4;
+            wgmma_rs<C>(acc[u], fa[tap & 1][u][kc], desc0 + off);
+          }
         }
         wgmma_commit();
         if (tap + 1 < 9) {
           wgmma_wait<1>();  // the previous tap's A registers are free again
           const int ky = (tap + 1) / 3, kx = (tap + 1) % 3;
 #pragma unroll
-          for (int kc = 0; kc < KC; ++kc) {
-            ldmatrix_x4(fa[(tap + 1) & 1][kc], a_rp + ((ky * kHaloW + kx) * P) * 2 + kc * 32);
+          for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+            for (int kc = 0; kc < KC; ++kc) {
+              ldmatrix_x4(fa[(tap + 1) & 1][u][kc],
+                          a_rp + u * kRowPair + ((ky * kHaloW + kx) * P) * 2 + kc * 32);
+            }
           }
         }
       }
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < C / 2; ++i) fence_operand(acc[i]);
+      for (int u = 0; u < kSub; ++u) {
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) fence_operand(acc[u][i]);
+      }
 
-      // Epilogue. acc[4j + 2r + e] is output row 2rp + r, column 8wq + g,
-      // channel 8j + 2t + e.
-      const int oy = ty0 + 2 * rp, ox = tx0 + 8 * wq + g;
-      const bool valid = oy < h && ox < w;  // h, w and the origins even: whole windows
+      // Epilogue. acc[u][4j + 2r + e] is output row 2(rp0 + u) + r, column
+      // 8wq + g, channel 8j + 2t + e.
 #pragma unroll
-      for (int j = 0; j < NG; ++j) {
+      for (int u = 0; u < kSub; ++u) {
+        const int oy = ty0 + 2 * (rp0 + u), ox = tx0 + 8 * wq + g;
+        float* stg_u = stage + ((stage_n & 1) * 2 + wg) * C * kPoolW;
+        const bool valid = oy < h && ox < w;  // h, w and the origins even: whole windows
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v0 = acc[4 * j + e] + b2r[j][e];
-          const float v1 = acc[4 * j + 2 + e] + b2r[j][e];
-          if (valid) {
-            s[j][e] += v0;
-            ss[j][e] = fmaf(v0, v0, ss[j][e]);
-            s[j][e] += v1;
-            ss[j][e] = fmaf(v1, v1, ss[j][e]);
-          }
-          float m = fmaxf(v0, v1);
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-          if (valid && (g & 1) == 0) {
-            const int c = 8 * j + 2 * t + e;
-            pooled[((static_cast<long long>(b) * C + c) * oh + oy / 2) * ow + ox / 2] = m;
+        for (int j = 0; j < NG; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v0 = acc[u][4 * j + e] + b2r[j][e];
+            const float v1 = acc[u][4 * j + 2 + e] + b2r[j][e];
+            if (valid) {
+              s[j][e] += v0;
+              ss[j][e] = fmaf(v0, v0, ss[j][e]);
+              s[j][e] += v1;
+              ss[j][e] = fmaf(v1, v1, ss[j][e]);
+            }
+            float m = fmaxf(v0, v1);
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+            if ((g & 1) == 0) stg_u[(8 * j + 2 * t + e) * kPoolW + 4 * wq + g / 2] = m;
           }
         }
+        // The row pair's kPoolW pooled columns of each channel, 16 bytes a
+        // thread. The other buffer takes the next row pair, so one barrier
+        // orders both the writes before the reads and the reads before the
+        // writes two row pairs on.
+        warpgroup_sync(1 + wg);
+        const int py = oy / 2, px0 = tx0 / 2;
+        if (py < oh) {
+          for (int i = tid & 127; i < C * kPoolW / 4; i += 128) {
+            const int c = i / (kPoolW / 4), qd = i % (kPoolW / 4), px = px0 + 4 * qd;
+            const float4 v4 = *reinterpret_cast<const float4*>(stg_u + c * kPoolW + 4 * qd);
+            float* dst = pooled + ((static_cast<long long>(b) * C + c) * oh + py) * ow + px;
+            if (ow % 4 == 0 && px + 3 < ow) {
+              *reinterpret_cast<float4*>(dst) = v4;
+            } else {
+              const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+              for (int k = 0; k < 4; ++k) {
+                if (px + k < ow) dst[k] = vv[k];
+              }
+            }
+          }
+        }
+        ++stage_n;
       }
     }
 

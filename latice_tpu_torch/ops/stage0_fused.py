@@ -94,10 +94,13 @@ def _stage0_pool_first(
 def _smem_bytes(c: int) -> int:
     """Shared memory of one conv2 block at C=c, as ``Conv2Smem<C>::kBytes``:
     w2, w1 (16 x c) and the y1 halo tile (pitch c + 8) in bf16, two x
-    windows, two (mean, rstd) tables, the cross-warp sums."""
+    windows, two (mean, rstd) tables, the cross-warp sums, and two buffers
+    of pooled maxima per warpgroup."""
     halo = (_TILE_H + 2) * (_TILE_W + 2) * (c + 8) * 2
     windows = 2 * (_TILE_H + 4) * (_TILE_W + 4) * 4
-    return 9 * c * c * 2 + 16 * c * 2 + halo + windows + 2 * c * 2 * 4 + 8 * c * 2 * 4
+    staged = 2 * 2 * c * (_TILE_W // 2) * 4
+    return (9 * c * c * 2 + 16 * c * 2 + halo + windows + 2 * c * 2 * 4 + 8 * c * 2 * 4
+            + staged)
 
 
 def _tile_grid(h: int, w: int) -> tuple[int, int]:
