@@ -243,18 +243,20 @@ __device__ __forceinline__ void conv1_fragment(uint32_t* a, const float (&v)[2][
   a[3] = pack_bf16(t == 0 ? v[1][2] : 0.f, 0.f);
 }
 
-// The inputs at taps 2t, 2t+1 and 8 of pixels p0 and p0 + 8 of an h x w
-// image, zero outside the image (SAME padding) and past its last pixel.
+// The inputs at taps 2t, 2t+1 and 8 (row offsets dy, column offsets dx) of
+// this thread's two pixels (rows y, columns xx) of an h x w image, zero
+// outside the image (SAME padding) and past its last row.
 __device__ __forceinline__ void conv1_inputs(float (&v)[2][3], const float* __restrict__ xi,
-                                             int p0, int t, int h, int w) {
-  const int taps[3] = {2 * t, 2 * t + 1, 8};
+                                             const int (&y)[2], const int (&xx)[2],
+                                             const int (&dy)[3], const int (&dx)[3], int h,
+                                             int w) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int p = p0 + 8 * r, y = p / w, xx = p - (p / w) * w;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const int yy = y + taps[i] / 3 - 1, xk = xx + taps[i] % 3 - 1;
-      const bool in = p < h * w && yy >= 0 && yy < h && xk >= 0 && xk < w;
+      const int yy = y[r] + dy[i], xk = xx[r] + dx[i];
+      const bool in = static_cast<unsigned>(yy) < static_cast<unsigned>(h) &&
+                      static_cast<unsigned>(xk) < static_cast<unsigned>(w) && y[r] < h;
       v[r][i] = in ? __ldg(xi + yy * w + xk) : 0.f;
     }
   }
@@ -294,13 +296,38 @@ __global__ void __launch_bounds__(kStatsThreads)
   const uint64_t desc = wgmma_desc(smem_u32(w1c), NG * 128, 128);
   const int n_tiles = (hw + 63) / 64;
   const int row = 16 * wq + g;  // this thread's M rows: row and row + 8
+  int dy[3], dx[3];             // offsets of its taps 2t, 2t+1, 8
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int tap = i < 2 ? 2 * t + i : 8;
+    dy[i] = tap / 3 - 1;
+    dx[i] = tap % 3 - 1;
+  }
+  // Its pixels' coordinates, moved on by 64 * kGroups pixels a tile.
+  const int sy = 64 * kGroups / w, sx = 64 * kGroups - sy * w;
+  int y[2], xx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = 64 * wg + row + 8 * r;
+    y[r] = p / w;
+    xx[r] = p - y[r] * w;
+  }
   float v[2][3];
-  conv1_inputs(v, xi, 64 * wg + row, t, h, w);
+  conv1_inputs(v, xi, y, xx, dy, dx, h, w);
 #pragma unroll 1
   for (int q = wg; q < n_tiles; q += kGroups) {
     uint32_t a[4];
     conv1_fragment(a, v, t);
-    if (q + kGroups < n_tiles) conv1_inputs(v, xi, 64 * (q + kGroups) + row, t, h, w);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xx[r] += sx;
+      y[r] += sy;
+      if (xx[r] >= w) {
+        xx[r] -= w;
+        ++y[r];
+      }
+    }
+    conv1_inputs(v, xi, y, xx, dy, dx, h, w);  // the next tile's, under this one's wgmma
     float acc[C / 2];
 #pragma unroll
     for (int k = 0; k < C / 2; ++k) acc[k] = 0.f;
