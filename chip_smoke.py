@@ -4,16 +4,17 @@ every kernel.
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and the script
-exits nonzero without its last line (phases 10 and 11 run between 6 and
-7, on the serve phase's files):
+exits nonzero without its last line (phases 12 and 13 run after 6, then
+10, 11 and 14, on the serve phase's files, before 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
 3. kernels: each kernel against its plain torch twin on the card at the
-   shapes its paths give it (serving: B=256 encoder and top-k, the top-k
-   also over 1,000,000 rows; training: B=64, the 19 InstanceNorm shapes
-   of encoder and decoder, f32 and bf16; K3 at B=256, C=32, 128x128, at
-   C=16 and C=64, at B=1 and B=257, and at 40x24 and 64x64), and timed
+   shapes its paths give it (serving: B=256 encoder in f32 and bf16 and
+   top-k, the top-k also over 1,000,000 rows; training: B=64, the 19
+   InstanceNorm shapes of encoder and decoder, f32 and bf16; K3 at B=256,
+   C=32, 128x128, at C=16 and C=64, at B=1 and B=257, and at 40x24 and
+   64x64), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
 4. serve: the full-width server as ``python -m latice_tpu_torch.cli.serve``
@@ -53,6 +54,25 @@ exits nonzero without its last line (phases 10 and 11 run between 6 and
     counters must show 10 InstanceNorm launches per encode batch and 1
     top-k launch per query batch, every query's top-1 must be its own
     dictionary row, and the ``.ang`` file must read back.
+12. reload: ``POST /reload`` on the serve phase's service swaps in a second
+    seeded checkpoint under its root (``model_version`` 1); ``/index`` and
+    ``/encode`` must then answer as the same service built on the CPU from
+    that checkpoint (phase 5's rule), with 10 InstanceNorm launches per
+    batch and 1 top-k launch per ``/index`` batch; a path outside the root
+    answers 400.
+13. engines: the served model on 512 patterns through ``IndexPipeline`` with
+    each engine (exact, fused, approx, int8, bf16 search): 10 InstanceNorm
+    launches per batch, 1 top-k launch per batch on fused only; then each
+    search alone at B=256 over 100,000 and 1,000,000 rows, with the blocked
+    and streamed (pinned host rows) searches beside them, timed; blocked,
+    streamed and fused must give exact's indices (near ties aside), int8 its
+    CPU twin's bitwise, approx a recall@10 of 0.9 or more, bf16 exact's
+    top-1 on near-duplicate queries.
+14. preprocess: ``hotpixels=6,static=auto,dynamic=auto,clip=3,equalize`` on
+    256 patterns on the card against the CPU (1e-5 before equalization, the
+    equalization bitwise on the same input); then ``cli.index query
+    --preprocess`` over phase 11's files: 10 InstanceNorm and 1 top-k
+    launch per batch.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -78,6 +98,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -121,6 +142,13 @@ NEAR_TIE = 1e-6
 STAGE0_PATTERNS = 512  # stage0_path: two batches
 CLI_DICT, CLI_QUERY = 16_384, 4_096  # index_cli: dictionary and query patterns
 BIG_DICT_ROWS = 1_000_000  # K1's second timed shape: 64 MB, beyond the L2
+ENGINE_PATTERNS = 512  # engines: two batches through each engine's pipeline
+BLOCK_ROWS = 131_072  # blocked and streamed engines: rows per block or chunk
+ENGINE_RECALL_MIN = 0.9  # approx's recall@10 against exact
+PREPROCESS_RECIPE = "hotpixels=6,static=auto,dynamic=auto,clip=3,equalize"
+PREPROCESS_PATTERNS = 256
+PREPROCESS_ATOL = 1e-5  # card vs CPU before equalization (blur sums in another order)
+RELOAD_PATTERNS = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,6 +197,34 @@ def host_bound_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy_ms(fn, iters: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: the sum of its kernels' and
+    copies' device times in a trace of ``iters`` calls, whatever the host
+    does between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for _, t, _ in _device_kernels(prof)) / iters
+
+
+def waits_for_device(fn) -> bool:
+    """Whether a call of ``fn`` holds the host until the stream's earlier
+    work is done (then the host cannot enqueue the next batch meanwhile)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)  # cycles: about 0.2 s at 2 GHz
+    t0 = time.perf_counter()
+    fn()
+    held = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return held > 0.1
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
@@ -237,6 +293,41 @@ def check_norm(gen: torch.Generator) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=totals["library_ms"],
         timed_as="the 10 encoder launches of one batch of 256",
     )
+
+
+def check_norm_serve_bf16(gen: torch.Generator) -> dict:
+    """K2f in bf16 at the serving shapes (B=256, the 10 encoder launches of
+    one batch), the precision the served model runs at (16-mixed)."""
+    from latice_tpu_torch.ops import instance_norm_leaky_relu, instance_norm_leaky_relu_plain
+
+    F = torch.nn.functional
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    max_err = 0.0
+    for c, h, w in ENCODER_SHAPES:
+        x = (torch.randn((BATCH, c, h, w), device="cuda", generator=gen) * 3 + 1).bfloat16()
+        y, mean, rstd = instance_norm_leaky_relu(x)
+        py, pmean, prstd = instance_norm_leaky_relu_plain(x)
+        torch.cuda.synchronize()
+        try:
+            err = max(_within(y, py, K2_BF16_ATOL, K2_BF16_RTOL), _within(mean, pmean, K2_ATOL),
+                      _within(rstd, prstd, K2_ATOL))
+        except AssertionError as e:
+            raise AssertionError(f"K2f bf16 at {(BATCH, c, h, w)}: {e}") from None
+        max_err = max(max_err, err)
+        times = dict(
+            ms=cuda_ms(lambda: instance_norm_leaky_relu(x)),
+            plain_ms=cuda_ms(lambda: instance_norm_leaky_relu_plain(x)),
+            library_ms=cuda_ms(lambda: F.leaky_relu(F.instance_norm(x), 0.02)),
+        )
+        for key in ("ms", "plain_ms", "library_ms"):
+            totals[key] += 2 * times[key]  # two blocks per encoder stage
+        totals["bytes"] += 2 * (4.0 * x.numel() + 8.0 * BATCH * c)  # bf16 x in, y out; stats
+        totals["ops"] += 2 * 7.0 * x.numel()
+        del x, y, py
+    b_ms, b_by = bound_ms(totals["bytes"], totals["ops"])
+    return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
+                timed_as="the 10 encoder launches of one batch of 256, bf16 (16-mixed serving)")
 
 
 def _within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float = 0.0) -> float:
@@ -681,15 +772,16 @@ def _request(url: str, body: bytes | None = None) -> dict:
         return json.loads(r.read(), parse_constant=reject)
 
 
-def _cli_service(ckpt: str, npz: str, device: str, batch: int):
+def _cli_service(ckpt: str, npz: str, device: str, batch: int, engine: str = "fused"):
     """The service ``python -m latice_tpu_torch.cli.serve`` builds (its model
-    at 16-mixed), on ``device``, fused engine."""
+    at 16-mixed, ``/reload`` confined to the checkpoint's directory), on
+    ``device``, fused engine unless given."""
     from latice_tpu_torch.cli.serve import build_service, parse_args
 
     return build_service(parse_args([
         "--db", npz, "--checkpoint", ckpt, "--inplanes", str(INPLANES),
         "--latent-dim", str(LATENT), "--batch-size", str(batch), "--top-n", str(TOP_N),
-        "--engine", "fused", "--device", device,
+        "--engine", engine, "--device", device,
     ]))
 
 
@@ -809,6 +901,36 @@ def _index_rows_agree(res_gpu, res_cpu, lat_cpu, vectors, margin) -> tuple[int, 
     return int(same.sum()), int(near.sum())
 
 
+def _hold_16mixed(name: str, service, cpu16, cpu32, x: np.ndarray, vectors) -> dict:
+    """The card's 16-mixed service against the CPU's on ``x``: each row's
+    latent no farther from the f32 CPU latent than `GRAD_RATIO` times the
+    CPU 16-mixed path's distance plus `GRAD_FLOOR` (median and largest), and
+    indices and success equal except near ties (`phase_parity`'s rule)."""
+    from latice_tpu_torch.index import l2_normalize
+
+    lat_gpu = np.asarray(service.encode(x)["latents"], np.float32)
+    lat_cpu = np.asarray(cpu16.encode(x)["latents"], np.float32)
+    lat_f32 = cpu32.encode(x)
+    f32_norm = np.linalg.norm(lat_f32, axis=1)
+    d_gpu = np.linalg.norm(lat_gpu - lat_f32, axis=1) / f32_norm
+    d_cpu = np.linalg.norm(lat_cpu - lat_f32, axis=1) / f32_norm
+    share = {stat: float(fn(d_gpu) / (GRAD_RATIO * fn(d_cpu) + GRAD_FLOOR))
+             for stat, fn in (("median", np.median), ("max", np.max))}
+    elem = np.abs(lat_gpu - lat_cpu).max(axis=1) / (3e-2 * np.linalg.norm(lat_cpu, axis=1))
+    unit_dist = (l2_normalize(torch.from_numpy(lat_gpu))
+                 - l2_normalize(torch.from_numpy(lat_cpu))).norm(dim=1).numpy()
+    equal, near = _index_rows_agree(service.pipeline(x), cpu16.pipeline(x), lat_cpu,
+                                    vectors, 2.0 * unit_dist + 1e-6)
+    out = dict(
+        card_rel_dist_from_f32=dict(median=float(np.median(d_gpu)), max=float(d_gpu.max())),
+        cpu_rel_dist_from_f32=dict(median=float(np.median(d_cpu)), max=float(d_cpu.max())),
+        share_of_limit=share, elem_over_3e2_of_norm_max=float(elem.max()),
+        rows_past_3e2_of_norm=int((elem > 1).sum()), equal_rows=equal, near_tie_rows=near)
+    if not max(share.values()) <= 1.0:
+        raise AssertionError(f"16-mixed latents on {name}: {out}")
+    return out
+
+
 def phase_parity(service, ckpt: str, npz: str) -> None:
     """The card's serve-CLI service (16-mixed) against the same service
     built on the CPU (plain twins, 16-mixed), on uint8 noise and on
@@ -824,7 +946,7 @@ def phase_parity(service, ckpt: str, npz: str) -> None:
     at a tiny width) is reported beside it. A row's indices may differ where
     two of its scores lie within twice the distance of its unit latents.
     """
-    from latice_tpu_torch.index import IndexPipeline, l2_normalize
+    from latice_tpu_torch.index import IndexPipeline
     from latice_tpu_torch.models import load_checkpoint
 
     _tf32_at_defaults()
@@ -836,28 +958,10 @@ def phase_parity(service, ckpt: str, npz: str) -> None:
     cpu32 = IndexPipeline(load_checkpoint(ckpt, INPLANES, LATENT, device="cpu"), vectors, orients,
                           batch_size=64, device="cpu", **knobs)
 
-    mixed16 = {}
-    for name, x in (("noise", noise), ("bands", bands)):
-        lat_gpu = np.asarray(service.encode(x)["latents"], np.float32)
-        lat_cpu = np.asarray(cpu16.encode(x)["latents"], np.float32)
-        lat_f32 = cpu32.encode(x)
-        f32_norm = np.linalg.norm(lat_f32, axis=1)
-        d_gpu = np.linalg.norm(lat_gpu - lat_f32, axis=1) / f32_norm
-        d_cpu = np.linalg.norm(lat_cpu - lat_f32, axis=1) / f32_norm
-        share = {stat: float(fn(d_gpu) / (GRAD_RATIO * fn(d_cpu) + GRAD_FLOOR))
-                 for stat, fn in (("median", np.median), ("max", np.max))}
-        elem = np.abs(lat_gpu - lat_cpu).max(axis=1) / (3e-2 * np.linalg.norm(lat_cpu, axis=1))
-        unit_dist = (l2_normalize(torch.from_numpy(lat_gpu))
-                     - l2_normalize(torch.from_numpy(lat_cpu))).norm(dim=1).numpy()
-        equal, near = _index_rows_agree(service.pipeline(x), cpu16.pipeline(x), lat_cpu,
-                                        vectors, 2.0 * unit_dist + 1e-6)
-        mixed16[name] = dict(
-            card_rel_dist_from_f32=dict(median=float(np.median(d_gpu)), max=float(d_gpu.max())),
-            cpu_rel_dist_from_f32=dict(median=float(np.median(d_cpu)), max=float(d_cpu.max())),
-            share_of_limit=share, elem_over_3e2_of_norm_max=float(elem.max()),
-            rows_past_3e2_of_norm=int((elem > 1).sum()), equal_rows=equal, near_tie_rows=near)
-        if not max(share.values()) <= 1.0:
-            raise AssertionError(f"16-mixed latents on {name}: {mixed16[name]}")
+    mixed16 = {
+        name: _hold_16mixed(name, service, cpu16, cpu32, x, vectors)
+        for name, x in (("noise", noise), ("bands", bands))
+    }
 
     # f32: latents within 1e-4; scores closer than that may swap places.
     gpu32_model = load_checkpoint(ckpt, INPLANES, LATENT, device="cuda")
@@ -933,6 +1037,214 @@ def phase_profile(service) -> None:
     emit("profile", patterns=len(x), wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1.0 - busy / wall_ms, device_ms=groups,
          top=[dict(kernel=n[:80], ms=t, calls=c) for n, t, c in top])
+
+
+def _post_json(url: str, payload: dict) -> tuple[int, dict]:
+    """POST a JSON body; (HTTP status, reply), error replies included."""
+    try:
+        return 200, _request(url, json.dumps(payload).encode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_reload(service, workdir: str, npz: str) -> dict:
+    """``POST /reload`` on the serve phase's service (its loader builds the
+    model at 16-mixed, confined to the checkpoint's directory): a second
+    seeded checkpoint under the root swaps in and ``model_version`` goes up;
+    ``/index`` and ``/encode`` then answer as the same service built on the
+    CPU from that checkpoint (`_hold_16mixed`, the parity phase's rule); a
+    path outside the root answers 400 and swaps nothing."""
+    from latice_tpu_torch.index import IndexPipeline
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData, load_checkpoint
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.serve import make_server
+
+    ckpt2 = f"{workdir}/vae_reload.pt"
+    model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    torch.save(model.init_weights(torch.Generator().manual_seed(1)).state_dict(), ckpt2)
+    x = np.round(_synthetic_patterns(RELOAD_PATTERNS, seed=14) * 255.0).astype(np.uint8)
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    try:
+        before = np.asarray(_request(f"{url}/encode", _npy(x))["latents"], np.float32)
+        code, refused = _post_json(f"{url}/reload", {"checkpoint": "../vae.pt"})
+        if code != 400 or service.model_version != 0:
+            raise AssertionError(f"/reload outside the root: HTTP {code}, {refused}")
+        code, out = _post_json(f"{url}/reload", {"checkpoint": Path(ckpt2).name})
+        health = _request(f"{url}/healthz")
+        if code != 200 or out["model_version"] != 1 or health["model_version"] != 1:
+            raise AssertionError(f"/reload: HTTP {code}, {out}, healthz {health}")
+        for fn in counters:
+            fn.launches = 0
+        index = _request(f"{url}/index", _npy(x))
+        after = np.asarray(_request(f"{url}/encode", _npy(x))["latents"], np.float32)
+        launches = {fn.__name__: fn.launches for fn in counters}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    want = {"instance_norm_leaky_relu": 20, "cosine_topk_fused": 1}  # one /index, one /encode
+    if launches != want:
+        raise AssertionError(f"reload launches {launches}, want {want}")
+    if not np.abs(after - before).max() > 1e-2:
+        raise AssertionError("/reload did not change the latents")
+    res = service.pipeline(x)
+    if not (np.array_equal(np.asarray(index["orientations"]), res.best_orientation)
+            and index["success"] == res.success.tolist()):
+        raise AssertionError("/index after /reload differs from the swapped pipeline")
+    cpu16 = _cli_service(ckpt2, npz, "cpu", RELOAD_PATTERNS)
+    vectors, orients = cpu16._db._vectors, cpu16._db._orientations
+    cpu32 = IndexPipeline(load_checkpoint(ckpt2, INPLANES, LATENT, device="cpu"), vectors,
+                          orients, top_n=TOP_N, engine="fused", batch_size=RELOAD_PATTERNS,
+                          device="cpu")
+    held = _hold_16mixed("reload", service, cpu16, cpu32, x, vectors)
+    emit("reload", patterns=RELOAD_PATTERNS, model_version=health["model_version"],
+         seconds=out["seconds"], refused_outside_root=dict(status=400, reply=refused),
+         latent_change_max=float(np.abs(after - before).max()), launches=launches, **held)
+    return launches
+
+
+def _recall_at(got, want, k: int = 10) -> float:
+    """Mean share of each row's first ``k`` ``want`` indices among its
+    first ``k`` ``got`` ones."""
+    got, want = np.asarray(got)[:, :k], np.asarray(want)[:, :k]
+    return float(np.mean([len(set(g) & set(w)) / k for g, w in zip(got.tolist(), want.tolist())]))
+
+
+def _identity(p: torch.Tensor) -> torch.Tensor:
+    return p
+
+
+def phase_engines(ckpt: str, npz: str) -> dict:
+    """The search engines: the serve CLI's 16-mixed model on 512 uint8
+    patterns over its 100,000-row dictionary through ``IndexPipeline`` for
+    each engine (launches per batch, recall@10 and top-1 against exact);
+    then each engine's search alone at B=256 near-duplicate queries over
+    100,000 and 1,000,000 rows, timed, with blocked (131,072-row blocks) and
+    streamed (131,072-row chunks from pinned host memory) beside them.
+
+    Held: approx's recall@10 >= 0.9; at both sizes blocked's and streamed's
+    indices equal exact's except rows with two of their first k+1 scores
+    within `NEAR_TIE`; int8's indices and scores bitwise those of its CPU
+    twin; bf16's top-1 equal to exact's on every near-duplicate query."""
+    from latice_tpu_torch.index import (
+        IndexPipeline,
+        cosine_topk,
+        cosine_topk_blocked,
+        cosine_topk_int8,
+        cosine_topk_streamed,
+        l2_normalize,
+    )
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+
+    engines = {"exact": {}, "fused": {}, "approx": {}, "int8": {},
+               "bfloat16": dict(search_dtype="bfloat16")}
+    x = np.random.default_rng(12).integers(0, 256, (ENGINE_PATTERNS, 128, 128), dtype=np.uint8)
+    batches = ENGINE_PATTERNS // BATCH
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    served, results = {}, {}
+    base = _cli_service(ckpt, npz, "cuda", BATCH, engine="exact")
+    for name, kw in engines.items():
+        if kw:  # bf16 search is a pipeline option, not a serve CLI flag
+            pipe = IndexPipeline(base.pipeline.model, base._db._vectors, base._db._orientations,
+                                 top_n=TOP_N, batch_size=BATCH, device="cuda", **kw)
+        elif name == "exact":
+            pipe = base.pipeline
+        else:
+            pipe = _cli_service(ckpt, npz, "cuda", BATCH, engine=name).pipeline
+        pipe(x[:BATCH])
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results[name] = pipe(x)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = {"instance_norm_leaky_relu": 10 * batches,
+                "cosine_topk_fused": batches if name == "fused" else 0}
+        if launches != want:
+            raise AssertionError(f"engines {name} launches {launches}, want {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        served[name] = dict(wall_s=wall_s, launches_per_batch={k: v / batches
+                                                              for k, v in launches.items()})
+    exact = results["exact"].indices
+    for name, res in results.items():
+        served[name].update(recall_at_10=_recall_at(res.indices, exact),
+                            top1_agree=float(np.mean(res.indices[:, 0] == exact[:, 0])))
+    if not served["approx"]["recall_at_10"] >= ENGINE_RECALL_MIN:
+        raise AssertionError(f"approx recall@10 on the served path: {served['approx']}")
+
+    alone = {}
+    for rows in (DICT_ROWS, BIG_DICT_ROWS):
+        rng = np.random.default_rng(rows)
+        d_np = rng.normal(size=(rows, LATENT)).astype(np.float32)
+        d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
+        src = rng.choice(rows, BATCH, replace=False)
+        q = torch.from_numpy(d_np[src] + 0.05 * rng.normal(size=(BATCH, LATENT)).astype(
+            np.float32)).cuda()
+        orients = np.zeros((rows, 3), np.float32)
+        pipes = {name: IndexPipeline(None, d_np, orients, top_n=TOP_N, batch_size=BATCH,
+                                     engine="exact" if kw else name, device="cuda",
+                                     feature_fn=_identity, **kw)
+                 for name, kw in engines.items()}
+        d32 = pipes["exact"]._dict
+        host = torch.from_numpy(d_np).pin_memory()
+        fns = {name: (lambda p=p: p._search(q)) for name, p in pipes.items()}
+        fns["blocked"] = lambda: cosine_topk_blocked(q, d32, TOP_N, block_size=BLOCK_ROWS)
+        fns["streamed"] = lambda: cosine_topk_streamed(q, host, TOP_N, chunk_rows=BLOCK_ROWS)
+        qn = l2_normalize(q)
+
+        def library():
+            return torch.topk(qn @ d32.T, TOP_N)
+
+        library_ms = dict(device_ms=device_busy_ms(library), host_ms=host_bound_ms(library))
+        head = cosine_topk(q, d32, TOP_N + 1)[0]
+        near = ((head[:, :-1] - head[:, 1:]) <= NEAR_TIE).any(dim=1).cpu().numpy()
+        out = {name: [t.cpu() for t in fn()] for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        ex_i = out["exact"][1].numpy()
+        stats = {}
+        for name, (_, i_) in out.items():
+            i_ = i_.numpy()
+            fn = fns[name]
+            stats[name] = dict(device_ms=device_busy_ms(fn), host_ms=host_bound_ms(fn),
+                               waits_for_device=waits_for_device(fn),
+                               recall_at_10=_recall_at(i_, ex_i),
+                               top1_agree=float(np.mean(i_[:, 0] == ex_i[:, 0])),
+                               rows_differing=int((i_ != ex_i).any(axis=1).sum()))
+        for name in ("blocked", "streamed", "fused"):
+            bad = (out[name][1].numpy() != ex_i).any(axis=1) & ~near
+            if bad.any():
+                raise AssertionError(f"{name} at {rows} rows: {int(bad.sum())} rows differ from "
+                                     "exact without a near tie")
+        di8 = pipes["int8"]._dict
+        twin_s, twin_i = cosine_topk_int8(q.cpu(), di8.cpu(), TOP_N, n_valid=rows)
+        if not (torch.equal(twin_i, out["int8"][1]) and torch.equal(twin_s, out["int8"][0])):
+            raise AssertionError(f"int8 at {rows} rows differs from its CPU twin")
+        if not stats["approx"]["recall_at_10"] >= ENGINE_RECALL_MIN:
+            raise AssertionError(f"approx recall@10 at {rows} rows: {stats['approx']}")
+        if not stats["bfloat16"]["top1_agree"] == 1.0:
+            raise AssertionError(f"bf16 top-1 at {rows} rows: {stats['bfloat16']}")
+        alone[f"n{rows}"] = dict(engines=stats, library_ms=library_ms,
+                                 streamed_rows_pinned=bool(host[:BLOCK_ROWS].is_pinned()),
+                                 near_tie_rows=int(near.sum()), int8_twin_bitwise=True,
+                                 dictionary_mb=dict(f32=4 * rows * LATENT / 2**20,
+                                                    bf16=2 * rows * LATENT / 2**20,
+                                                    int8=di8.numel() / 2**20))
+        del pipes, fns, out, host, d32, di8
+        torch.cuda.empty_cache()
+    emit("engines", patterns=ENGINE_PATTERNS, batches=batches, served=served, launches=totals,
+         search_alone=alone, queries="B=256 dictionary rows plus 0.05 Gaussian noise",
+         timed_as="the search alone, k=20: device_ms the kernels' and copies' device time "
+                  "from a trace of 5 calls; host_ms CUDA events over 20 calls from an idle "
+                  "stream (host-paced)")
+    return totals
 
 
 def _rel_dist(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -1107,6 +1419,84 @@ def phase_index_cli(workdir: str, ckpt: str) -> dict:
          ang_readback_max_abs_err_deg=ang_err, rows_with_rival=n_rival,
          timed_as="host wall of each command in this process, model load and file I/O included")
     return totals
+
+
+def phase_preprocess(workdir: str, ckpt: str) -> dict:
+    """`PREPROCESS_RECIPE` on 256 synthetic patterns, ``static=auto`` taken
+    as their mean (`data.estimate_static_background`), on the card against
+    the same recipe on the CPU: the stages before equalization within
+    `PREPROCESS_ATOL`, and the card's equalization bitwise the CPU's of the
+    card's own input (ranks amplify roundoff: two pixels whose values differ
+    by an ulp swap places, so full outputs are compared on their input).
+    Then ``cli.index query --preprocess`` on the index_cli phase's files:
+    10 InstanceNorm launches per batch and 1 top-k launch per batch."""
+    import contextlib
+    import dataclasses
+    import logging
+
+    from latice_tpu_torch.cli.index import main as index_main
+    from latice_tpu_torch.data import (
+        equalize_histogram,
+        estimate_static_background,
+        make_preprocess_fn,
+        parse_preprocess_spec,
+    )
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+
+    x = np.round(_synthetic_patterns(PREPROCESS_PATTERNS, seed=13) * 255.0).astype(np.uint8)
+    x = x.astype(np.float32) / 255.0
+    cfg = parse_preprocess_spec(PREPROCESS_RECIPE)
+    cfg = dataclasses.replace(cfg, static_background=estimate_static_background(x))
+    full = make_preprocess_fn(cfg)
+    before_eq = make_preprocess_fn(dataclasses.replace(cfg, equalize=False))
+    xc, xh = torch.from_numpy(x).cuda(), torch.from_numpy(x)
+    card_pre = before_eq(xc).cpu()
+    pre_err = float((card_pre - before_eq(xh)).abs().max())
+    if not pre_err <= PREPROCESS_ATOL:
+        raise AssertionError(f"preprocess before equalization: card vs CPU {pre_err}")
+    card = full(xc).cpu()
+    if not (torch.equal(card, equalize_histogram(card_pre)) and bool(torch.isfinite(card).all())):
+        raise AssertionError("preprocess: the card's equalization differs from the CPU's")
+    cpu = full(xh)
+    t0 = time.perf_counter()
+    full(xh)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    card_ms = dict(device_ms=device_busy_ms(lambda: full(xc)),
+                   host_ms=host_bound_ms(lambda: full(xc), iters=5),
+                   waits_for_device=waits_for_device(lambda: full(xc)))
+
+    root = Path(workdir) / "index_cli"
+    out = str(root / "preprocessed.npy")
+    argv = ["query", "--patterns", str(root / "query.npy"), "--db", str(root / "db.npz"),
+            "--out", out, "--engine", "fused", "--preprocess", PREPROCESS_RECIPE,
+            "--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+            "--batch-size", str(BATCH)]
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        index_main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+    launches = {fn.__name__: fn.launches for fn in counters}
+    n = CLI_QUERY // BATCH
+    want = {"instance_norm_leaky_relu": 10 * n, "cosine_topk_fused": n}
+    if launches != want:
+        raise AssertionError(f"preprocess query launches {launches}, want {want}")
+    got = np.load(out)
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    if got.shape != (CLI_QUERY, 3) or not np.all(np.isfinite(got)):
+        raise AssertionError(f"preprocess query output {got.shape}")
+    emit("preprocess", recipe=PREPROCESS_RECIPE, patterns=PREPROCESS_PATTERNS,
+         before_equalize_max_abs_err=pre_err, equalize_bitwise=True,
+         full_recipe_vs_cpu=dict(max_abs_diff=float((card - cpu).abs().max()),
+                                 share_differing=float((card != cpu).float().mean())),
+         card_ms=card_ms, cpu_ms=cpu_ms,
+         query=dict(patterns=CLI_QUERY, wall_s=wall_s, launches=launches, summary=summary))
+    return launches
 
 
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
@@ -1419,6 +1809,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     k2f, k1 = check_norm(gen), check_topk(gen)
+    k2f["bf16_serve"] = check_norm_serve_bf16(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
     k3 = check_stage0(gen)
     kernels = [k1, k2f, k2b, k3]
@@ -1427,10 +1818,14 @@ def main() -> int:
         serve_launches, per_batch, service, ckpt, npz = phase_serve(workdir)
         phase_parity(service, ckpt, npz)
         phase_profile(service)
+        reload_launches = phase_reload(service, workdir, npz)
         del service
+        torch.cuda.empty_cache()
+        engine_launches = phase_engines(ckpt, npz)
         torch.cuda.empty_cache()
         stage0_launches = phase_stage0_path(ckpt, npz)
         cli_launches = phase_index_cli(workdir, ckpt)
+        preprocess_launches = phase_preprocess(workdir, ckpt)
         torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
     phase_train_parity()
@@ -1439,8 +1834,11 @@ def main() -> int:
     # a path lists the kernels it runs.
     paths = {
         "serve": serve_launches,
+        "reload": reload_launches,
+        "engines": engine_launches,
         "stage0_path": stage0_launches,
         "index_cli": {k: v for k, v in cli_launches.items() if k != "stage0_fused"},
+        "preprocess": preprocess_launches,
         "train": train_launches,
     }
     for k in kernels:

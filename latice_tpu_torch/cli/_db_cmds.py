@@ -11,7 +11,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from latice_tpu_torch.cli._common import _load_model, _load_raw_pattern_stack, later_slice
+from latice_tpu_torch.cli._common import (
+    HDF5_EXTENSIONS,
+    UP_EXTENSIONS,
+    _load_model,
+    _load_raw_pattern_stack,
+    later_slice,
+)
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -113,10 +119,41 @@ def _refuse_later_options(args) -> None:
         ("--refine", args.refine, "slice D"),
         ("--hough-iq", args.hough_iq, "slice D"),
         ("--nlpar", args.nlpar, "slice D"),
-        ("--preprocess", args.preprocess, "slice D"),
     ):
         if value:
             raise later_slice(flag, slice_name)
+
+
+def _parse_preprocess(args):
+    """``--preprocess`` as a `data.PreprocessConfig`, or None. ``static=auto``
+    on an HDF5 or UP scan raises: reading those waits for slice E."""
+    from latice_tpu_torch.data import parse_preprocess_spec
+
+    if not args.preprocess:
+        return None
+    cfg = parse_preprocess_spec(args.preprocess)
+    if isinstance(cfg.static_background, str) and args.patterns.lower().endswith(
+        HDF5_EXTENSIONS + UP_EXTENSIONS
+    ):
+        raise later_slice("--preprocess static=auto on HDF5 and UP scans", "slice E")
+    return cfg
+
+
+def _resolve_static_auto(cfg, raw: np.ndarray):
+    """``static=auto`` replaced by the scan's mean pattern, taken in model
+    units (uint8 divided by 255 first, as the pipeline does before the
+    recipe runs)."""
+    import dataclasses
+
+    from latice_tpu_torch.data import estimate_static_background, prepare_patterns
+
+    if cfg is None or not isinstance(cfg.static_background, str):
+        return cfg
+    s = prepare_patterns(raw)
+    if s.dtype == np.uint8:
+        s = s.astype(np.float32) / 255.0
+    logger.info("static=auto: using the scan-mean background")
+    return dataclasses.replace(cfg, static_background=estimate_static_background(s))
 
 
 def cmd_query(args) -> None:
@@ -131,7 +168,9 @@ def cmd_query(args) -> None:
     _refuse_later_options(args)
     _check_devices(args)
     device = resolve_device(args.device)
+    preprocess = _parse_preprocess(args)
     raw = _load_raw_pattern_stack(args)
+    preprocess = _resolve_static_auto(preprocess, raw)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
         LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim), device=device
@@ -154,6 +193,7 @@ def cmd_query(args) -> None:
         batch_size=args.batch_size,
         engine=args.engine,
         device=device,
+        preprocess=preprocess,
         **phase_kw,
     )
 
@@ -269,8 +309,9 @@ def register(sub, common) -> None:
     )
     q.add_argument(
         "--engine", default="exact", choices=("exact", "fused", "approx", "int8"),
-        help="candidate search: exact (matmul + sort) or fused (the CUDA top-k "
-        "kernel); approx and int8 wait for a later slice",
+        help="candidate search: exact (matmul + top-k), fused (the CUDA top-k "
+        "kernel, scores never in device memory), approx (binned maxima, "
+        "~0.95 recall@k) or int8 (quantized dictionary, int8 products)",
     )
     q.add_argument(
         "--devices", type=int, default=None,
@@ -296,6 +337,10 @@ def register(sub, common) -> None:
                    help="NLPAR neighbourhood denoising (slice D)")
     q.add_argument("--nlpar-radius", type=int, default=1,
                    help="NLPAR search-window half-width (slice D)")
-    q.add_argument("--preprocess", default=None, metavar="SPEC",
-                   help="on-device pattern correction (slice D)")
+    q.add_argument(
+        "--preprocess", default=None, metavar="SPEC",
+        help="on-device pattern correction before the encoder, e.g. "
+        "'hotpixels=5,static=auto,dynamic=auto,clip=3' (grammar: "
+        "data.parse_preprocess_spec; static=auto is the scan's mean pattern)",
+    )
     q.set_defaults(fn=cmd_query)

@@ -9,7 +9,8 @@ converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model
 computes at ``16-mixed`` (bf16 autocast), the precision the JAX serve CLI
 builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
-``/encode``.
+``/encode``, and ``{"checkpoint": path}`` to ``/reload``, which swaps in
+the weights of a ``.pt`` under ``--checkpoint-root``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -30,15 +32,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--threshold", type=float, default=3.0)
     p.add_argument("--min-matches", type=int, default=18)
     p.add_argument(
-        "--engine", default="exact", choices=("exact", "fused"),
-        help="candidate search: exact (matmul + sort) or fused (the CUDA "
-        "top-k kernel, scores never in device memory)",
+        "--engine", default="exact", choices=("exact", "fused", "approx", "int8"),
+        help="candidate search: exact (matmul + top-k), fused (the CUDA "
+        "top-k kernel, scores never in device memory), approx (binned "
+        "maxima, ~0.95 recall@k) or int8 (quantized dictionary)",
+    )
+    p.add_argument(
+        "--preprocess", default=None, metavar="SPEC",
+        help="pattern correction before the encoder on /index and /encode, "
+        "e.g. 'hotpixels=5,static=bg.npy,dynamic=auto' (grammar: "
+        "data.parse_preprocess_spec); static=auto is refused, a server has "
+        "no scan to take the mean of",
+    )
+    p.add_argument(
+        "--checkpoint-root", default=None,
+        help="directory /reload targets must lie under (default: the "
+        "directory of --checkpoint; without either, any path)",
     )
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument(
         "--host", default="127.0.0.1",
-        help="bind address; the plane has no authentication, so bind "
-        "non-loopback interfaces only on trusted networks (default: %(default)s)",
+        help="bind address; the plane has no authentication (anyone who "
+        "reaches it can index and, through /reload, swap in checkpoints "
+        "under the root), so bind non-loopback interfaces only on trusted "
+        "networks (default: %(default)s)",
     )
     p.add_argument("--port", type=int, default=8800)
     p.add_argument(
@@ -52,12 +69,24 @@ def build_service(args: argparse.Namespace):
     """The `serve.IndexService` that ``main`` serves: the model from
     ``cli._common._load_model`` (``16-mixed``, eval mode, on the device,
     the precision the JAX CLI builds its model at) over the ``--db``
-    dictionary. Binds no socket."""
+    dictionary, with a ``/reload`` loader (`models.load_checkpoint` at
+    ``16-mixed``). Binds no socket."""
     from latice_tpu_torch.cli._common import _load_model
+    from latice_tpu_torch.data import parse_preprocess_spec
     from latice_tpu_torch.device import resolve_device
     from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+    from latice_tpu_torch.models import load_checkpoint
     from latice_tpu_torch.serve import IndexService
 
+    preprocess = None
+    if args.preprocess:
+        preprocess = parse_preprocess_spec(args.preprocess)
+        if isinstance(preprocess.static_background, str):
+            raise SystemExit(
+                "--preprocess static=auto needs the full scan upfront; a server has "
+                "none. Estimate the frame once (cli.index query does, or "
+                "data.estimate_static_background) and pass static=<frame.npy>."
+            )
     device = resolve_device(args.device)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
@@ -65,6 +94,14 @@ def build_service(args: argparse.Namespace):
     )
     if db.get_count() == 0:
         raise SystemExit(f"dictionary {args.db} is empty or missing: build it first")
+    checkpoint_root = args.checkpoint_root
+    if checkpoint_root is None and args.checkpoint is not None:
+        checkpoint_root = os.path.dirname(os.path.abspath(args.checkpoint))
+
+    def param_loader(checkpoint: str):
+        model = load_checkpoint(checkpoint, args.inplanes, args.latent_dim, device=device)
+        return model.set_precision("16-mixed").eval()
+
     return IndexService(
         model,
         db,
@@ -74,6 +111,9 @@ def build_service(args: argparse.Namespace):
         batch_size=args.batch_size,
         max_body_bytes=args.max_body_mb << 20,
         engine=args.engine,
+        preprocess=preprocess,
+        param_loader=param_loader,
+        checkpoint_root=checkpoint_root,
         device=device,
     )
 

@@ -1,5 +1,5 @@
-"""Host-side pattern preparation, the training data module, prefetch and
-result export."""
+"""Host-side pattern preparation, device-side preprocessing, the training
+data module, prefetch and result export."""
 
 from latice_tpu_torch.data.datamodule import (
     DPDataModule,
@@ -10,6 +10,19 @@ from latice_tpu_torch.data.datamodule import (
 from latice_tpu_torch.data.dataset import DPdataset, parse_angle_file
 from latice_tpu_torch.data.export import VendorMap, read_ang, read_ctf, write_ang, write_ctf
 from latice_tpu_torch.data.prefetch import prefetch_host, prefetch_to_device
+from latice_tpu_torch.data.preprocess import (
+    PreprocessConfig,
+    bin_patterns,
+    equalize_histogram,
+    estimate_static_background,
+    fix_hot_pixels,
+    gaussian_blur,
+    make_preprocess_fn,
+    normalize_patterns,
+    parse_preprocess_spec,
+    remove_dynamic_background,
+    remove_static_background,
+)
 from latice_tpu_torch.data.transforms import (
     center_crop,
     default_transform,
@@ -20,18 +33,29 @@ from latice_tpu_torch.data.transforms import (
 __all__ = [
     "DPDataModule",
     "DPdataset",
+    "PreprocessConfig",
     "VendorMap",
     "batch_iterator",
+    "bin_patterns",
     "center_crop",
     "default_transform",
+    "equalize_histogram",
+    "estimate_static_background",
+    "fix_hot_pixels",
+    "gaussian_blur",
+    "make_preprocess_fn",
+    "normalize_patterns",
     "pad_batch",
     "padded_batches",
     "parse_angle_file",
+    "parse_preprocess_spec",
     "prefetch_host",
     "prefetch_to_device",
     "prepare_patterns",
     "read_ang",
     "read_ctf",
+    "remove_dynamic_background",
+    "remove_static_background",
     "to_grayscale",
     "write_ang",
     "write_ctf",

@@ -36,13 +36,22 @@ def _leaves(batch: Any) -> list:
     return [batch]
 
 
+def _as_tensor(a: Any) -> torch.Tensor:
+    """A host leaf as a tensor: tensors (bf16 among them, which numpy
+    lacks) as they are, anything else through numpy."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(np.asarray(a))
+
+
 def prefetch_to_device(
     iterator: Iterable[Any], size: int = 2, device: str | torch.device = "cuda"
 ) -> Iterator[Any]:
-    """Yield batches with every numpy leaf as a tensor on ``device``,
-    keeping ``size`` copies in flight.
+    """Yield batches with every numpy or CPU-tensor leaf as a tensor on
+    ``device``, keeping ``size`` copies in flight.
 
-    On a CUDA device each leaf goes through a pinned host buffer and a
+    On a CUDA device each leaf goes through a pinned host buffer (a leaf
+    already in pinned memory is copied from directly) and a
     non-blocking copy on a side stream; before a batch is yielded, the
     current stream waits on its copy's event, and each tensor is recorded
     on the current stream so the allocator keeps its memory until the
@@ -56,7 +65,7 @@ def prefetch_to_device(
 
     if device.type != "cuda":
         for batch in it:
-            yield _map(lambda a: torch.as_tensor(np.asarray(a), device=device), batch)
+            yield _map(lambda a: _as_tensor(a).to(device), batch)
         return
 
     side = torch.cuda.Stream(device=device)
@@ -64,7 +73,9 @@ def prefetch_to_device(
 
     def transfer(batch: Any):
         def copy(a):
-            host = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+            host = _as_tensor(a)
+            if not host.is_pinned():
+                host = host.contiguous().pin_memory()
             return host.to(device, non_blocking=True)
 
         with torch.cuda.stream(side):

@@ -15,7 +15,15 @@ from latice_tpu_torch.index.faiss_db import (
     FaissLatentVectorDatabaseConfig,
 )
 from latice_tpu_torch.index.indexer import DiffractionPatternIndexer, IndexerConfig
-from latice_tpu_torch.index.knn import cosine_topk, l2_normalize
+from latice_tpu_torch.index.knn import (
+    cosine_topk,
+    cosine_topk_approx,
+    cosine_topk_blocked,
+    cosine_topk_int8,
+    cosine_topk_streamed,
+    l2_normalize,
+    quantize_dictionary_int8,
+)
 from latice_tpu_torch.index.pipeline import DenseIndexResult, IndexPipeline, concat_dense_results
 from latice_tpu_torch.index.result import OrientationResult
 
@@ -37,6 +45,11 @@ __all__ = [
     "concat_dense_results",
     "consensus_orientations",
     "cosine_topk",
+    "cosine_topk_approx",
+    "cosine_topk_blocked",
+    "cosine_topk_int8",
+    "cosine_topk_streamed",
     "l2_normalize",
     "parse_faiss_flat_blob",
+    "quantize_dictionary_int8",
 ]

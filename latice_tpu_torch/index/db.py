@@ -7,8 +7,9 @@ ids, persisted in one ``.npz`` (keys ``vectors``, ``orientations``,
 ``latice_tpu``'s ``index.py build`` loads unchanged, and so does one written
 by the reference FAISS backend (a serialized ``IndexFlat`` under
 ``faiss_index``). Queries copy the dictionary and its orientation
-quaternions to the device once, then run the top-k (`index.knn.cosine_topk`
-or the CUDA kernel `ops.cosine_topk_fused`) and the batched consensus there.
+quaternions to the device once, then run the top-k (`index.knn.cosine_topk`,
+`cosine_topk_approx` or `cosine_topk_int8`, or the CUDA kernel
+`ops.cosine_topk_fused`) and the batched consensus there.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ import torch
 from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables
 from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.index.consensus import consensus_orientations
-from latice_tpu_torch.index.knn import cosine_topk
+from latice_tpu_torch.index.knn import (
+    cosine_topk,
+    cosine_topk_approx,
+    cosine_topk_int8,
+    pad_rows,
+    quantize_dictionary_int8,
+)
 from latice_tpu_torch.index.result import OrientationResult
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 
@@ -40,8 +47,8 @@ __all__ = [
     "parse_faiss_flat_blob",
 ]
 
-_ENGINES = ("device", "fused")
-_LATER_ENGINES = ("approx", "int8", "native")
+_ENGINES = ("device", "fused", "approx", "int8")
+_LATER_ENGINES = ("native",)
 
 
 def _l2_normalize_np(vectors: np.ndarray) -> np.ndarray:
@@ -132,10 +139,12 @@ class LatentVectorDatabaseConfig:
         angle_unit: "deg" thresholds misorientation in degrees (the FAISS
             backend); "rad" keeps the chroma backend's radians.
         device_batch_size: most queries per device batch in the batch APIs.
-        engine: "device" (matmul and stable sort, `index.knn.cosine_topk`)
-            or "fused" (the CUDA top-k kernel on the card, its plain twin on
-            the CPU). "approx", "int8" and "native" raise until a later
-            slice of the port brings them.
+        engine: "device" (exact: matmul and top-k, `index.knn.cosine_topk`),
+            "fused" (the CUDA top-k kernel on the card, its plain twin on
+            the CPU), "approx" (`index.knn.cosine_topk_approx`, recall
+            target 0.95) or "int8" (`index.knn.cosine_topk_int8` over the
+            dictionary quantized once and cached). "native" raises until a
+            later slice of the port brings it.
         phase_symmetries: point-group names, one per phase id of a
             multi-phase dictionary (cubic "432" for every phase when None).
     """
@@ -156,7 +165,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
     where queries run, ``cuda`` unless given; it is resolved at the first
     query, so building, saving and loading need no device. The device copy
     of the dictionary and its quaternions is made once and dropped when the
-    vectors change.
+    vectors change, as is the int8 engine's quantized copy.
     """
 
     def __init__(
@@ -181,6 +190,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         self._has_phases = False
         self.sim_meta: dict | None = None
         self._dev_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._int8_cache: torch.Tensor | None = None
         self._sym_tables_cache: torch.Tensor | None = None
         if self.npz_path.with_suffix(".npz").exists():
             self.load()
@@ -191,6 +201,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
 
     def _invalidate(self) -> None:
         self._dev_cache = None
+        self._int8_cache = None
         self._sym_tables_cache = None
 
     def add_vectors(self, latent_vectors, orientations, phases=None) -> None:
@@ -302,8 +313,15 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         """Device top-k of host queries with the configured engine."""
         vectors, _ = self._device_arrays()
         q = torch.as_tensor(queries, device=vectors.device).contiguous()
-        if self.config.engine == "fused":
+        engine = self.config.engine
+        if engine == "fused":
             return cosine_topk_fused(q, vectors, k)
+        if engine == "approx":
+            return cosine_topk_approx(q, vectors, k)
+        if engine == "int8":
+            if self._int8_cache is None:
+                self._int8_cache = pad_rows(quantize_dictionary_int8(vectors)[0])
+            return cosine_topk_int8(q, self._int8_cache, k, n_valid=len(vectors))
         return cosine_topk(q, vectors, k)
 
     @torch.inference_mode()

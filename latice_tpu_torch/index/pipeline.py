@@ -1,10 +1,10 @@
 """End-to-end indexer: patterns in, orientations out, on one device.
 
 The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
-device: uint8 ``/255``, the VAE encoder's ``mu``, the candidate search
-(`index.knn.cosine_topk` for ``engine="exact"``, the CUDA kernel
-`ops.cosine_topk_fused` for ``engine="fused"``), the symmetry-aware
-consensus and the Euler angles. One host-to-device copy of the patterns
+device: uint8 ``/255``, an optional preprocess, the VAE encoder's ``mu``,
+the candidate search (the CUDA kernel `ops.cosine_topk_fused` for
+``engine="fused"``, the `index.knn` engines for "exact", "approx" and
+"int8"), the symmetry-aware consensus and the Euler angles. One host-to-device copy of the patterns
 and one device-to-host copy of the results per batch; every batch of a
 call is enqueued before the first result is copied back.
 """
@@ -20,7 +20,15 @@ from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables, 
 from latice_tpu_torch.data import padded_batches
 from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.index.consensus import consensus_orientations
-from latice_tpu_torch.index.knn import cosine_topk
+from latice_tpu_torch.index.knn import (
+    approx_topk,
+    cosine_scores,
+    cosine_topk_int8,
+    l2_normalize,
+    pad_rows,
+    quantize_dictionary_int8,
+    topk_lower_index_first,
+)
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 
 __all__ = ["IndexPipeline", "DenseIndexResult", "concat_dense_results"]
@@ -76,18 +84,29 @@ class IndexPipeline:
         phase_symmetries: point-group names per phase id (default cubic).
         consensus_weight_power: optional p; in-threshold candidates are
             weighted by ``(s / s_max) ** p`` in the mean.
-        engine: "exact" (matmul + stable sort) or "fused" (the CUDA kernel
-            on the card, its plain twin on the CPU).
+        engine: "exact" (matmul, then the top-k in ``lax.top_k``'s order),
+            "fused" (the CUDA kernel on the card, its plain twin on the
+            CPU), "approx" (`index.knn.approx_topk`: binned maxima, held to
+            ``recall_target``) or "int8" (a quantized dictionary and exact
+            int32 products, `index.knn.cosine_topk_int8`).
+        recall_target: the approx engine's target recall.
         device: where everything runs; ``cuda`` unless given, and a missing
             CUDA device raises.
+        preprocess: optional correction of the ``(B, H, W)`` float32 device
+            patterns, run after the uint8 ``/255`` and before the encoder (or
+            ``feature_fn``): a callable, or a `data.PreprocessConfig`
+            (compiled by `data.make_preprocess_fn`).
         feature_fn: optional map of the ``(B, H, W)`` float32 device
             patterns (after the uint8 ``/255``) to ``(B, D)`` features, used
             instead of the VAE's encode; pass ``model=None``. `encode` and
             the indexing call both go through it.
+        search_dtype: "float32", or "bfloat16" for the exact and approx
+            engines: the dictionary is stored in bf16 and the queries are
+            rounded to bf16, while the products and scores stay f32. The
+            fused and int8 engines ignore it.
 
-    ``engine="approx"``/``"int8"``, ``search_dtype="bfloat16"``, ``mesh``
-    and ``preprocess`` raise ``ValueError`` until a later slice of the port
-    brings them.
+    The dictionary is cast or quantized once, here. ``mesh`` raises
+    ``ValueError`` until a later slice of the port brings it.
     """
 
     def __init__(
@@ -110,17 +129,23 @@ class IndexPipeline:
         preprocess=None,
         feature_fn=None,
         search_dtype: str = "float32",
+        recall_target: float = 0.95,
     ) -> None:
-        if engine in ("approx", "int8"):
-            raise _later_slice(f"engine={engine!r}")
-        if engine not in ("exact", "fused"):
+        if engine not in ("exact", "fused", "approx", "int8"):
             raise ValueError(f"unknown engine {engine!r}")
-        if search_dtype != "float32":
-            raise _later_slice(f"search_dtype={search_dtype!r}")
-        unported = dict(mesh=mesh, preprocess=preprocess)
-        for name, value in unported.items():
-            if value is not None:
-                raise _later_slice(name)
+        if search_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown search_dtype {search_dtype!r}")
+        if mesh is not None:
+            raise _later_slice("mesh")
+        if preprocess is not None and not callable(preprocess):
+            from latice_tpu_torch.data.preprocess import PreprocessConfig, make_preprocess_fn
+
+            if not isinstance(preprocess, PreprocessConfig):
+                raise TypeError(
+                    "preprocess must be a callable or a data.PreprocessConfig,"
+                    f" got {type(preprocess).__name__}"
+                )
+            preprocess = make_preprocess_fn(preprocess)
         if feature_fn is None and model is None:
             raise ValueError("pass a model or a feature_fn")
         if feature_fn is not None and model is not None:
@@ -129,11 +154,18 @@ class IndexPipeline:
         self.engine = engine
         self.batch_size = batch_size
         self.feature_fn = feature_fn
+        self.preprocess = preprocess
+        self.recall_target = recall_target
         self.model = None if model is None else model.to(self.device).eval()
-        self._dict = torch.as_tensor(
-            np.asarray(dictionary_vectors, np.float32), device=self.device
-        ).contiguous()
-        self._n = len(self._dict)
+        vectors = torch.as_tensor(np.asarray(dictionary_vectors, np.float32), device=self.device)
+        self._n = len(vectors)
+        if engine == "int8":
+            # Zero rows up to a multiple of 8 for the int8 tensor cores;
+            # the search reads the first _n columns of its products.
+            vectors = pad_rows(quantize_dictionary_int8(vectors)[0])
+        elif search_dtype == "bfloat16" and engine in ("exact", "approx"):
+            vectors = vectors.to(torch.bfloat16)
+        self._dict = vectors.contiguous()
         self._k = min(top_n, self._n)
         self._threshold = orientation_threshold
         self._min_matches = min_required_matches
@@ -169,17 +201,30 @@ class IndexPipeline:
         f32 device patterns."""
         if patterns.dtype == torch.uint8:
             patterns = patterns.float() / 255.0
+        if self.preprocess is not None:
+            patterns = self.preprocess(patterns)
         if self.feature_fn is not None:
             return self.feature_fn(patterns)
         return self.model.encode(patterns[:, None])[0]
 
-    def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        mu = self._encode(patterns)
+    def _search(self, mu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Best-first ``(scores, indices)`` of the ``(B, D)`` features with
+        the configured engine."""
         k = self._k
         if self.engine == "fused":
-            scores, indices = cosine_topk_fused(mu, self._dict, k)
-        else:
-            scores, indices = cosine_topk(mu, self._dict, k)
+            return cosine_topk_fused(mu, self._dict, k)
+        if self.engine == "int8":
+            return cosine_topk_int8(mu, self._dict, k, n_valid=self._n)
+        q = l2_normalize(mu.float())
+        if self._dict.dtype == torch.bfloat16:
+            q = q.bfloat16()  # both operands rounded; products and sums in f32
+        scores = cosine_scores(q, self._dict)
+        if self.engine == "approx":
+            return approx_topk(scores, k, self.recall_target)
+        return topk_lower_index_first(scores, k)
+
+    def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        scores, indices = self._search(self._encode(patterns))
         cand_rows = self._quats[indices]
         cand_quats = cand_rows[..., :4]
         cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)

@@ -1,19 +1,26 @@
 """Indexing service: a persistent HTTP plane around `index.IndexPipeline`.
 
-The port of the ``/index`` and ``/encode`` planes of ``latice_tpu.serve``:
+The port of the ``/index``, ``/encode`` and ``/reload`` planes of
+``latice_tpu.serve``:
 
 * the pipeline is warmed at startup (one dummy batch per input dtype), which
   also builds the CUDA kernels, so the first request pays for neither;
 * requests carry patterns as raw ``.npy`` bytes; uint8 stacks stay uint8
   until the device divides them by 255;
 * all requests go through one lock: one device runs one batch at a time,
-  and the pipeline batches and pads internally.
+  and the pipeline batches and pads internally;
+* ``POST /reload`` hot-swaps the model: the new pipeline is built outside
+  the lock while the old one serves, then swapped in under it.
 
 Endpoints:
-  GET  /healthz -> {"status": "ok", "count": N, "dimension": D, ...}
+  GET  /healthz -> {"status": "ok", "count": N, "dimension": D,
+                    "model_version": V, ...}
   POST /index   -> body: .npy of (N, H, W[, 1]) patterns;
                    reply: {"orientations": ..., "success": ..., "n": ...}
   POST /encode  -> body: .npy patterns; reply: {"latents": ...}
+  POST /reload  -> body: {"checkpoint": path}; 400 without a loader, without
+                   the key or for a path outside the checkpoint root, 500
+                   when the load fails
 
 Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
 ``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
@@ -25,6 +32,7 @@ from __future__ import annotations
 import io
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -50,7 +58,15 @@ class IndexService:
         batch_size: rows per device batch.
         image_size: pattern height and width after the default transform.
         max_body_bytes: bodies above this are refused with 413 (1 GiB).
-        engine: "exact" or "fused" (see `index.IndexPipeline`).
+        engine: "exact", "fused", "approx" or "int8" (see
+            `index.IndexPipeline`).
+        preprocess: optional pattern correction run before the encoder by
+            ``/index`` and ``/encode`` alike: a callable on ``(B, H, W)``
+            float32 device patterns or a `data.PreprocessConfig`.
+        param_loader: optional ``checkpoint path -> model`` that enables
+            `reload` and ``POST /reload``.
+        checkpoint_root: optional directory that reload targets must lie
+            under (relative paths are taken from it).
         device: ``cuda`` unless given; a missing CUDA device raises.
     """
 
@@ -65,6 +81,9 @@ class IndexService:
         image_size: tuple[int, int] = (128, 128),
         max_body_bytes: int = 1 << 30,
         engine: str = "exact",
+        preprocess=None,
+        param_loader=None,
+        checkpoint_root: str | None = None,
         device: str | torch.device | None = None,
     ) -> None:
         phase_kw = {}
@@ -72,25 +91,66 @@ class IndexService:
             phase_kw = dict(
                 dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
             )
-        self.pipeline = IndexPipeline(
-            model,
-            db._vectors,
-            db._orientations,
+        if preprocess is not None and not callable(preprocess):
+            from latice_tpu_torch.data.preprocess import make_preprocess_fn
+
+            preprocess = make_preprocess_fn(preprocess)
+        self._pipeline_kw = dict(
             top_n=top_n,
             orientation_threshold=orientation_threshold,
             min_required_matches=min_required_matches,
             batch_size=batch_size,
             engine=engine,
+            preprocess=preprocess,
             device=device,
             **phase_kw,
         )
+        self._db = db
+        self.pipeline = self._build_pipeline(model)
         self.image_size = tuple(image_size)
         self.max_body_bytes = int(max_body_bytes)
-        self._db = db
+        self._param_loader = param_loader
+        self.checkpoint_root = checkpoint_root
+        self.model_version = 0
         self._lock = threading.Lock()
         self.started = time.time()
         self.requests = 0
         self.patterns_indexed = 0
+
+    def _build_pipeline(self, model: torch.nn.Module) -> IndexPipeline:
+        return IndexPipeline(model, self._db._vectors, self._db._orientations, **self._pipeline_kw)
+
+    def _confine(self, checkpoint: str) -> str:
+        """``checkpoint`` resolved under ``checkpoint_root``; a path that
+        leaves the root (``../``, an absolute path elsewhere, a symlink out)
+        raises ``ValueError`` naming only what the client sent."""
+        if self.checkpoint_root is None:
+            return checkpoint
+        root = os.path.realpath(self.checkpoint_root)
+        target = os.path.realpath(os.path.join(root, checkpoint))
+        if os.path.commonpath([root, target]) != root:
+            raise ValueError(f"checkpoint {checkpoint!r} is outside the configured checkpoint root")
+        return target
+
+    def reload(self, checkpoint: str) -> dict:
+        """Hot-swap the model from ``checkpoint`` without dropping requests:
+        the new pipeline is built while the old one keeps serving, then
+        swapped in under the lock, and ``model_version`` goes up."""
+        if self._param_loader is None:
+            raise ValueError("service was started without a param_loader")
+        checkpoint = self._confine(checkpoint)
+        t0 = time.time()
+        pipeline = self._build_pipeline(self._param_loader(checkpoint))
+        with self._lock:
+            self.pipeline = pipeline
+            self.model_version += 1
+            version = self.model_version
+        return {
+            "status": "reloaded",
+            "checkpoint": checkpoint,
+            "model_version": version,
+            "seconds": time.time() - t0,
+        }
 
     def warmup(self) -> float:
         """Run one dummy batch of each input dtype through the pipeline,
@@ -151,7 +211,7 @@ class IndexService:
             "batch_size": int(self.pipeline.batch_size),
             "multiphase": bool(self._db._has_phases),
             "planes": ["index"],
-            "model_version": 0,
+            "model_version": self.model_version,
             "uptime_s": time.time() - self.started,
             "requests": self.requests,
             "patterns_indexed": self.patterns_indexed,
@@ -206,6 +266,18 @@ class _Handler(BaseHTTPRequestHandler):
                     f"{self.service.max_body_bytes}-byte limit"
                 },
             )
+            return
+        if self.path == "/reload":
+            try:
+                body = json.loads(self.rfile.read(length) or b"{}")
+                requested = body["checkpoint"]
+                self._reply(200, self.service.reload(requested))
+            except (KeyError, TypeError, ValueError) as e:  # JSONDecodeError is a ValueError
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:
+                logger.exception("reload failed")
+                # The exception may name resolved paths; reply with what was sent.
+                self._reply(500, {"error": f"{type(e).__name__}: could not load {requested!r}"})
             return
         routes = {"/index": self.service.index, "/encode": self.service.encode}
         if self.path not in routes:

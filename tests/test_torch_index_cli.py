@@ -124,7 +124,7 @@ def test_build_export_query_match_jax(files, monkeypatch, capsys):
         (["--refine", "10"], "slice D"),
         (["--hough-iq"], "slice D"),
         (["--nlpar", "2.0"], "slice D"),
-        (["--preprocess", "normalize=minmax"], "slice D"),
+        (["--preprocess", "static=auto", "--patterns", "scan.h5"], "static=auto on HDF5"),
         (["--patterns", "scan.h5"], "slice E"),
         (["--patterns", "scan.up1"], "slice E"),
     ],
@@ -147,8 +147,10 @@ def test_devices_and_engines(files, capsys, monkeypatch, caplog):
     assert "--devices 4 ignored" in caplog.text
     query = ["query", "--patterns", str(files / "dict.npy"), "--db", str(files / "dev.npz"),
              "--device", "cpu", "--out", str(files / "dev_o.npy")] + SMALL
-    with pytest.raises(ValueError, match="later slice"):
-        _run_port(query + ["--engine", "int8"], capsys)
+    for engine in ("int8", "approx"):  # ported: they index
+        summary = _summary(_run_port(query + ["--engine", engine, "--top-n", "3",
+                                              "--min-matches", "1"], capsys))
+        assert summary["n_patterns"] == N
     summary = _summary(_run_port(query + ["--top-n", "3", "--min-matches", "1"], capsys))
     assert summary["n_patterns"] == N and summary["input_dtype"] == "float32"
     assert np.load(files / "dev_o.npy").shape == (N, 3)

@@ -123,18 +123,55 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 
 def test_unported_options_raise():
-    from latice_tpu_torch import IndexPipeline, VariationalAutoEncoderRawData
+    """What the port still refuses: ``mesh`` (slice C), the DB's ``native``
+    engine (slice E) and the query CLI's ``--nlpar``, ``--refine`` and
+    ``--hough-iq`` (slice D)."""
+    from latice_tpu_torch import (
+        IndexPipeline,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+        VariationalAutoEncoderRawData,
+    )
+    from latice_tpu_torch.cli.index import main as index_main
 
     model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
     vecs, orients = np.eye(4, dtype=np.float32), np.zeros((4, 3))
-    for kw in (
+    with pytest.raises(ValueError, match="later slice"):
+        IndexPipeline(model, vecs, orients, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="later slice"):
+        TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
+    query = ["query", "--patterns", "p.npy", "--db", "none.npz", "--device", "cpu"]
+    for flags in (["--nlpar", "2.0"], ["--refine", "10"], ["--hough-iq"]):
+        with pytest.raises(SystemExit, match="later slice"):
+            index_main(query + flags)
+    with pytest.raises(ValueError, match="unknown engine"):
+        IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
         dict(engine="approx"),
         dict(engine="int8"),
         dict(search_dtype="bfloat16"),
-        dict(mesh=object()),
         dict(preprocess=lambda x: x),
-    ):
-        with pytest.raises(ValueError, match="later slice"):
-            IndexPipeline(model, vecs, orients, device="cpu", **kw)
-    with pytest.raises(ValueError, match="unknown engine"):
-        IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
+        dict(preprocess="config"),
+    ],
+    ids=["approx", "int8", "bfloat16", "preprocess_callable", "preprocess_config"],
+)
+def test_ported_options_accepted(kw):
+    """The engines, bf16 search and preprocessing of this slice build and
+    index on the CPU."""
+    from latice_tpu_torch import IndexPipeline, VariationalAutoEncoderRawData
+    from latice_tpu_torch.data import PreprocessConfig
+
+    if kw.get("preprocess") == "config":
+        kw = dict(preprocess=PreprocessConfig(hot_pixel_threshold=5.0, normalize="minmax"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
+    vecs, orients = np.eye(4, dtype=np.float32), np.zeros((4, 3))
+    pipe = IndexPipeline(model, vecs, orients, top_n=2, min_required_matches=1, device="cpu",
+                         **kw)
+    res = pipe(np.random.default_rng(0).uniform(size=(3, 32, 32)).astype(np.float32))
+    assert res.indices.shape == (3, 2) and np.isfinite(res.best_orientation).all()

@@ -177,7 +177,7 @@ def test_oversized_body_is_413(served):
     assert _post(f"{url}/index", _npy_bytes(served["patterns"][:1]))["n"] == 1
 
 
-@pytest.mark.parametrize("path", ["/nope", "/reload", "/hough"])
+@pytest.mark.parametrize("path", ["/nope", "/quality", "/hough"])
 def test_unknown_paths_are_404(served, path):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(f"{served['url']}{path}", _npy_bytes(np.zeros((1, 128, 128), np.float32)))
