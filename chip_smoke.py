@@ -5,7 +5,7 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11 and 14, on the serve phase's files, before 7):
+10, 11, 14 and 15, on the serve phase's files, before 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -73,6 +73,21 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
     equalization bitwise on the same input); then ``cli.index query
     --preprocess`` over phase 11's files: 10 InstanceNorm and 1 top-k
     launch per batch.
+15. dictionary: the native dictionary loop at full width. ``cli.index
+    sample --group 432 --resolution 2`` (18,467 orientations) and
+    ``simulate --uint8`` on the card, timed; 256 of its patterns against
+    the CPU render (1e-5 in f32, at most 1 uint8 level in at most 0.1% of
+    pixels), again under ``torch.set_float32_matmul_precision("high")``; a
+    64x64 scan of 256 seeded grains rendered on the card plus seeded noise;
+    NLPAR of it, timed, its first 8 rows against the CPU at relative 1e-5;
+    pattern DI (exact, bf16) of the clean, noisy and denoised scans, timed,
+    each median disorientation to the truth under the grid's 2 degrees,
+    and ``StreamedPatternDI`` equal to the resident indexer; refinement of
+    256 clean patterns from the DI result at 40 steps, timed, median under
+    0.15 degrees; then ``cli.index build`` of the grid's patterns and
+    ``query --engine fused --nlpar 1 --scan-grid 64 64 --refine 10`` of the
+    noisy scan: 10 InstanceNorm launches per build and query batch and 1
+    top-k launch per query batch.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -149,6 +164,18 @@ PREPROCESS_RECIPE = "hotpixels=6,static=auto,dynamic=auto,clip=3,equalize"
 PREPROCESS_PATTERNS = 256
 PREPROCESS_ATOL = 1e-5  # card vs CPU before equalization (blur sums in another order)
 RELOAD_PATTERNS = 32
+DICT_GROUP, DICT_RESOLUTION, DICT_ROWS = "432", 2.0, 18_467  # dictionary: the 2-degree grid
+SCAN_SIDE, SCAN_GRAINS, SCAN_NOISE = 64, 256, 0.1  # a 64x64 scan of 256 grains, noise sigma
+SIM_HOLD = 256  # rendered patterns held against the CPU render
+SIM_ATOL, SIM_UINT8_SHARE = 1e-5, 1e-3  # test_torch_sim.py's limits
+NLPAR_HOLD_ROWS, NLPAR_RTOL = 8, 1e-5  # the first slab of 8 scan rows against the CPU
+DI_MEDIAN_MAX_DEG = 2.0  # the grid's spacing
+REFINE_PATTERNS, REFINE_STEPS, REFINE_MEDIAN_MAX_DEG = 256, 40, 0.15  # tests/sim/test_refine.py
+# 40 Adam steps at the default lr 2e-3 travel at most ~1.3 degrees per axis
+# (the decayed rates sum to ~11.6 lr), short of the 2-degree grid's DI
+# error (the phase reports it, and the default rate's result); at 6e-3
+# they travel ~4.
+REFINE_LR = 6e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -1499,6 +1526,276 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
     return launches
 
 
+def _disorientation_deg(euler_or_quats: np.ndarray, truth_quats: np.ndarray) -> np.ndarray:
+    """Cubic disorientation, degrees, of zxz Euler degrees (or quaternions)
+    to true quaternions, in f64 on the host."""
+    from latice_tpu_torch.crystal import from_euler_zxz_deg, symmetry_reduced_misorientation
+
+    a = torch.from_numpy(np.asarray(euler_or_quats, np.float64))
+    if a.shape[-1] == 3:
+        a = from_euler_zxz_deg(a)
+    b = torch.from_numpy(np.asarray(truth_quats, np.float64))
+    return np.rad2deg(symmetry_reduced_misorientation(a, b).numpy())
+
+
+def _traced(fn) -> dict:
+    """Device busy ms, device activities launched, host wall ms and the
+    three longest activities of one call of ``fn`` under the profiler
+    (after one untraced call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    top = sorted(kernels, key=lambda k: -k[1])[:3]
+    return dict(device_ms=sum(t for _, t, _ in kernels), launches=sum(c for _, _, c in kernels),
+                wall_ms=wall_ms, top=[dict(kernel=n[:60], ms=t, calls=c) for n, t, c in top])
+
+
+def _grain_scan(rng) -> np.ndarray:
+    """``(SCAN_SIDE**2, 4)`` unit quaternions of a seeded Voronoi map of
+    `SCAN_GRAINS` grains, each at a random orientation, row-major."""
+    seeds = rng.uniform(0, SCAN_SIDE, (SCAN_GRAINS, 2))
+    yy, xx = np.mgrid[0:SCAN_SIDE, 0:SCAN_SIDE]
+    d2 = (yy.reshape(-1, 1) - seeds[:, 0]) ** 2 + (xx.reshape(-1, 1) - seeds[:, 1]) ** 2
+    grain_q = rng.normal(size=(SCAN_GRAINS, 4))
+    grain_q /= np.linalg.norm(grain_q, axis=1, keepdims=True)
+    return grain_q[d2.argmin(axis=1)].astype(np.float32)
+
+
+def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
+    """The native dictionary loop at full width: ``cli.index sample`` (the
+    2-degree cubic grid, 18,467 orientations) and ``simulate --uint8`` on
+    the card, 256 of its patterns held against the CPU render (also under
+    ``torch.set_float32_matmul_precision("high")``); a 64x64 scan of 256
+    grains rendered on the card plus seeded noise; NLPAR of the noisy scan,
+    its first slab held against the CPU; pattern DI (exact, bf16 search,
+    the ``di`` CLI's defaults) of the clean, noisy and denoised scans
+    (median disorientation to the truth under 2 degrees; streamed DI equal
+    to resident); refinement of 256 clean
+    patterns from the DI result at 40 steps (median under 0.15 degrees at
+    `REFINE_LR`; the default rate's reported beside it); then ``build``
+    of the dictionary with the full-width model and ``query --engine fused
+    --nlpar 1 --scan-grid 64 64 --refine 10`` of the noisy scan, whose K2f
+    and K1 launches are the path's."""
+    import contextlib
+    import logging
+
+    from latice_tpu_torch.cli.index import main as index_main
+    from latice_tpu_torch.crystal import from_euler_zxz_deg
+    from latice_tpu_torch.data import nlpar_denoise, parse_angle_file
+    from latice_tpu_torch.index import (
+        PatternDictionaryIndexer,
+        StreamedPatternDI,
+        build_pattern_dictionary,
+    )
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.sim import kinematical, refine_orientations, simulate_patterns
+
+    root = Path(workdir) / "dictionary"
+    root.mkdir()
+    grid, dict_npy = str(root / "grid.txt"), str(root / "dict.npy")
+    out = {}
+
+    def cli(argv) -> dict:
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            index_main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+        lines = stdout.getvalue().strip().splitlines()
+        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
+
+    # 1-2. The grid and its patterns through the CLI.
+    sample = cli(["sample", "--group", DICT_GROUP, "--resolution", str(DICT_RESOLUTION),
+                  "--out", grid])
+    if sample["summary"]["n_orientations"] != DICT_ROWS:
+        raise AssertionError(f"dictionary grid: {sample['summary']}")
+    sim = cli(["simulate", "--angles", grid, "--out", dict_npy, "--uint8"])
+    card_u8 = np.load(dict_npy)
+    if card_u8.shape != (DICT_ROWS, 128, 128) or card_u8.dtype != np.uint8:
+        raise AssertionError(f"simulate wrote {card_u8.shape} {card_u8.dtype}")
+    angles = parse_angle_file(grid)
+    quats = kinematical.orientations_to_quats(angles, angles_in_degrees=True)
+    t0 = time.perf_counter()
+    simulate_patterns(quats, dtype=np.uint8)
+    sim_s = time.perf_counter() - t0
+    chunk_trace = _traced(lambda: simulate_patterns(quats[:640], dtype=np.uint8))
+    out["simulate"] = dict(patterns=DICT_ROWS, cli=sim, library_s=sim_s,
+                           patterns_per_s=DICT_ROWS / sim_s,
+                           per_64_chunk=dict(device_ms=chunk_trace["device_ms"] / 10,
+                                             launches=chunk_trace["launches"] / 10,
+                                             wall_ms=chunk_trace["wall_ms"] / 10,
+                                             top=chunk_trace["top"]))
+
+    # The render against the CPU, at PyTorch's default matmul precision and
+    # under "high" (TF32 allowed), where the render's own scope must hold.
+    hold = np.linspace(0, DICT_ROWS - 1, SIM_HOLD).astype(int)
+    cpu = simulate_patterns(quats[hold], device="cpu")
+    cpu_u8 = np.round(cpu * 255.0).astype(np.uint8)
+
+    def held(card_f32, card8) -> dict:
+        err = float(np.abs(card_f32 - cpu).max())
+        diff = np.abs(card8.astype(np.int16) - cpu_u8.astype(np.int16))
+        share = float((diff > 0).mean())
+        if not (err <= SIM_ATOL and diff.max() <= 1 and share <= SIM_UINT8_SHARE):
+            raise AssertionError(f"render vs CPU: {err} f32, uint8 {diff.max()} / {share}")
+        return dict(f32_max_abs_err=err, uint8_max_diff=int(diff.max()), uint8_share=share)
+
+    saved = torch.get_float32_matmul_precision()
+    renders = {"highest": held(simulate_patterns(quats[hold]), card_u8[hold])}
+    try:
+        torch.set_float32_matmul_precision("high")
+        renders["high"] = held(simulate_patterns(quats[hold]),
+                               simulate_patterns(quats[hold], dtype=np.uint8))
+        # What the scope prevents: the same render's products in TF32.
+        consts = kinematical.model_tensors(kinematical.DetectorGeometry(),
+                                           kinematical.cubic_reflectors(), torch.device("cuda"))
+        with torch.no_grad():
+            unscoped = torch.cat([
+                kinematical._render_chunk(torch.from_numpy(quats[hold[i:i + 64]]).cuda(),
+                                          *consts, 0.25, False)
+                for i in range(0, SIM_HOLD, 64)]).cpu().numpy().reshape(cpu.shape)
+        renders["high_unscoped_max_abs_err"] = float(np.abs(unscoped - cpu).max())
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    out["render_vs_cpu"] = renders
+
+    # 3. The scan: grains at random orientations, rendered on the card.
+    rng = np.random.default_rng(20)
+    truth = _grain_scan(rng)
+    clean = simulate_patterns(truth)
+    noisy = clean + rng.standard_normal(clean.shape, dtype=np.float32) * SCAN_NOISE
+    scan = noisy.reshape(SCAN_SIDE, SCAN_SIDE, 128, 128)
+
+    # 4. NLPAR, timed, its first slab against the CPU.
+    t0 = time.perf_counter()
+    denoised = nlpar_denoise(scan, h=1.0)
+    nlpar_ms = (time.perf_counter() - t0) * 1e3
+    nlpar_trace = _traced(lambda: nlpar_denoise(scan, h=1.0))
+    # Rows 0-7 of the scan depend on rows 0-9 only (the noise estimate of
+    # row 8 reads row 9), so the CPU denoises those ten rows.
+    want = nlpar_denoise(scan[:NLPAR_HOLD_ROWS + 2], h=1.0, device="cpu")[:NLPAR_HOLD_ROWS]
+    nlpar_err = float(np.abs(denoised[:NLPAR_HOLD_ROWS] - want).max() / np.abs(want).max())
+    if not nlpar_err <= NLPAR_RTOL:
+        raise AssertionError(f"NLPAR slab vs CPU: relative {nlpar_err}")
+    denoised = denoised.reshape(-1, 128, 128)
+    out["nlpar"] = dict(scan=[SCAN_SIDE, SCAN_SIDE], h=1.0, radius=1, wall_ms=nlpar_ms,
+                        traced=nlpar_trace, slab_vs_cpu_rel_err=nlpar_err,
+                        noise_rms=float(np.sqrt(np.mean((noisy - clean) ** 2))),
+                        denoised_rms_err=float(np.sqrt(np.mean((denoised - clean) ** 2))))
+
+    # 5. Pattern DI against the dictionary, and the streamed engine.
+    t0 = time.perf_counter()
+    di = PatternDictionaryIndexer(card_u8, angles, batch_size=BATCH)
+    torch.cuda.synchronize()
+    di_build_s = time.perf_counter() - t0
+    di_out = {}
+    for name, x in (("clean", clean), ("noisy", noisy), ("denoised", denoised)):
+        t0 = time.perf_counter()
+        res = di(x)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        err = _disorientation_deg(res.best_orientation, truth)
+        if not np.median(err) < DI_MEDIAN_MAX_DEG:
+            raise AssertionError(f"DI {name}: median {np.median(err)} degrees")
+        top1 = _disorientation_deg(angles[res.indices[:, 0]], truth)
+        di_out[name] = dict(ms_per_256=wall_ms * BATCH / len(x), median_deg=float(np.median(err)),
+                            p90_deg=float(np.quantile(err, 0.9)),
+                            top1_median_deg=float(np.median(top1)),
+                            success=float(res.success.mean()))
+        if name == "clean":
+            clean_res = res
+    di_trace = _traced(lambda: di(clean[:BATCH]))
+    rows = build_pattern_dictionary(card_u8, dtype=torch.bfloat16)
+    streamed = StreamedPatternDI(rows, angles, batch_size=BATCH)
+    t0 = time.perf_counter()
+    s_res = streamed(clean)
+    streamed_ms = (time.perf_counter() - t0) * 1e3
+    same = (s_res.indices == clean_res.indices).all(axis=1)
+    tied = (np.abs(np.diff(clean_res.scores, axis=1)) < NEAR_TIE).any(axis=1)
+    if not (same | tied).all():
+        raise AssertionError(f"streamed DI: {int((~same & ~tied).sum())} rows differ from resident")
+    same_err = _disorientation_deg(s_res.best_orientation[same],
+                                   from_euler_zxz_deg(torch.from_numpy(
+                                       clean_res.best_orientation[same])).numpy())
+    if not same_err.max() < 1e-4:
+        raise AssertionError(f"streamed DI orientations {same_err.max()} degrees off resident")
+    out["di"] = dict(dictionary=DICT_ROWS, features=128 * 128, engine="exact",
+                     search_dtype="bfloat16", queries=len(clean),
+                     build_s=di_build_s,
+                     scans=di_out, traced_256=di_trace,
+                     streamed=dict(ms_per_256=streamed_ms * BATCH / len(clean),
+                                   rows_equal=int(same.sum()), near_tie_rows=int(tied.sum())))
+    del di, rows, streamed
+    torch.cuda.empty_cache()
+
+    # 6. Refinement of clean patterns from the DI result: at the default
+    # rate (reported) and at `REFINE_LR` (held).
+    pick = np.linspace(0, len(clean) - 1, REFINE_PATTERNS).astype(int)
+    init = from_euler_zxz_deg(torch.from_numpy(
+        clean_res.best_orientation[pick].astype(np.float32))).numpy()
+    err0 = _disorientation_deg(init, truth[pick])
+    refine = {}
+    for name, lr in (("default_lr", 2e-3), ("held_lr", REFINE_LR)):
+        t0 = time.perf_counter()
+        refined, ncc = refine_orientations(clean[pick], init, steps=REFINE_STEPS, lr=lr)
+        ms = (time.perf_counter() - t0) * 1e3
+        err1 = _disorientation_deg(refined, truth[pick])
+        refine[name] = dict(lr=lr, ms_per_64_chunk=ms * 64 / REFINE_PATTERNS,
+                            median_deg=float(np.median(err1)),
+                            p90_deg=float(np.quantile(err1, 0.9)),
+                            share_under_bound=float((err1 < REFINE_MEDIAN_MAX_DEG).mean()),
+                            ncc_median=float(np.median(ncc)))
+    if not refine["held_lr"]["median_deg"] < REFINE_MEDIAN_MAX_DEG:
+        raise AssertionError(f"refine: median {refine['held_lr']['median_deg']} degrees")
+    step_trace = _traced(lambda: refine_orientations(clean[pick[:64]], init[:64], steps=5))
+    out["refine"] = dict(patterns=REFINE_PATTERNS, steps=REFINE_STEPS,
+                         median_deg_before=float(np.median(err0)), **refine,
+                         per_step_5_step_chunk=dict(device_ms=step_trace["device_ms"] / 5,
+                                                    launches=step_trace["launches"] / 5,
+                                                    wall_ms=step_trace["wall_ms"] / 5,
+                                                    top=step_trace["top"]))
+
+    # 7. build and query through the CLI: the path's K2f and K1 launches.
+    scan_npy = str(root / "scan_u8.npy")
+    np.save(scan_npy, np.round(np.clip(noisy, 0.0, 1.0) * 255.0).astype(np.uint8))
+    db, oriented = str(root / "dict_db.npz"), str(root / "orientations.npy")
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    steps = {"build": cli(["build", "--patterns", dict_npy, "--angles", grid, "--db", db]
+                          + common)}
+    steps["query"] = cli(["query", "--patterns", scan_npy, "--db", db, "--out", oriented,
+                          "--engine", "fused", "--nlpar", "1", "--scan-grid", str(SCAN_SIDE),
+                          str(SCAN_SIDE), "--refine", "10"] + common)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    build_batches, query_batches = -(-DICT_ROWS // BATCH), SCAN_SIDE**2 // BATCH
+    want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
+                     "cosine_topk_fused": query_batches}
+    if launches != want_launches:
+        raise AssertionError(f"dictionary launches {launches}, want {want_launches}")
+    got = np.load(oriented)
+    summary = steps["query"]["summary"]
+    if got.shape != (SCAN_SIDE**2, 3) or not np.all(np.isfinite(got)) or summary.get(
+            "refine_steps") != 10:
+        raise AssertionError(f"dictionary query: {got.shape}, {summary}")
+    with np.load(db) as f:
+        if "sim_meta" not in f.files or f["vectors"].shape != (DICT_ROWS, LATENT):
+            raise AssertionError("dictionary build lost its provenance or its rows")
+    emit("dictionary", card=smi, **out, cli=dict(steps=steps, launches=launches),
+         timed_as="host wall unless named device_ms (profiler sums of device activity)")
+    return launches
+
+
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
     """``n`` seeded 128x128 float32 patterns in [0, 1]: three bright bands
     (Kikuchi-like lines) each, over a smooth background."""
@@ -1827,6 +2124,8 @@ def main() -> int:
         cli_launches = phase_index_cli(workdir, ckpt)
         preprocess_launches = phase_preprocess(workdir, ckpt)
         torch.cuda.empty_cache()
+        dictionary_launches = phase_dictionary(workdir, ckpt, smi)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
     phase_train_parity()
     phase_train_profile(model)
@@ -1839,6 +2138,7 @@ def main() -> int:
         "stage0_path": stage0_launches,
         "index_cli": {k: v for k, v in cli_launches.items() if k != "stage0_fused"},
         "preprocess": preprocess_launches,
+        "dictionary": dictionary_launches,
         "train": train_launches,
     }
     for k in kernels:

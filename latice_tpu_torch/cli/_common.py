@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -47,3 +48,98 @@ def _load_raw_pattern_stack(args) -> np.ndarray:
     if low.endswith(UP_EXTENSIONS):
         raise later_slice("reading EDAX UP files", "slice E")
     return np.load(args.patterns)
+
+
+def _load_phase_stacks(pattern_paths, angle_paths, phase_groups: str | None):
+    """``(stack, angles, phases, groups)`` of one ``.npy`` pattern stack and
+    anglefile per phase: phases are ``None`` for a single phase without
+    ``--phase-groups``, else an ``(N,)`` int32 phase id per row, and then
+    every phase needs its point group."""
+    from latice_tpu_torch.data import parse_angle_file
+
+    if len(pattern_paths) != len(angle_paths):
+        raise SystemExit("dictionary patterns and angles must be given the same number of times")
+    groups = phase_groups.split(",") if phase_groups else None
+    multiphase = len(pattern_paths) > 1 or groups is not None
+    if multiphase and (not groups or len(groups) < len(pattern_paths)):
+        raise SystemExit(
+            f"{len(pattern_paths)} phases need --phase-groups with one group per phase"
+        )
+    stacks, angle_parts, phase_parts = [], [], []
+    for pid, (pp, ap) in enumerate(zip(pattern_paths, angle_paths)):
+        s = np.load(pp)
+        a = parse_angle_file(str(ap))
+        if len(s) != len(a):
+            raise SystemExit(f"{pp} holds {len(s)} patterns but {ap} lists {len(a)} angles")
+        stacks.append(s)
+        angle_parts.append(a)
+        phase_parts.append(np.full(len(s), pid, np.int32))
+    phases = np.concatenate(phase_parts) if multiphase else None
+    return np.concatenate(stacks), np.concatenate(angle_parts), phases, groups
+
+
+def _reflectors_from_meta(meta: dict):
+    """The simulate-time reflector table from a dictionary's provenance:
+    explicit fitted bands (master-fit dictionaries) or the structure and
+    lattice record of a kinematical one."""
+    from latice_tpu_torch.sim import Reflectors, cubic_reflectors, hexagonal_reflectors
+
+    if "fitted_bands" in meta:
+        fb = meta["fitted_bands"]
+        return Reflectors(
+            normals=np.asarray(fb["normals"], np.float32),
+            sin_theta=np.asarray(fb["sin_theta"], np.float32),
+            intensity=np.asarray(fb["intensity"], np.float32),
+        )
+    if meta["structure"] == "hcp":
+        c = meta.get("lattice_c") or 1.587 * meta["lattice"]
+        return hexagonal_reflectors(
+            a=meta["lattice"], c=c, kv=meta["kv"], max_hkl=meta["max_hkl"], min_d=meta["min_d"]
+        )
+    return cubic_reflectors(
+        meta["structure"], a=meta["lattice"], kv=meta["kv"],
+        max_hkl=meta["max_hkl"], min_d=meta["min_d"],
+    )
+
+
+def _refine_result(args, meta: dict, patterns: np.ndarray, result, steps: int, db, device):
+    """Autodiff refinement (`sim.refine`) of an indexing result against the
+    dictionary's own forward model, rebuilt from its provenance. With
+    ``--refine-candidates K`` > 1 every top-K candidate is refined and the
+    best NCC wins. Returns the result with refined ``best_orientation`` and
+    the summary's refine fields."""
+    from latice_tpu_torch.crystal import from_euler_zxz_deg, to_euler_zxz_deg
+    from latice_tpu_torch.sim import DetectorGeometry, refine_candidates, refine_orientations
+
+    geometry = DetectorGeometry(
+        shape=(meta["size"], meta["size"]), pcx=meta["pc"][0], pcy=meta["pc"][1],
+        dd=meta["pc"][2], tilt=meta.get("tilt", 0.0),
+    )
+    reflectors = _reflectors_from_meta(meta)
+    x = np.asarray(patterns)
+    if x.dtype == np.uint8:
+        x = x.astype(np.float32) / 255.0
+    t0 = time.time()
+    k = min(getattr(args, "refine_candidates", 1) or 1, result.indices.shape[1])
+    summary = {"refine_steps": steps}
+    if k > 1:
+        eulers = torch.as_tensor(db._orientations[result.indices[:, :k]], dtype=torch.float32)
+        cand = from_euler_zxz_deg(eulers.reshape(-1, 3)).numpy().reshape(len(x), k, 4)
+        refined_q, ncc, best_k = refine_candidates(
+            x, cand, geometry, reflectors, steps=steps, device=device
+        )
+        summary["refine_reranked_frac"] = round(float((best_k > 0).mean()), 4)
+    else:
+        init_q = from_euler_zxz_deg(
+            torch.as_tensor(result.best_orientation, dtype=torch.float32)
+        ).numpy()
+        refined_q, ncc = refine_orientations(
+            x, init_q, geometry, reflectors, steps=steps, device=device
+        )
+    refined = to_euler_zxz_deg(torch.from_numpy(refined_q)).numpy().astype(np.float64)
+    logger.info(
+        f"Refined {len(x)} orientations (top-{k}) in {time.time() - t0:.1f}s; "
+        f"median NCC {np.median(ncc):.3f}"
+    )
+    summary["refine_ncc_median"] = round(float(np.median(ncc)), 4)
+    return result._replace(best_orientation=refined), summary

@@ -16,6 +16,7 @@ from latice_tpu_torch.cli._common import (
     UP_EXTENSIONS,
     _load_model,
     _load_raw_pattern_stack,
+    _refine_result,
     later_slice,
 )
 from latice_tpu_torch.device import resolve_device
@@ -114,14 +115,33 @@ def cmd_export(args) -> None:
     logger.info(f"Exported {len(latents)} latent vectors")
 
 
-def _refuse_later_options(args) -> None:
-    for flag, value, slice_name in (
-        ("--refine", args.refine, "slice D"),
-        ("--hough-iq", args.hough_iq, "slice D"),
-        ("--nlpar", args.nlpar, "slice D"),
-    ):
-        if value:
-            raise later_slice(flag, slice_name)
+def _nlpar(x: np.ndarray, args, hot_pixel_threshold, device) -> np.ndarray:
+    """``--nlpar H``: the stack denoised as its ``--scan-grid`` scan
+    (`data.nlpar_denoise`), in model units; unchanged without the flag."""
+    from latice_tpu_torch.data import nlpar_denoise
+
+    if not args.nlpar:
+        return x
+    if not args.scan_grid:
+        raise SystemExit("--nlpar needs --scan-grid ROWS COLS")
+    rows, cols = args.scan_grid
+    if len(x) != rows * cols:
+        raise SystemExit(f"--scan-grid {rows}x{cols} does not match {len(x)} patterns")
+    # NLPAR returns float32, so the pipeline's uint8 /255 would not fire:
+    # divide here to stay in model units.
+    if x.dtype == np.uint8:
+        x = x.astype(np.float32) / 255.0
+    x = np.asarray(x, np.float32)
+    out = nlpar_denoise(
+        x.reshape(rows, cols, *x.shape[1:]),
+        search_radius=args.nlpar_radius,
+        h=args.nlpar,
+        # Hot pixels are repaired BEFORE averaging (they inflate the noise
+        # estimate and smear into the window), at the recipe's threshold.
+        hot_pixel_threshold=hot_pixel_threshold,
+        device=device,
+    )
+    return out.reshape(x.shape)
 
 
 def _parse_preprocess(args):
@@ -165,7 +185,8 @@ def cmd_query(args) -> None:
         candidate_ambiguity,
     )
 
-    _refuse_later_options(args)
+    if args.hough_iq:
+        raise later_slice("--hough-iq", "slice D")
     _check_devices(args)
     device = resolve_device(args.device)
     preprocess = _parse_preprocess(args)
@@ -197,8 +218,17 @@ def cmd_query(args) -> None:
         **phase_kw,
     )
 
+    if args.refine and db.sim_meta is None:
+        raise SystemExit(
+            "--refine needs a dictionary with simulation provenance (built from "
+            "'simulate' output); this npz has none"
+        )
+
     t0 = time.time()
-    x = prepare_patterns(raw)
+    x = _nlpar(
+        prepare_patterns(raw), args,
+        preprocess.hot_pixel_threshold if preprocess is not None else None, device,
+    )
     result = pipe(x)
     n = len(x)
     dt = time.time() - t0
@@ -215,7 +245,15 @@ def cmd_query(args) -> None:
         # every other dtype reaches the model as float32.
         "input_dtype": str(x.dtype),
     }
+    # Saved BEFORE refinement, so a refinement failure keeps the indexing
+    # result; refinement overwrites it on success.
     np.save(args.out, result.best_orientation)
+    if args.refine:
+        result, refine_summary = _refine_result(
+            args, db.sim_meta, x, result, args.refine, db, device
+        )
+        summary.update(refine_summary)
+        np.save(args.out, result.best_orientation)
     if result.phase is not None:
         phase_out = args.out.replace(".npy", "") + "_phase.npy"
         np.save(phase_out, result.phase)
@@ -318,10 +356,17 @@ def register(sub, common) -> None:
         help="several cards wait for a later slice: ignored with a warning "
         "when fewer are attached, refused otherwise",
     )
-    q.add_argument("--refine", type=int, default=None, metavar="STEPS",
-                   help="orientation refinement (slice D)")
-    q.add_argument("--refine-candidates", type=int, default=1, metavar="K",
-                   help="with --refine: candidates refined per pattern (slice D)")
+    q.add_argument(
+        "--refine", type=int, default=None, metavar="STEPS",
+        help="refine each orientation by autodiff against the dictionary's "
+        "forward model (needs a dictionary built from 'simulate' output, "
+        "whose provenance the npz carries); e.g. 40",
+    )
+    q.add_argument(
+        "--refine-candidates", type=int, default=1, metavar="K",
+        help="with --refine: refine each of the top-K candidates and keep the "
+        "best NCC (K refinement passes; default: the result only)",
+    )
     q.add_argument(
         "--ambiguity", default=None, metavar="OUT.npz",
         help="write the pseudo-symmetry diagnostic (per-pixel angle and score gap "
@@ -333,10 +378,13 @@ def register(sub, common) -> None:
         "(default: %(default)s)",
     )
     q.add_argument("--hough-iq", action="store_true", help="detector-side Hough IQ (slice D)")
-    q.add_argument("--nlpar", type=float, default=None, metavar="H",
-                   help="NLPAR neighbourhood denoising (slice D)")
+    q.add_argument(
+        "--nlpar", type=float, default=None, metavar="H",
+        help="NLPAR-denoise the scan before indexing (needs --scan-grid); H "
+        "is the smoothing strength in noise sigmas (1 conservative, 2-3 strong)",
+    )
     q.add_argument("--nlpar-radius", type=int, default=1,
-                   help="NLPAR search-window half-width (slice D)")
+                   help="NLPAR search-window half-width (default 1 = 3x3)")
     q.add_argument(
         "--preprocess", default=None, metavar="SPEC",
         help="on-device pattern correction before the encoder, e.g. "

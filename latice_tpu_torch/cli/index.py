@@ -1,5 +1,15 @@
-"""The port's indexing CLI: dictionary build, latent export and batch
+"""The port's indexing CLI: orientation grids, kinematical simulation,
+dictionary build, latent export, batch indexing and pattern-space dictionary
 indexing, on the GPU by default.
+
+    # the native dictionary loop: a 2-degree cubic grid, its patterns, and
+    # zero-training NCC indexing of a scan against them
+    python -m latice_tpu_torch.cli.index sample --group 432 --resolution 2 \\
+        --out grid.txt
+    python -m latice_tpu_torch.cli.index simulate --angles grid.txt \\
+        --out dict.npy --uint8
+    python -m latice_tpu_torch.cli.index di --dict-patterns dict.npy \\
+        --dict-angles grid.txt --patterns scan.npy --ang scan.ang
 
     # build a dictionary database from simulated patterns + angles
     python -m latice_tpu_torch.cli.index build --patterns dict.npy \\
@@ -11,11 +21,16 @@ indexing, on the GPU by default.
         --db latent_index.npz --checkpoint vae-best.pt --engine fused \\
         --out orientations.npy --ang scan.ang
 
+    # NLPAR-denoise a 64x64 scan first, then refine each orientation
+    # against the dictionary's forward model (its simulate provenance)
+    python -m latice_tpu_torch.cli.index query --patterns scan.npy \\
+        --db latent_index.npz --nlpar 1 --scan-grid 64 64 --refine 40
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model runs
-at ``16-mixed`` (bf16 autocast). The other commands of the JAX package's
-``index.py`` wait for later slices.
+at ``16-mixed`` (bf16 autocast). ``master``, ``learn-master`` and the
+remaining commands of the JAX package's ``index.py`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -26,7 +41,7 @@ import logging
 
 def main(argv=None) -> None:
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run the command."""
-    from latice_tpu_torch.cli import _db_cmds
+    from latice_tpu_torch.cli import _db_cmds, _di_cmds, _sim_cmds
 
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -40,7 +55,12 @@ def main(argv=None) -> None:
     common.add_argument("--batch-size", type=int, default=256)
     common.add_argument("--device", default=None, help="torch device (default: cuda)")
     _db_cmds.register(sub, common)
-    args = parser.parse_args(argv)
+    _sim_cmds.register(sub, common)
+    _di_cmds.register(sub, common)
+    # A command that waits for a later slice takes any arguments and refuses.
+    args, extra = parser.parse_known_args(argv)
+    if extra and not getattr(args, "takes_any_arguments", False):
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     logging.basicConfig(level=logging.INFO)
     args.fn(args)
 

@@ -4,13 +4,20 @@
         --checkpoint vae-best.pt --engine fused &
     curl -s localhost:8800/healthz
 
+    # pattern DI: NCC against a simulated stack, no checkpoint, no --db;
+    # 4-D (R, C, H, W) bodies are NLPAR-denoised scans
+    python -m latice_tpu_torch.cli.serve --di-dict dict.npy \\
+        --di-angles grid.txt --nlpar 1 &
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model
 computes at ``16-mixed`` (bf16 autocast), the precision the JAX serve CLI
 builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
 ``/encode``, and ``{"checkpoint": path}`` to ``/reload``, which swaps in
-the weights of a ``.pt`` under ``--checkpoint-root``.
+the weights of a ``.pt`` under ``--checkpoint-root``. In pattern-DI mode
+``/encode`` and ``/reload`` answer 400. The zero-training ``/quality``,
+``/hough``, ``/sphere`` and ``/strain`` planes wait for a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +30,29 @@ import os
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--db", required=True, help="dictionary npz (index.py build)")
+    p.add_argument(
+        "--db", default=None,
+        help="dictionary npz (cli.index build); omit when serving pattern DI via --di-dict",
+    )
+    p.add_argument(
+        "--di-dict", action="append", default=None,
+        help="serve pattern DI instead of the latent engine: a simulated "
+        "dictionary .npy stack, repeated once per phase (no --db or "
+        "--checkpoint; /encode and /reload answer 400)",
+    )
+    p.add_argument("--di-angles", action="append", default=None,
+                   help="angle file paired with --di-dict (repeat per phase)")
+    p.add_argument("--di-bin", type=int, default=1,
+                   help="DI mean-pool factor (compute and residency drop bin^2-fold)")
+    p.add_argument("--phase-groups", default=None,
+                   help="comma-separated point groups for multi-phase --di-dict")
+    p.add_argument(
+        "--nlpar", type=float, default=None, metavar="H",
+        help="treat 4-D (R, C, H, W) /index bodies as scans and NLPAR-denoise "
+        "them before indexing; H is the smoothing strength in noise sigmas",
+    )
+    p.add_argument("--nlpar-radius", type=int, default=1,
+                   help="NLPAR search-window half-width (default 1 = 3x3)")
     p.add_argument("--checkpoint", default=None, help="reference-layout .pt state dict")
     p.add_argument("--inplanes", type=int, default=32)
     p.add_argument("--latent-dim", type=int, default=16)
@@ -66,12 +95,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_service(args: argparse.Namespace):
-    """The `serve.IndexService` that ``main`` serves: the model from
-    ``cli._common._load_model`` (``16-mixed``, eval mode, on the device,
-    the precision the JAX CLI builds its model at) over the ``--db``
+    """The `serve.IndexService` that ``main`` serves. Latent mode: the model
+    from ``cli._common._load_model`` (``16-mixed``, eval mode, on the
+    device, the precision the JAX CLI builds its model at) over the ``--db``
     dictionary, with a ``/reload`` loader (`models.load_checkpoint` at
-    ``16-mixed``). Binds no socket."""
-    from latice_tpu_torch.cli._common import _load_model
+    ``16-mixed``). Pattern-DI mode (``--di-dict``): the stacks and angles,
+    no model. Binds no socket."""
+    from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks
     from latice_tpu_torch.data import parse_preprocess_spec
     from latice_tpu_torch.device import resolve_device
     from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
@@ -88,6 +118,30 @@ def build_service(args: argparse.Namespace):
                 "data.estimate_static_background) and pass static=<frame.npy>."
             )
     device = resolve_device(args.device)
+    common = dict(
+        top_n=args.top_n,
+        orientation_threshold=args.threshold,
+        min_required_matches=args.min_matches,
+        batch_size=args.batch_size,
+        max_body_bytes=args.max_body_mb << 20,
+        engine=args.engine,
+        preprocess=preprocess,
+        nlpar_h=args.nlpar,
+        nlpar_radius=args.nlpar_radius,
+        device=device,
+    )
+    if args.di_dict:
+        if args.db:
+            raise SystemExit("--di-dict and --db are mutually exclusive")
+        stack, angles, phases, groups = _load_phase_stacks(
+            args.di_dict, args.di_angles or [], args.phase_groups
+        )
+        return IndexService(
+            None, None, di_dictionary=(stack, angles, phases, groups), di_bin=args.di_bin,
+            **common,
+        )
+    if not args.db:
+        raise SystemExit("pass --db (latent engine) or --di-dict (pattern DI)")
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
         LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim)
@@ -103,18 +157,7 @@ def build_service(args: argparse.Namespace):
         return model.set_precision("16-mixed").eval()
 
     return IndexService(
-        model,
-        db,
-        top_n=args.top_n,
-        orientation_threshold=args.threshold,
-        min_required_matches=args.min_matches,
-        batch_size=args.batch_size,
-        max_body_bytes=args.max_body_mb << 20,
-        engine=args.engine,
-        preprocess=preprocess,
-        param_loader=param_loader,
-        checkpoint_root=checkpoint_root,
-        device=device,
+        model, db, param_loader=param_loader, checkpoint_root=checkpoint_root, **common
     )
 
 
@@ -132,7 +175,7 @@ def main(argv=None) -> None:
         json.dumps(
             {
                 "status": "serving",
-                "mode": "latent",
+                "mode": health["mode"],
                 "addr": f"http://{args.host}:{server.server_address[1]}",
                 "count": health["count"],
                 "device": str(service.pipeline.device),

@@ -1,4 +1,5 @@
-"""Orientation algebra and crystal symmetry in torch."""
+"""Orientation algebra and crystal symmetry in torch, and orientation
+sampling over a fundamental zone (host numpy)."""
 
 from latice_tpu_torch.crystal.quaternion import (
     from_euler_zxz_deg,
@@ -14,6 +15,12 @@ from latice_tpu_torch.crystal.quaternion import (
     quat_to_matrix,
     to_euler_zxz_deg,
 )
+from latice_tpu_torch.crystal.sampling import (
+    euler_grid,
+    reduce_to_fundamental_zone,
+    sample_fundamental_zone,
+    write_anglefile,
+)
 from latice_tpu_torch.crystal.symmetry import (
     CUBIC_SYMMETRY,
     QUAT_SYM_WXYZ,
@@ -28,6 +35,7 @@ __all__ = [
     "CUBIC_SYMMETRY",
     "QUAT_SYM_WXYZ",
     "ROTATION_GROUPS",
+    "euler_grid",
     "from_euler_zxz_deg",
     "matrix_to_euler_zxz_deg",
     "misorientation_angle",
@@ -40,8 +48,11 @@ __all__ = [
     "quat_mul",
     "quat_normalize",
     "quat_to_matrix",
+    "reduce_to_fundamental_zone",
+    "sample_fundamental_zone",
     "stack_symmetry_tables",
     "symmetry_quats",
     "symmetry_reduced_misorientation",
     "to_euler_zxz_deg",
+    "write_anglefile",
 ]

@@ -1,5 +1,5 @@
-"""Host-side pattern preparation, device-side preprocessing, the training
-data module, prefetch and result export."""
+"""Host-side pattern preparation, device-side preprocessing, NLPAR denoising,
+the training data module, prefetch and result export."""
 
 from latice_tpu_torch.data.datamodule import (
     DPDataModule,
@@ -9,6 +9,7 @@ from latice_tpu_torch.data.datamodule import (
 )
 from latice_tpu_torch.data.dataset import DPdataset, parse_angle_file
 from latice_tpu_torch.data.export import VendorMap, read_ang, read_ctf, write_ang, write_ctf
+from latice_tpu_torch.data.nlpar import estimate_noise_sigma, nlpar_denoise
 from latice_tpu_torch.data.prefetch import prefetch_host, prefetch_to_device
 from latice_tpu_torch.data.preprocess import (
     PreprocessConfig,
@@ -40,10 +41,12 @@ __all__ = [
     "center_crop",
     "default_transform",
     "equalize_histogram",
+    "estimate_noise_sigma",
     "estimate_static_background",
     "fix_hot_pixels",
     "gaussian_blur",
     "make_preprocess_fn",
+    "nlpar_denoise",
     "normalize_patterns",
     "pad_batch",
     "padded_batches",

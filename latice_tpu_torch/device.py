@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points, and the f32 convolution scope."""
+"""Device selection for the port's entry points, and the f32 convolution and
+matmul scopes."""
 
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import contextlib
 
 import torch
 
-__all__ = ["no_tf32", "resolve_device"]
+__all__ = ["full_f32_matmul", "no_tf32", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -43,3 +44,26 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """float32 matrix products in full float32 inside the block.
+
+    ``torch.set_float32_matmul_precision("high")`` (or
+    ``torch.backends.cuda.matmul.allow_tf32 = True``) lets cuBLAS multiply
+    f32 in TF32, whose 10-bit mantissa moves the renderer's band edges.
+    Inside the block the precision is "highest"; on exit the caller's
+    setting comes back. At PyTorch's default ("highest") nothing is touched.
+    cuDNN's flag is left alone (`no_tf32` scopes that). Process-wide, like
+    `no_tf32`.
+    """
+    saved = torch.get_float32_matmul_precision()
+    if saved == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)

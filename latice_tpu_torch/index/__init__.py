@@ -1,5 +1,5 @@
-"""Search, consensus, the end-to-end pipeline, the dictionary database and
-the indexer around it."""
+"""Search, consensus, the end-to-end pipeline, the dictionary database, the
+indexer around it, and pattern-space dictionary indexing."""
 
 from latice_tpu_torch.index.chroma_db import ChromaLatentVectorDatabase
 from latice_tpu_torch.index.consensus import ConsensusOutput, consensus_orientations
@@ -24,6 +24,12 @@ from latice_tpu_torch.index.knn import (
     l2_normalize,
     quantize_dictionary_int8,
 )
+from latice_tpu_torch.index.pattern_di import (
+    PatternDictionaryIndexer,
+    StreamedPatternDI,
+    build_pattern_dictionary,
+    ncc_feature_fn,
+)
 from latice_tpu_torch.index.pipeline import DenseIndexResult, IndexPipeline, concat_dense_results
 from latice_tpu_torch.index.result import OrientationResult
 
@@ -40,7 +46,10 @@ __all__ = [
     "LatentVectorDatabaseBase",
     "LatentVectorDatabaseConfig",
     "OrientationResult",
+    "PatternDictionaryIndexer",
+    "StreamedPatternDI",
     "TorchLatentVectorDatabase",
+    "build_pattern_dictionary",
     "candidate_ambiguity",
     "concat_dense_results",
     "consensus_orientations",
@@ -50,6 +59,7 @@ __all__ = [
     "cosine_topk_int8",
     "cosine_topk_streamed",
     "l2_normalize",
+    "ncc_feature_fn",
     "parse_faiss_flat_blob",
     "quantize_dictionary_int8",
 ]

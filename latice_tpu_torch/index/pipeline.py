@@ -31,7 +31,16 @@ from latice_tpu_torch.index.knn import (
 )
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 
-__all__ = ["IndexPipeline", "DenseIndexResult", "concat_dense_results"]
+__all__ = [
+    "CandidateConsensus",
+    "DenseIndexResult",
+    "IndexPipeline",
+    "as_preprocess_fn",
+    "collect_results",
+    "concat_dense_results",
+    "device_batches",
+    "model_units",
+]
 
 
 class DenseIndexResult(NamedTuple):
@@ -73,7 +82,9 @@ class IndexPipeline:
         model: the port's VAE (`models.VariationalAutoEncoderRawData`); it
             is moved to ``device`` and put in eval mode. ``None`` with a
             ``feature_fn``.
-        dictionary_vectors: ``(N, D)`` L2-normalized latents.
+        dictionary_vectors: ``(N, D)`` L2-normalized rows: host numpy
+            (taken as f32), or a tensor, moved to ``device`` in its dtype
+            (a bf16 table stays bf16).
         dictionary_orientations: ``(N, 3)`` zxz Euler degrees.
         top_n / orientation_threshold / min_required_matches /
         max_iterations / angle_unit: consensus knobs (reference defaults
@@ -137,15 +148,7 @@ class IndexPipeline:
             raise ValueError(f"unknown search_dtype {search_dtype!r}")
         if mesh is not None:
             raise _later_slice("mesh")
-        if preprocess is not None and not callable(preprocess):
-            from latice_tpu_torch.data.preprocess import PreprocessConfig, make_preprocess_fn
-
-            if not isinstance(preprocess, PreprocessConfig):
-                raise TypeError(
-                    "preprocess must be a callable or a data.PreprocessConfig,"
-                    f" got {type(preprocess).__name__}"
-                )
-            preprocess = make_preprocess_fn(preprocess)
+        preprocess = as_preprocess_fn(preprocess)
         if feature_fn is None and model is None:
             raise ValueError("pass a model or a feature_fn")
         if feature_fn is not None and model is not None:
@@ -157,7 +160,13 @@ class IndexPipeline:
         self.preprocess = preprocess
         self.recall_target = recall_target
         self.model = None if model is None else model.to(self.device).eval()
-        vectors = torch.as_tensor(np.asarray(dictionary_vectors, np.float32), device=self.device)
+        if isinstance(dictionary_vectors, torch.Tensor):
+            # Taken in its dtype (a bf16 table stays bf16), without a host copy.
+            vectors = dictionary_vectors.to(self.device)
+        else:
+            vectors = torch.as_tensor(
+                np.asarray(dictionary_vectors, np.float32), device=self.device
+            )
         self._n = len(vectors)
         if engine == "int8":
             # Zero rows up to a multiple of 8 for the int8 tensor cores;
@@ -167,42 +176,23 @@ class IndexPipeline:
             vectors = vectors.to(torch.bfloat16)
         self._dict = vectors.contiguous()
         self._k = min(top_n, self._n)
-        self._threshold = orientation_threshold
-        self._min_matches = min_required_matches
-        self._max_iterations = min(max_iterations, self._k)
-        self._angle_unit = angle_unit
-        self._weight_power = consensus_weight_power
-
-        quats = from_euler_zxz_deg(
-            torch.as_tensor(np.asarray(dictionary_orientations, np.float32), device=self.device)
+        self.consensus = CandidateConsensus(
+            dictionary_orientations,
+            self.device,
+            dictionary_phases=dictionary_phases,
+            phase_symmetries=phase_symmetries,
+            orientation_threshold=orientation_threshold,
+            min_required_matches=min_required_matches,
+            max_iterations=min(max_iterations, self._k),
+            angle_unit=angle_unit,
+            consensus_weight_power=consensus_weight_power,
         )
-        self._sym_tables = None
-        self.n_phases = None
-        if dictionary_phases is not None:
-            phases = np.asarray(dictionary_phases, np.int32)
-            if phases.shape != (self._n,):
-                raise ValueError(f"dictionary_phases must be ({self._n},), got {phases.shape}")
-            self.n_phases = int(phases.max()) + 1 if self._n else 1
-            if phase_symmetries is None:
-                phase_symmetries = ["432"] * self.n_phases
-            if len(phase_symmetries) < self.n_phases:
-                raise ValueError(
-                    f"{self.n_phases} phase ids but only "
-                    f"{len(phase_symmetries)} phase_symmetries entries"
-                )
-            self._sym_tables = stack_symmetry_tables(phase_symmetries, device=self.device)
-            # The phase id rides as a 5th column so one row gather fetches both.
-            phase_col = torch.as_tensor(phases, dtype=torch.float32, device=self.device)
-            quats = torch.cat([quats, phase_col[:, None]], dim=1)
-        self._quats = quats
+        self.n_phases = self.consensus.n_phases
 
     def _encode(self, patterns: torch.Tensor) -> torch.Tensor:
         """``mu`` (or the ``feature_fn`` features) of ``(B, H, W)`` uint8 or
         f32 device patterns."""
-        if patterns.dtype == torch.uint8:
-            patterns = patterns.float() / 255.0
-        if self.preprocess is not None:
-            patterns = self.preprocess(patterns)
+        patterns = model_units(patterns, self.preprocess)
         if self.feature_fn is not None:
             return self.feature_fn(patterns)
         return self.model.encode(patterns[:, None])[0]
@@ -225,24 +215,145 @@ class IndexPipeline:
 
     def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
         scores, indices = self._search(self._encode(patterns))
-        cand_rows = self._quats[indices]
+        return self.consensus(scores, indices)
+
+    def _batches(self, patterns: np.ndarray):
+        return device_batches(patterns, self.batch_size, self.device)
+
+    @torch.inference_mode()
+    def encode(self, patterns: np.ndarray) -> np.ndarray:
+        """``(B, D)`` f32 latents of ``(B, H, W[, 1])`` patterns."""
+        pending = [(n, self._encode(chunk)) for n, chunk in self._batches(patterns)]
+        if not pending:
+            return np.zeros((0, self._dict.shape[1]), np.float32)
+        return np.concatenate([mu[:n].cpu().numpy() for n, mu in pending])
+
+    @torch.inference_mode()
+    def __call__(self, patterns: np.ndarray) -> DenseIndexResult:
+        """Index a stack of ``(B, H, W[, 1])`` uint8 or float patterns."""
+        pending = [(n, self._run(chunk)) for n, chunk in self._batches(patterns)]
+        return collect_results(pending, self._k, self.n_phases is not None)
+
+
+def as_preprocess_fn(preprocess):
+    """``preprocess`` as a function of a ``(B, H, W)`` device batch: None
+    and callables as they are, a `data.PreprocessConfig` compiled by
+    `data.make_preprocess_fn`; anything else raises ``TypeError``."""
+    if preprocess is None or callable(preprocess):
+        return preprocess
+    from latice_tpu_torch.data.preprocess import PreprocessConfig, make_preprocess_fn
+
+    if not isinstance(preprocess, PreprocessConfig):
+        raise TypeError(
+            "preprocess must be a callable or a data.PreprocessConfig,"
+            f" got {type(preprocess).__name__}"
+        )
+    return make_preprocess_fn(preprocess)
+
+
+def model_units(patterns: torch.Tensor, preprocess=None) -> torch.Tensor:
+    """A device batch as the model or a feature map takes it: integers
+    (uint8 detector frames) divided by 255 on the device, then the optional
+    ``preprocess``."""
+    if not torch.is_floating_point(patterns):
+        patterns = patterns.float() / 255.0
+    if preprocess is not None:
+        patterns = preprocess(patterns)
+    return patterns
+
+
+def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
+    """``(n_real, device batch)`` pairs of a ``(B, H, W[, 1])`` host stack,
+    each batch zero-padded to ``batch_size`` rows; uint8 stays uint8 (the
+    device divides it by 255), other dtypes become float32."""
+    x = np.asarray(patterns)
+    if x.dtype != np.uint8:
+        x = x.astype(np.float32, copy=False)
+    if x.ndim == 4 and x.shape[-1] == 1:
+        x = x[..., 0]
+    if x.ndim != 3:
+        raise ValueError(f"expected (B, H, W) or (B, H, W, 1) patterns, got {x.shape}")
+    for n, chunk in padded_batches(x, batch_size):
+        host = torch.from_numpy(np.ascontiguousarray(chunk))
+        if device.type == "cuda":
+            # Pinned, so the copy is queued and the host moves on to
+            # enqueue the next batch.
+            host = host.pin_memory()
+        yield n, host.to(device, non_blocking=True)
+
+
+class CandidateConsensus:
+    """The consensus stage over one dictionary's orientations, on one device.
+
+    Holds the rows' unit quaternions (from their zxz Euler degrees; with
+    phases, the phase id rides as a 5th column so one row gather fetches
+    both) and each phase's symmetry table (cubic unless named). Called with
+    a batch's best-first ``(B, k)`` candidate scores and dictionary rows, it
+    returns the batch's device outputs: the consensus mean, the best
+    orientation (the top-1 on failure), success, the count of similar
+    candidates, the indices and scores, and with phases the phase. The
+    knobs are `IndexPipeline`'s.
+    """
+
+    def __init__(
+        self,
+        dictionary_orientations,
+        device: torch.device,
+        dictionary_phases=None,
+        phase_symmetries=None,
+        orientation_threshold: float = 3.0,
+        min_required_matches: int = 18,
+        max_iterations: int = 3,
+        angle_unit: str = "deg",
+        consensus_weight_power: float | None = None,
+    ) -> None:
+        quats = from_euler_zxz_deg(
+            torch.as_tensor(np.asarray(dictionary_orientations, np.float32), device=device)
+        )
+        self.sym_tables = None
+        self.n_phases = None
+        if dictionary_phases is not None:
+            n = len(quats)
+            phases = np.asarray(dictionary_phases, np.int32)
+            if phases.shape != (n,):
+                raise ValueError(f"dictionary_phases must be ({n},), got {phases.shape}")
+            self.n_phases = int(phases.max()) + 1 if n else 1
+            if phase_symmetries is None:
+                phase_symmetries = ["432"] * self.n_phases
+            if len(phase_symmetries) < self.n_phases:
+                raise ValueError(
+                    f"{self.n_phases} phase ids but only "
+                    f"{len(phase_symmetries)} phase_symmetries entries"
+                )
+            self.sym_tables = stack_symmetry_tables(phase_symmetries, device=device)
+            phase_col = torch.as_tensor(phases, dtype=torch.float32, device=device)
+            quats = torch.cat([quats, phase_col[:, None]], dim=1)
+        self.quats = quats
+        self.threshold = orientation_threshold
+        self.min_matches = min_required_matches
+        self.max_iterations = max_iterations
+        self.angle_unit = angle_unit
+        self.weight_power = consensus_weight_power
+
+    def __call__(self, scores: torch.Tensor, indices: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        cand_rows = self.quats[indices]
         cand_quats = cand_rows[..., :4]
         cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)
         cand_weights = None
-        if self._weight_power is not None:
+        if self.weight_power is not None:
             # Normalize by the row max before powering: raw s**p flushes to
             # zero in f32 for p=256 at s below ~0.71.
             pos = torch.clamp(scores, min=0.0)
             top = torch.clamp(pos.max(dim=-1, keepdim=True).values, min=1e-30)
-            cand_weights = (pos / top) ** self._weight_power
+            cand_weights = (pos / top) ** self.weight_power
         cons = consensus_orientations(
             cand_quats,
-            self._threshold,
-            min_required_matches=self._min_matches,
-            max_iterations=self._max_iterations,
-            angle_unit=self._angle_unit,
+            self.threshold,
+            min_required_matches=self.min_matches,
+            max_iterations=self.max_iterations,
+            angle_unit=self.angle_unit,
             cand_phases=cand_phases,
-            sym_tables=self._sym_tables,
+            sym_tables=self.sym_tables,
             cand_weights=cand_weights,
         )
         # Failure fallback: the top-1 candidate, in canonical scipy ranges.
@@ -260,56 +371,31 @@ class IndexPipeline:
             out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
         return out
 
-    def _batches(self, patterns: np.ndarray):
-        """``(n_real, device batch)`` pairs of a host stack."""
-        x = np.asarray(patterns)
-        if x.dtype != np.uint8:
-            x = x.astype(np.float32, copy=False)
-        if x.ndim == 4 and x.shape[-1] == 1:
-            x = x[..., 0]
-        if x.ndim != 3:
-            raise ValueError(f"expected (B, H, W) or (B, H, W, 1) patterns, got {x.shape}")
-        for n, chunk in padded_batches(x, self.batch_size):
-            host = torch.from_numpy(np.ascontiguousarray(chunk))
-            if self.device.type == "cuda":
-                # Pinned, so the copy is queued and the host moves on to
-                # enqueue the next batch.
-                host = host.pin_memory()
-            yield n, host.to(self.device, non_blocking=True)
 
-    @torch.inference_mode()
-    def encode(self, patterns: np.ndarray) -> np.ndarray:
-        """``(B, D)`` f32 latents of ``(B, H, W[, 1])`` patterns."""
-        pending = [(n, self._encode(chunk)) for n, chunk in self._batches(patterns)]
-        if not pending:
-            return np.zeros((0, self._dict.shape[1]), np.float32)
-        return np.concatenate([mu[:n].cpu().numpy() for n, mu in pending])
-
-    @torch.inference_mode()
-    def __call__(self, patterns: np.ndarray) -> DenseIndexResult:
-        """Index a stack of ``(B, H, W[, 1])`` uint8 or float patterns."""
-        pending = [(n, self._run(chunk)) for n, chunk in self._batches(patterns)]
-        if not pending:
-            k = self._k
-            return DenseIndexResult(
-                mean_orientation=np.zeros((0, 3), np.float64),
-                best_orientation=np.zeros((0, 3), np.float64),
-                success=np.zeros((0,), bool),
-                n_similar=np.zeros((0,), np.int64),
-                indices=np.zeros((0, k), np.int64),
-                scores=np.zeros((0, k), np.float64),
-                phase=None if self.n_phases is None else np.zeros((0,), np.int64),
-            )
-        outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
-        mean, best, success, n_sim, indices, scores, *extra = (
-            np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
-        )
+def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:
+    """One `DenseIndexResult` from ``(n_real, device outputs)`` per batch
+    (`CandidateConsensus`'s tuples), copied to the host only here, so
+    every batch is enqueued before the first copy."""
+    if not pending:
         return DenseIndexResult(
-            mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
-            best_orientation=best.astype(np.float64),
-            success=success.astype(bool),
-            n_similar=n_sim.astype(np.int64),
-            indices=indices.astype(np.int64),
-            scores=scores.astype(np.float64),
-            phase=extra[0].astype(np.int64) if extra else None,
+            mean_orientation=np.zeros((0, 3), np.float64),
+            best_orientation=np.zeros((0, 3), np.float64),
+            success=np.zeros((0,), bool),
+            n_similar=np.zeros((0,), np.int64),
+            indices=np.zeros((0, k), np.int64),
+            scores=np.zeros((0, k), np.float64),
+            phase=np.zeros((0,), np.int64) if multiphase else None,
         )
+    outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
+    mean, best, success, n_sim, indices, scores, *extra = (
+        np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
+    )
+    return DenseIndexResult(
+        mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
+        best_orientation=best.astype(np.float64),
+        success=success.astype(bool),
+        n_similar=n_sim.astype(np.int64),
+        indices=indices.astype(np.int64),
+        scores=scores.astype(np.float64),
+        phase=extra[0].astype(np.int64) if extra else None,
+    )

@@ -10,17 +10,23 @@ The port of the ``/index``, ``/encode`` and ``/reload`` planes of
 * all requests go through one lock: one device runs one batch at a time,
   and the pipeline batches and pads internally;
 * ``POST /reload`` hot-swaps the model: the new pipeline is built outside
-  the lock while the old one serves, then swapped in under it.
+  the lock while the old one serves, then swapped in under it;
+* pattern-DI mode (``di_dictionary``) serves ``/index`` by NCC against a
+  raw dictionary stack (`index.PatternDictionaryIndexer`), with no model;
+* with ``nlpar_h``, a 4-D ``(R, C, H, W)`` body is a scan, NLPAR-denoised
+  (`data.nlpar_denoise`) before it is indexed row by row.
 
 Endpoints:
-  GET  /healthz -> {"status": "ok", "count": N, "dimension": D,
-                    "model_version": V, ...}
-  POST /index   -> body: .npy of (N, H, W[, 1]) patterns;
-                   reply: {"orientations": ..., "success": ..., "n": ...}
-  POST /encode  -> body: .npy patterns; reply: {"latents": ...}
-  POST /reload  -> body: {"checkpoint": path}; 400 without a loader, without
-                   the key or for a path outside the checkpoint root, 500
-                   when the load fails
+  GET  /healthz -> {"status": "ok", "mode": "latent" | "pattern-di",
+                    "count": N, "dimension": D, "model_version": V, ...}
+  POST /index   -> body: .npy of (N, H, W[, 1]) patterns, or an (R, C, H, W)
+                   scan with nlpar_h; reply: {"orientations": ...,
+                   "success": ..., "n": ...} (and "scan_grid" for a scan)
+  POST /encode  -> body: .npy patterns; reply: {"latents": ...}; 400 in
+                   pattern-DI mode
+  POST /reload  -> body: {"checkpoint": path}; 400 without a loader, in
+                   pattern-DI mode, without the key or for a path outside
+                   the checkpoint root, 500 when the load fails
 
 Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
 ``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
@@ -40,8 +46,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from latice_tpu_torch.data import prepare_patterns
-from latice_tpu_torch.index import IndexPipeline
+from latice_tpu_torch.data import nlpar_denoise, prepare_patterns
+from latice_tpu_torch.data.transforms import _int_scale
+from latice_tpu_torch.index import IndexPipeline, PatternDictionaryIndexer
+from latice_tpu_torch.index.pipeline import as_preprocess_fn
 
 logger = logging.getLogger(__name__)
 
@@ -52,14 +60,15 @@ class IndexService:
     """Thread-safe indexing facade over a pipeline and its encoder.
 
     Args:
-        model: the port's VAE with its weights.
-        db: a loaded `index.TorchLatentVectorDatabase`.
+        model: the port's VAE with its weights; ``None`` in pattern-DI mode.
+        db: a loaded `index.TorchLatentVectorDatabase`; ``None`` in
+            pattern-DI mode.
         top_n / orientation_threshold / min_required_matches: consensus knobs.
         batch_size: rows per device batch.
         image_size: pattern height and width after the default transform.
         max_body_bytes: bodies above this are refused with 413 (1 GiB).
         engine: "exact", "fused", "approx" or "int8" (see
-            `index.IndexPipeline`).
+            `index.IndexPipeline`; pattern DI refuses "fused").
         preprocess: optional pattern correction run before the encoder by
             ``/index`` and ``/encode`` alike: a callable on ``(B, H, W)``
             float32 device patterns or a `data.PreprocessConfig`.
@@ -67,12 +76,23 @@ class IndexService:
             `reload` and ``POST /reload``.
         checkpoint_root: optional directory that reload targets must lie
             under (relative paths are taken from it).
+        nlpar_h: optional NLPAR smoothing strength: a 4-D ``(R, C, H, W)``
+            ``/index`` body is then a scan, scaled to model units by its
+            integer dtype, denoised and indexed row by row (3-D bodies index
+            unchanged). Hot pixels are repaired first at the preprocess
+            recipe's threshold, when it has one.
+        nlpar_radius: NLPAR search-window half-width (1 = 3x3).
+        di_dictionary: optional ``(patterns, angles)`` or ``(patterns,
+            angles, phases, groups)``: pattern-DI mode, ``/index`` by NCC
+            against the raw stack, with ``model=None, db=None``; ``/encode``
+            and ``/reload`` answer 400.
+        di_bin: DI mean-pool factor (dictionary and queries).
         device: ``cuda`` unless given; a missing CUDA device raises.
     """
 
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: torch.nn.Module | None,
         db,
         top_n: int = 20,
         orientation_threshold: float = 3.0,
@@ -84,17 +104,28 @@ class IndexService:
         preprocess=None,
         param_loader=None,
         checkpoint_root: str | None = None,
+        nlpar_h: float | None = None,
+        nlpar_radius: int = 1,
+        di_dictionary: tuple | None = None,
+        di_bin: int = 1,
         device: str | torch.device | None = None,
     ) -> None:
+        if di_dictionary is None and (model is None or db is None):
+            raise ValueError("pass model and db, or di_dictionary for pattern-DI mode")
         phase_kw = {}
-        if db._has_phases:
+        if di_dictionary is not None:
+            if len(di_dictionary) == 4 and di_dictionary[2] is not None:
+                phase_kw = dict(
+                    dictionary_phases=di_dictionary[2], phase_symmetries=di_dictionary[3]
+                )
+        elif db._has_phases:
             phase_kw = dict(
                 dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
             )
-        if preprocess is not None and not callable(preprocess):
-            from latice_tpu_torch.data.preprocess import make_preprocess_fn
-
-            preprocess = make_preprocess_fn(preprocess)
+        # Taken before the recipe is compiled: scan-mode NLPAR repairs hot
+        # pixels before averaging.
+        self._nlpar_hot_threshold = getattr(preprocess, "hot_pixel_threshold", None)
+        preprocess = as_preprocess_fn(preprocess)
         self._pipeline_kw = dict(
             top_n=top_n,
             orientation_threshold=orientation_threshold,
@@ -106,18 +137,26 @@ class IndexService:
             **phase_kw,
         )
         self._db = db
+        self._di = di_dictionary
+        self._di_bin = int(di_bin)
         self.pipeline = self._build_pipeline(model)
         self.image_size = tuple(image_size)
         self.max_body_bytes = int(max_body_bytes)
         self._param_loader = param_loader
         self.checkpoint_root = checkpoint_root
+        self.nlpar_h = None if nlpar_h is None else float(nlpar_h)
+        self.nlpar_radius = int(nlpar_radius)
         self.model_version = 0
         self._lock = threading.Lock()
         self.started = time.time()
         self.requests = 0
         self.patterns_indexed = 0
 
-    def _build_pipeline(self, model: torch.nn.Module) -> IndexPipeline:
+    def _build_pipeline(self, model: torch.nn.Module | None):
+        if self._di is not None:
+            return PatternDictionaryIndexer(
+                self._di[0], self._di[1], bin_factor=self._di_bin, **self._pipeline_kw
+            )
         return IndexPipeline(model, self._db._vectors, self._db._orientations, **self._pipeline_kw)
 
     def _confine(self, checkpoint: str) -> str:
@@ -136,6 +175,8 @@ class IndexService:
         """Hot-swap the model from ``checkpoint`` without dropping requests:
         the new pipeline is built while the old one keeps serving, then
         swapped in under the lock, and ``model_version`` goes up."""
+        if self._di is not None:
+            raise ValueError("this server runs pattern DI: it has no model to reload")
         if self._param_loader is None:
             raise ValueError("service was started without a param_loader")
         checkpoint = self._confine(checkpoint)
@@ -165,8 +206,37 @@ class IndexService:
         logger.info(f"warmup ran the served paths in {dt:.1f}s")
         return dt
 
+    def _denoise_scan(self, scan: np.ndarray) -> np.ndarray:
+        """An ``(R, C, H, W)`` body NLPAR-denoised, as ``(R*C, H, W)``
+        float32 in model units."""
+        if self.nlpar_h is None:
+            raise ValueError(
+                "4-D (R, C, H, W) scan bodies need the server to run with --nlpar; "
+                "POST a 3-D (N, H, W) stack instead"
+            )
+        if scan.shape[-2:] != self.image_size:
+            raise ValueError(
+                f"scan patterns are {scan.shape[-2]}x{scan.shape[-1]} but this server "
+                f"indexes {self.image_size[0]}x{self.image_size[1]}"
+            )
+        # NLPAR returns float32, so the pipeline's uint8 /255 would not fire:
+        # integer scans are scaled here as prepare_patterns scales them.
+        x = scan.astype(np.float32)
+        if np.issubdtype(scan.dtype, np.integer):
+            x *= _int_scale(scan.dtype)
+        return nlpar_denoise(
+            x, search_radius=self.nlpar_radius, h=self.nlpar_h,
+            hot_pixel_threshold=self._nlpar_hot_threshold, device=self.pipeline.device,
+        ).reshape(-1, *self.image_size)
+
     def index(self, patterns: np.ndarray) -> dict:
-        """Index a pattern stack; returns a JSON-ready dict."""
+        """Index a pattern stack, or with ``nlpar_h`` an ``(R, C, H, W)``
+        scan; returns a JSON-ready dict."""
+        scan_grid = None
+        arr = np.asarray(patterns)
+        if arr.ndim == 4 and arr.shape[-1] not in (1, 3):
+            scan_grid = arr.shape[:2]
+            patterns = self._denoise_scan(arr)
         x = prepare_patterns(patterns, self.image_size)
         t0 = time.time()
         with self._lock:
@@ -190,10 +260,14 @@ class IndexService:
         }
         if res.phase is not None:
             out["phase"] = res.phase.tolist()
+        if scan_grid is not None:
+            out["scan_grid"] = [int(scan_grid[0]), int(scan_grid[1])]
         return out
 
     def encode(self, patterns: np.ndarray) -> dict:
         """Encode patterns to ``mu`` latents; returns a JSON-ready dict."""
+        if self._di is not None:
+            raise ValueError("this server runs pattern DI (no encoder); POST /index")
         x = prepare_patterns(patterns, self.image_size)
         with self._lock:
             lat = self.pipeline.encode(x)
@@ -201,15 +275,23 @@ class IndexService:
         return {"n": int(len(x)), "latents": lat.tolist()}
 
     def health(self) -> dict:
+        if self._di is not None:
+            mode, count = "pattern-di", len(self._di[1])
+            dimension = self.pipeline.pipeline._dict.shape[1]
+            multiphase = len(self._di) == 4 and self._di[2] is not None
+        else:
+            mode, count = "latent", self._db.get_count()
+            dimension, multiphase = self._db.dimension, self._db._has_phases
+        pipe = self.pipeline.pipeline if self._di is not None else self.pipeline
         return {
             "status": "ok",
-            "mode": "latent",
-            "count": int(self._db.get_count()),
-            "dimension": int(self._db.dimension),
-            "platform": self.pipeline.device.type,
-            "engine": self.pipeline.engine,
-            "batch_size": int(self.pipeline.batch_size),
-            "multiphase": bool(self._db._has_phases),
+            "mode": mode,
+            "count": int(count),
+            "dimension": int(dimension),
+            "platform": pipe.device.type,
+            "engine": pipe.engine,
+            "batch_size": int(pipe.batch_size),
+            "multiphase": bool(multiphase),
             "planes": ["index"],
             "model_version": self.model_version,
             "uptime_s": time.time() - self.started,

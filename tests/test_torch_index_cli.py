@@ -121,9 +121,7 @@ def test_build_export_query_match_jax(files, monkeypatch, capsys):
 @pytest.mark.parametrize(
     "flags, match",
     [
-        (["--refine", "10"], "slice D"),
         (["--hough-iq"], "slice D"),
-        (["--nlpar", "2.0"], "slice D"),
         (["--preprocess", "static=auto", "--patterns", "scan.h5"], "static=auto on HDF5"),
         (["--patterns", "scan.h5"], "slice E"),
         (["--patterns", "scan.up1"], "slice E"),
@@ -134,6 +132,30 @@ def test_later_slice_flags_raise(files, capsys, flags, match):
             str(files / "missing.npz"), "--device", "cpu"] + SMALL + flags
     with pytest.raises(SystemExit, match=match):
         _run_port(argv, capsys)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--refine", "10"], ["--nlpar", "2.0", "--scan-grid", "4", "6"]],
+    ids=["refine", "nlpar"],
+)
+def test_ported_query_flags_index(files, tmp_path, capsys, flags):
+    """``--refine`` and ``--nlpar``, once refused, index: ``--refine``
+    through the forward model the npz's simulate provenance names."""
+    meta = {"structure": "fcc", "lattice": 3.52, "lattice_c": None, "kv": 20.0, "size": 128,
+            "pc": [0.5, 0.5, 0.7], "tilt": 0.0, "max_hkl": 2, "min_d": 1.0}
+    pats = tmp_path / "dict.npy"
+    pats.write_bytes((files / "dict.npy").read_bytes())
+    (tmp_path / "dict.npy.simmeta.json").write_text(json.dumps(meta))
+    db = str(tmp_path / "db.npz")
+    _run_port(["build", "--patterns", str(pats), "--angles", str(files / "dict.txt"), "--db", db,
+               "--device", "cpu"] + SMALL, capsys)
+    out = str(tmp_path / "o.npy")
+    summary = _summary(_run_port(["query", "--patterns", str(pats), "--db", db, "--out", out,
+                                  "--top-n", "3", "--min-matches", "1", "--device", "cpu"]
+                                 + SMALL + flags, capsys))
+    assert summary["n_patterns"] == N and np.load(out).shape == (N, 3)
+    assert ("refine_steps" in summary) == ("--refine" in flags)
 
 
 def test_devices_and_engines(files, capsys, monkeypatch, caplog):

@@ -92,6 +92,39 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_checkpoint("/nonexistent/vae.pt")
 
+    from latice_tpu_torch.data import estimate_noise_sigma, nlpar_denoise
+    from latice_tpu_torch.index import (
+        PatternDictionaryIndexer,
+        StreamedPatternDI,
+        build_pattern_dictionary,
+    )
+    from latice_tpu_torch.sim import refine_candidates, refine_orientations, simulate_patterns
+
+    pats, quats = np.zeros((4, 16, 16), np.float32), np.tile([1.0, 0, 0, 0], (4, 1))
+    for call in (
+        lambda: simulate_patterns(quats),
+        lambda: refine_orientations(pats, quats),
+        lambda: refine_candidates(pats, quats[:, None]),
+        lambda: nlpar_denoise(pats.reshape(2, 2, 16, 16)),
+        lambda: estimate_noise_sigma(pats.reshape(2, 2, 16, 16)),
+        lambda: build_pattern_dictionary(pats),
+        lambda: PatternDictionaryIndexer(pats, orients),
+        lambda: StreamedPatternDI(pats.reshape(4, -1), orients),
+        lambda: IndexService(None, None, di_dictionary=(pats, orients)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+    from latice_tpu_torch.cli.index import main as index_main
+
+    for argv in (
+        ["sample", "--out", "/nonexistent/grid.txt"],
+        ["simulate", "--angles", "/nonexistent/grid.txt"],
+        ["di", "--dict-patterns", "d.npy", "--dict-angles", "a.txt", "--patterns", "p.npy"],
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            index_main(argv)
+
 
 def test_kernel_wrappers_never_run_plain_off_the_cpu():
     """A tensor that is not on the CPU goes to the kernel or raises; the
@@ -124,8 +157,7 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 def test_unported_options_raise():
     """What the port still refuses: ``mesh`` (slice C), the DB's ``native``
-    engine (slice E) and the query CLI's ``--nlpar``, ``--refine`` and
-    ``--hough-iq`` (slice D)."""
+    engine (slice E) and the query CLI's ``--hough-iq`` (slice D)."""
     from latice_tpu_torch import (
         IndexPipeline,
         LatentVectorDatabaseConfig,
@@ -141,11 +173,30 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="later slice"):
         TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
     query = ["query", "--patterns", "p.npy", "--db", "none.npz", "--device", "cpu"]
-    for flags in (["--nlpar", "2.0"], ["--refine", "10"], ["--hough-iq"]):
-        with pytest.raises(SystemExit, match="later slice"):
-            index_main(query + flags)
+    with pytest.raises(SystemExit, match="later slice"):
+        index_main(query + ["--hough-iq"])
     with pytest.raises(ValueError, match="unknown engine"):
         IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
+
+
+def _query_with(flags, tmp_path):
+    """``cli.index query`` with ``flags`` over a 4-pattern kinematical
+    dictionary (its simulate provenance beside it) at inplanes 2; the
+    orientations it saves."""
+    from latice_tpu_torch.cli.index import main as index_main
+
+    angles = tmp_path / "a.txt"
+    angles.write_text("eu\n4\n10 20 30\n40 50 60\n70 80 20\n15 35 55\n")
+    pats = str(tmp_path / "d.npy")
+    small = ["--inplanes", "2", "--latent-dim", "4", "--batch-size", "4", "--device", "cpu"]
+    index_main(["simulate", "--angles", str(angles), "--out", pats, "--max-hkl", "2",
+                "--min-d", "1.0", "--device", "cpu"])
+    db = str(tmp_path / "db.npz")
+    index_main(["build", "--patterns", pats, "--angles", str(angles), "--db", db] + small)
+    out = str(tmp_path / "o.npy")
+    index_main(["query", "--patterns", pats, "--db", db, "--out", out, "--top-n", "2",
+                "--min-matches", "1"] + small + flags)
+    return np.load(out)
 
 
 @pytest.mark.parametrize(
@@ -156,15 +207,24 @@ def test_unported_options_raise():
         dict(search_dtype="bfloat16"),
         dict(preprocess=lambda x: x),
         dict(preprocess="config"),
+        dict(query=["--nlpar", "2.0", "--scan-grid", "2", "2"]),
+        dict(query=["--refine", "3"]),
     ],
-    ids=["approx", "int8", "bfloat16", "preprocess_callable", "preprocess_config"],
+    ids=["approx", "int8", "bfloat16", "preprocess_callable", "preprocess_config",
+         "query_nlpar", "query_refine"],
 )
-def test_ported_options_accepted(kw):
-    """The engines, bf16 search and preprocessing of this slice build and
-    index on the CPU."""
+def test_ported_options_accepted(kw, tmp_path, capsys):
+    """The engines, bf16 search and preprocessing build and index on the
+    CPU, and the query CLI's ``--nlpar`` and ``--refine`` index."""
     from latice_tpu_torch import IndexPipeline, VariationalAutoEncoderRawData
     from latice_tpu_torch.data import PreprocessConfig
 
+    if "query" in kw:
+        with torch.random.fork_rng(devices=[]):
+            got = _query_with(kw["query"], tmp_path)
+        capsys.readouterr()
+        assert got.shape == (4, 3) and np.isfinite(got).all()
+        return
     if kw.get("preprocess") == "config":
         kw = dict(preprocess=PreprocessConfig(hot_pixel_threshold=5.0, normalize="minmax"))
     with torch.random.fork_rng(devices=[]):
