@@ -15,10 +15,11 @@ distance exceeds the noise floor and the weight falls to ~0. The weighting:
 
 so ``h`` is in units of noise standard deviations.
 
-The scan goes to the device in row slabs of about 256 MB with halo rows
-(1 for the noise pass, r for the average), so the whole float scan never
-has to fit there; each neighbour distance is a multiply-reduce between two
-shifted views of the slab. Neighbours outside the scan are masked, not
+The scan goes to the device in row slabs of about 256 MB with r + 1 halo
+rows, so the whole float scan never has to fit there: each slab crosses
+once and serves both passes (the noise estimate of its rows and of the r
+halo rows, then the average of its rows). Each neighbour distance is a
+multiply-reduce between two shifted views of the slab. Neighbours outside the scan are masked, not
 padded, so border noise estimates never see self-copies; an isolated point
 (a 1x1 scan) gets sigma² = 0 and keeps its own pattern. The last slab runs
 at its own height (the JAX package zero-pads it to one static shape); the
@@ -95,17 +96,26 @@ def _nlpar_slab(xp, s2p, maskp, hh: float, radius: int, n_pixels: int) -> torch.
 class _Slabs:
     """Row slabs of a ``(R, C, n)`` host scan on the device, zero outside
     the scan, with their validity masks; patterns are hot-pixel repaired
-    (`data.preprocess.fix_hot_pixels`) as they arrive, when asked."""
+    (`data.preprocess.fix_hot_pixels`) as they arrive, when asked. On a
+    CUDA device every copy, up and back, goes through one pinned buffer of
+    ``max_rows`` scan rows, so it runs at the link's rate."""
 
-    def __init__(self, flat: np.ndarray, shape_hw, hot_pixel_threshold, device):
+    def __init__(self, flat: np.ndarray, shape_hw, hot_pixel_threshold, device, max_rows: int):
         self.flat, self.hw, self.device = flat, shape_hw, device
         self.threshold = hot_pixel_threshold
+        self.stage = None
+        if device.type == "cuda":
+            rows = min(max_rows, flat.shape[0])
+            self.stage = torch.empty((rows, *flat.shape[1:]), pin_memory=True)
 
     def get(self, row0: int, rows: int, halo: int) -> tuple[torch.Tensor, torch.Tensor]:
         r_, c_, n = self.flat.shape
         lo, hi = max(row0 - halo, 0), min(row0 + rows + halo, r_)
         top = lo - (row0 - halo)
-        part = torch.from_numpy(self.flat[lo:hi]).to(self.device)
+        part = torch.from_numpy(self.flat[lo:hi])
+        if self.stage is not None:
+            part = self.stage[: hi - lo].copy_(part)
+        part = part.to(self.device)
         if self.threshold is not None:
             from latice_tpu_torch.data.preprocess import fix_hot_pixels
 
@@ -116,6 +126,12 @@ class _Slabs:
         maskp = torch.zeros(xp.shape[:2], device=self.device)
         maskp[top : top + hi - lo, halo : halo + c_] = 1.0
         return xp, maskp
+
+    def put(self, out: np.ndarray, row0: int, rows: torch.Tensor) -> None:
+        """Copy the device rows ``rows`` to ``out[row0:]`` on the host."""
+        if self.stage is not None:
+            rows = self.stage[: len(rows)].copy_(rows)
+        out[row0 : row0 + len(rows)] = rows.numpy()
 
 
 def _default_chunk_rows(cols: int, n: int) -> int:
@@ -143,9 +159,10 @@ def estimate_noise_sigma(
     dev = resolve_device(device)
     r_, c_, h_, w_ = x.shape
     n = h_ * w_
-    slabs = _Slabs(x.reshape(r_, c_, n), (h_, w_), None, dev)
+    step = max(1, min(_default_chunk_rows(c_, n), r_))
+    slabs = _Slabs(x.reshape(r_, c_, n), (h_, w_), None, dev, step + 2)
     with torch.no_grad():
-        s2 = _sigma2(slabs, r_, max(1, min(_default_chunk_rows(c_, n), r_)), n)
+        s2 = _sigma2(slabs, r_, step, n)
     return np.sqrt(s2.cpu().numpy())
 
 
@@ -185,15 +202,18 @@ def nlpar_denoise(
     r_, c_, h_, w_ = x.shape
     n = h_ * w_
     rad = search_radius
-    slabs = _Slabs(x.reshape(r_, c_, n), (h_, w_), hot_pixel_threshold, dev)
     step = max(1, min(chunk_rows or _default_chunk_rows(c_, n), r_))
+    slabs = _Slabs(x.reshape(r_, c_, n), (h_, w_), hot_pixel_threshold, dev, step + 2 * rad + 2)
     hh = float(np.float32(h) * np.float32(h))
     out = np.empty((r_, c_, n), np.float32)
     with torch.no_grad():
-        s2p = torch.nn.functional.pad(_sigma2(slabs, r_, step, n), (rad, rad, rad, rad))
         for row0 in range(0, r_, step):
             rows = min(step, r_ - row0)
-            xp, maskp = slabs.get(row0, rows, rad)
-            s2_slab = s2p[row0 : row0 + rows + 2 * rad]
-            out[row0 : row0 + rows] = _nlpar_slab(xp, s2_slab, maskp, hh, rad, n).cpu().numpy()
+            # sigma² of the r-haloed slab needs one more row and column each
+            # side; it is zero outside the scan, as the JAX package pads it.
+            xp, maskp = slabs.get(row0, rows, rad + 1)
+            inner = maskp[1:-1, 1:-1]
+            s2p = _sigma2_slab(xp, maskp, n) * inner
+            res = _nlpar_slab(xp[1:-1, 1:-1], s2p, inner, hh, rad, n)
+            slabs.put(out, row0, res)
     return out.reshape(r_, c_, h_, w_)

@@ -94,19 +94,15 @@ def build_pattern_dictionary(
             (for `StreamedPatternDI` or to persist); False keeps them on the
             device, which skips the round trip.
         dtype: ``torch.float32`` or ``torch.bfloat16`` (half the residency).
-        device: where the features are computed: the patterns' device when
-            they are a tensor, else ``cuda`` unless given.
+        device: where the features are computed, ``cuda`` unless given
+            (tensor input too); a missing CUDA device raises.
 
     Returns:
         ``(N, D)`` unit-norm, zero-mean rows: numpy with ``as_numpy`` (a CPU
         tensor for bf16, which numpy has no type for), else a device tensor.
     """
-    if isinstance(patterns, torch.Tensor):
-        dev = patterns.device if device is None else resolve_device(device)
-        x = patterns
-    else:
-        dev = resolve_device(device)
-        x = np.asarray(patterns)
+    dev = resolve_device(device)
+    x = patterns if isinstance(patterns, torch.Tensor) else np.asarray(patterns)
     if x.ndim == 4 and x.shape[-1] == 1:
         x = x[..., 0]
     if x.ndim != 3:
@@ -215,6 +211,15 @@ class PatternDictionaryIndexer:
     @property
     def device(self) -> torch.device:
         return self.pipeline.device
+
+    @property
+    def engine(self) -> str:
+        return self.pipeline.engine
+
+    @property
+    def dimension(self) -> int:
+        """Features per row: ``H*W / bin_factor**2``."""
+        return int(self.pipeline._dict.shape[1])
 
 
 class StreamedPatternDI:

@@ -276,21 +276,19 @@ class IndexService:
 
     def health(self) -> dict:
         if self._di is not None:
-            mode, count = "pattern-di", len(self._di[1])
-            dimension = self.pipeline.pipeline._dict.shape[1]
+            mode, count, dimension = "pattern-di", len(self._di[1]), self.pipeline.dimension
             multiphase = len(self._di) == 4 and self._di[2] is not None
         else:
             mode, count = "latent", self._db.get_count()
             dimension, multiphase = self._db.dimension, self._db._has_phases
-        pipe = self.pipeline.pipeline if self._di is not None else self.pipeline
         return {
             "status": "ok",
             "mode": mode,
             "count": int(count),
             "dimension": int(dimension),
-            "platform": pipe.device.type,
-            "engine": pipe.engine,
-            "batch_size": int(pipe.batch_size),
+            "platform": self.pipeline.device.type,
+            "engine": self.pipeline.engine,
+            "batch_size": int(self.pipeline.batch_size),
             "multiphase": bool(multiphase),
             "planes": ["index"],
             "model_version": self.model_version,

@@ -108,6 +108,7 @@ def test_entry_points_default_to_cuda():
         lambda: nlpar_denoise(pats.reshape(2, 2, 16, 16)),
         lambda: estimate_noise_sigma(pats.reshape(2, 2, 16, 16)),
         lambda: build_pattern_dictionary(pats),
+        lambda: build_pattern_dictionary(torch.from_numpy(pats)),
         lambda: PatternDictionaryIndexer(pats, orients),
         lambda: StreamedPatternDI(pats.reshape(4, -1), orients),
         lambda: IndexService(None, None, di_dictionary=(pats, orients)),
