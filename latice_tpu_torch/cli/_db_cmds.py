@@ -185,8 +185,6 @@ def cmd_query(args) -> None:
         candidate_ambiguity,
     )
 
-    if args.hough_iq:
-        raise later_slice("--hough-iq", "slice D")
     _check_devices(args)
     device = resolve_device(args.device)
     preprocess = _parse_preprocess(args)
@@ -225,10 +223,18 @@ def cmd_query(args) -> None:
         )
 
     t0 = time.time()
-    x = _nlpar(
-        prepare_patterns(raw), args,
-        preprocess.hot_pixel_threshold if preprocess is not None else None, device,
-    )
+    x = prepare_patterns(raw)
+    hough = None
+    if args.hough_iq:
+        # Detector-side quality of the raw frames, before NLPAR: the vendor
+        # .ang IQ and .ctf Bands, not the similarity stand-ins.
+        from latice_tpu_torch.data import BandDetector
+
+        hough = BandDetector(
+            height=x.shape[1], width=x.shape[2], batch_size=min(args.batch_size, 256),
+            device=device,
+        )(x)
+    x = _nlpar(x, args, preprocess.hot_pixel_threshold if preprocess is not None else None, device)
     result = pipe(x)
     n = len(x)
     dt = time.time() - t0
@@ -263,11 +269,18 @@ def cmd_query(args) -> None:
     db_groups = (
         list(db.config.phase_symmetries) if db.config.phase_symmetries is not None else None
     )
+    ang_kw, ctf_kw = {}, {}
+    if hough is not None:
+        iq_out = args.out.replace(".npy", "") + "_iq.npy"
+        np.save(iq_out, hough.iq)
+        summary["hough_iq_out"] = iq_out
+        summary["mean_iq"] = round(float(hough.iq.mean()), 4)
+        ang_kw, ctf_kw = {"iq": hough.iq}, {"bands": hough.band_count}
     if args.ang:
-        write_ang(args.ang, result, grid=grid, step=args.step, phase_groups=db_groups)
+        write_ang(args.ang, result, grid=grid, step=args.step, phase_groups=db_groups, **ang_kw)
         summary["ang_out"] = args.ang
     if args.ctf:
-        write_ctf(args.ctf, result, grid=grid, step=args.step, phase_groups=db_groups)
+        write_ctf(args.ctf, result, grid=grid, step=args.step, phase_groups=db_groups, **ctf_kw)
         summary["ctf_out"] = args.ctf
     if args.ambiguity:
         amb = candidate_ambiguity(
@@ -377,7 +390,11 @@ def register(sub, common) -> None:
         help="cosine-score margin under which a rival counts as ambiguous "
         "(default: %(default)s)",
     )
-    q.add_argument("--hough-iq", action="store_true", help="detector-side Hough IQ (slice D)")
+    q.add_argument(
+        "--hough-iq", action="store_true",
+        help="measure the detector-side Hough/Radon IQ of the raw frames (before NLPAR): "
+        "<out>_iq.npy, the .ang IQ and the .ctf Bands columns",
+    )
     q.add_argument(
         "--nlpar", type=float, default=None, metavar="H",
         help="NLPAR-denoise the scan before indexing (needs --scan-grid); H "

@@ -26,11 +26,21 @@ indexing, on the GPU by default.
     python -m latice_tpu_torch.cli.index query --patterns scan.npy \\
         --db latent_index.npz --nlpar 1 --scan-grid 64 64 --refine 40
 
+    # the band plane: Hough IQ maps, Hough indexing (no training, no
+    # dictionary) and pattern-center calibration from its result
+    python -m latice_tpu_torch.cli.index quality --patterns scan.npy \\
+        --scan-grid 64 64 --out-prefix scan
+    python -m latice_tpu_torch.cli.index hough --patterns scan.npy \\
+        --out hough.npy --ang scan.ang --refine 40
+    python -m latice_tpu_torch.cli.index calibrate --patterns scan.npy \\
+        --orientations hough.npy --scan-grid 64 64
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model runs
-at ``16-mixed`` (bf16 autocast). ``master``, ``learn-master`` and the
-remaining commands of the JAX package's ``index.py`` wait for later slices.
+at ``16-mixed`` (bf16 autocast). ``master``, ``learn-master``, ``strain``
+and the remaining commands of the JAX package's ``index.py`` wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import logging
 
 def main(argv=None) -> None:
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run the command."""
-    from latice_tpu_torch.cli import _db_cmds, _di_cmds, _sim_cmds
+    from latice_tpu_torch.cli import _band_cmds, _db_cmds, _di_cmds, _sim_cmds, _strain_cmds
 
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -57,6 +67,8 @@ def main(argv=None) -> None:
     _db_cmds.register(sub, common)
     _sim_cmds.register(sub, common)
     _di_cmds.register(sub, common)
+    _band_cmds.register(sub, common)
+    _strain_cmds.register(sub, common)
     # A command that waits for a later slice takes any arguments and refuses.
     args, extra = parser.parse_known_args(argv)
     if extra and not getattr(args, "takes_any_arguments", False):

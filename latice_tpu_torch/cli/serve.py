@@ -9,6 +9,9 @@
     python -m latice_tpu_torch.cli.serve --di-dict dict.npy \\
         --di-angles grid.txt --nlpar 1 &
 
+    # the zero-training band plane alone: /hough and /quality
+    python -m latice_tpu_torch.cli.serve --hough --pc 0.5 0.5 0.7 &
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model
@@ -16,8 +19,12 @@ computes at ``16-mixed`` (bf16 autocast), the precision the JAX serve CLI
 builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
 ``/encode``, and ``{"checkpoint": path}`` to ``/reload``, which swaps in
 the weights of a ``.pt`` under ``--checkpoint-root``. In pattern-DI mode
-``/encode`` and ``/reload`` answer 400. The zero-training ``/quality``,
-``/hough``, ``/sphere`` and ``/strain`` planes wait for a later slice.
+``/encode`` and ``/reload`` answer 400. ``/quality`` (the Hough IQ) answers
+in every mode; ``--hough`` adds ``/hough`` (band indexing with cubic
+reflectors at ``--pc``/``--tilt``, reduced in ``--group``) and may run
+without ``--db`` and ``--checkpoint``, the zero-training mode, where
+``/index``, ``/encode`` and ``/reload`` answer 400. ``/sphere`` and
+``/strain`` (``--sphere-master``, ``--strain-ref``) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -78,6 +85,23 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="directory /reload targets must lie under (default: the "
         "directory of --checkpoint; without either, any path)",
     )
+    # The zero-training planes: no checkpoint, no dictionary.
+    p.add_argument(
+        "--pc", type=float, nargs=3, default=(0.5, 0.5, 0.7), metavar=("PCX", "PCY", "DD"),
+        help="detector geometry of the /hough plane (pattern center + distance, width units)",
+    )
+    p.add_argument("--tilt", type=float, default=0.0,
+                   help="detector tilt (degrees) of the /hough plane")
+    p.add_argument("--group", default="432", help="point group of /hough's FZ reduction")
+    p.add_argument(
+        "--hough", action="store_true",
+        help="enable POST /hough: band-based orientation indexing with cubic reflectors at "
+        "--pc (zero training; runs without --db)",
+    )
+    p.add_argument("--sphere-master", default=None, metavar="MASTER.npy",
+                   help="POST /sphere (waits for a later slice)")
+    p.add_argument("--strain-ref", default=None, metavar="REF.npy",
+                   help="POST /strain (waits for a later slice)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument(
         "--host", default="127.0.0.1",
@@ -100,14 +124,24 @@ def build_service(args: argparse.Namespace):
     device, the precision the JAX CLI builds its model at) over the ``--db``
     dictionary, with a ``/reload`` loader (`models.load_checkpoint` at
     ``16-mixed``). Pattern-DI mode (``--di-dict``): the stacks and angles,
-    no model. Binds no socket."""
-    from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks
+    no model. ``--hough`` adds an `index.HoughIndexer` to either, or serves
+    it alone without ``--db`` (zero-training mode). Binds no socket."""
+    from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks, later_slice
     from latice_tpu_torch.data import parse_preprocess_spec
     from latice_tpu_torch.device import resolve_device
-    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+    from latice_tpu_torch.index import (
+        HoughIndexer,
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+    )
     from latice_tpu_torch.models import load_checkpoint
     from latice_tpu_torch.serve import IndexService
+    from latice_tpu_torch.sim import DetectorGeometry, cubic_reflectors
 
+    if args.sphere_master:
+        raise later_slice("--sphere-master (/sphere)", "slice D")
+    if args.strain_ref:
+        raise later_slice("--strain-ref (/strain)", "slice D")
     preprocess = None
     if args.preprocess:
         preprocess = parse_preprocess_spec(args.preprocess)
@@ -130,6 +164,11 @@ def build_service(args: argparse.Namespace):
         nlpar_radius=args.nlpar_radius,
         device=device,
     )
+    if args.hough:
+        geometry = DetectorGeometry(pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt)
+        common["hough_indexer"] = HoughIndexer(
+            cubic_reflectors(), geometry, group=args.group, device=device
+        )
     if args.di_dict:
         if args.db:
             raise SystemExit("--di-dict and --db are mutually exclusive")
@@ -141,7 +180,12 @@ def build_service(args: argparse.Namespace):
             **common,
         )
     if not args.db:
-        raise SystemExit("pass --db (latent engine) or --di-dict (pattern DI)")
+        if not args.hough:
+            raise SystemExit(
+                "pass --db (latent engine), --di-dict (pattern DI) or --hough (the "
+                "zero-training band plane)"
+            )
+        return IndexService(None, None, **common)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
         LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim)
@@ -178,8 +222,9 @@ def main(argv=None) -> None:
                 "mode": health["mode"],
                 "addr": f"http://{args.host}:{server.server_address[1]}",
                 "count": health["count"],
-                "device": str(service.pipeline.device),
-                "engine": args.engine,
+                "planes": health["planes"],
+                "device": str(service.device),
+                "engine": health["engine"],
                 "warmup_s": round(warm_s, 1),
             }
         ),

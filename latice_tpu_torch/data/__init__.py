@@ -1,5 +1,6 @@
 """Host-side pattern preparation, device-side preprocessing, NLPAR denoising,
-the training data module, prefetch and result export."""
+Hough/Radon band detection, the training data module, prefetch and result
+export."""
 
 from latice_tpu_torch.data.datamodule import (
     DPDataModule,
@@ -9,6 +10,7 @@ from latice_tpu_torch.data.datamodule import (
 )
 from latice_tpu_torch.data.dataset import DPdataset, parse_angle_file
 from latice_tpu_torch.data.export import VendorMap, read_ang, read_ctf, write_ang, write_ctf
+from latice_tpu_torch.data.hough import BandDetection, BandDetector, butterfly_kernel, radon_matrix
 from latice_tpu_torch.data.nlpar import estimate_noise_sigma, nlpar_denoise
 from latice_tpu_torch.data.prefetch import prefetch_host, prefetch_to_device
 from latice_tpu_torch.data.preprocess import (
@@ -32,12 +34,15 @@ from latice_tpu_torch.data.transforms import (
 )
 
 __all__ = [
+    "BandDetection",
+    "BandDetector",
     "DPDataModule",
     "DPdataset",
     "PreprocessConfig",
     "VendorMap",
     "batch_iterator",
     "bin_patterns",
+    "butterfly_kernel",
     "center_crop",
     "default_transform",
     "equalize_histogram",
@@ -55,6 +60,7 @@ __all__ = [
     "prefetch_host",
     "prefetch_to_device",
     "prepare_patterns",
+    "radon_matrix",
     "read_ang",
     "read_ctf",
     "remove_dynamic_background",

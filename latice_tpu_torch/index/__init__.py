@@ -1,5 +1,6 @@
 """Search, consensus, the end-to-end pipeline, the dictionary database, the
-indexer around it, and pattern-space dictionary indexing."""
+indexer around it, pattern-space dictionary indexing and band-based (Hough)
+indexing."""
 
 from latice_tpu_torch.index.chroma_db import ChromaLatentVectorDatabase
 from latice_tpu_torch.index.consensus import ConsensusOutput, consensus_orientations
@@ -13,6 +14,14 @@ from latice_tpu_torch.index.diagnostics import AmbiguityResult, candidate_ambigu
 from latice_tpu_torch.index.faiss_db import (
     FaissLatentVectorDatabase,
     FaissLatentVectorDatabaseConfig,
+)
+from latice_tpu_torch.index.hough_indexing import (
+    HoughIndexer,
+    HoughIndexResult,
+    MultiPhaseHoughIndexer,
+    MultiPhaseHoughResult,
+    band_plane_normals,
+    solve_wahba,
 )
 from latice_tpu_torch.index.indexer import DiffractionPatternIndexer, IndexerConfig
 from latice_tpu_torch.index.knn import (
@@ -41,14 +50,19 @@ __all__ = [
     "DiffractionPatternIndexer",
     "FaissLatentVectorDatabase",
     "FaissLatentVectorDatabaseConfig",
+    "HoughIndexResult",
+    "HoughIndexer",
     "IndexPipeline",
     "IndexerConfig",
     "LatentVectorDatabaseBase",
     "LatentVectorDatabaseConfig",
+    "MultiPhaseHoughIndexer",
+    "MultiPhaseHoughResult",
     "OrientationResult",
     "PatternDictionaryIndexer",
     "StreamedPatternDI",
     "TorchLatentVectorDatabase",
+    "band_plane_normals",
     "build_pattern_dictionary",
     "candidate_ambiguity",
     "concat_dense_results",
@@ -62,4 +76,5 @@ __all__ = [
     "ncc_feature_fn",
     "parse_faiss_flat_blob",
     "quantize_dictionary_int8",
+    "solve_wahba",
 ]

@@ -1,7 +1,6 @@
 """Indexing service: a persistent HTTP plane around `index.IndexPipeline`.
 
-The port of the ``/index``, ``/encode`` and ``/reload`` planes of
-``latice_tpu.serve``:
+The port of ``latice_tpu.serve``:
 
 * the pipeline is warmed at startup (one dummy batch per input dtype), which
   also builds the CUDA kernels, so the first request pays for neither;
@@ -14,19 +13,29 @@ The port of the ``/index``, ``/encode`` and ``/reload`` planes of
 * pattern-DI mode (``di_dictionary``) serves ``/index`` by NCC against a
   raw dictionary stack (`index.PatternDictionaryIndexer`), with no model;
 * with ``nlpar_h``, a 4-D ``(R, C, H, W)`` body is a scan, NLPAR-denoised
-  (`data.nlpar_denoise`) before it is indexed row by row.
+  (`data.nlpar_denoise`) before it is indexed row by row;
+* the zero-training band plane: ``/quality`` (the Hough IQ of
+  `data.BandDetector`, whose detector is built at its first request) in
+  every mode, and ``/hough`` (`index.HoughIndexer`) with ``hough_indexer``.
+  With a Hough indexer the service runs without a model and a dictionary.
 
 Endpoints:
-  GET  /healthz -> {"status": "ok", "mode": "latent" | "pattern-di",
-                    "count": N, "dimension": D, "model_version": V, ...}
+  GET  /healthz -> {"status": "ok", "mode": "latent" | "pattern-di" |
+                    "zero-training", "planes": [...], "count": N, ...}
   POST /index   -> body: .npy of (N, H, W[, 1]) patterns, or an (R, C, H, W)
                    scan with nlpar_h; reply: {"orientations": ...,
-                   "success": ..., "n": ...} (and "scan_grid" for a scan)
+                   "success": ..., "n": ...} (and "scan_grid" for a scan);
+                   400 in zero-training mode
   POST /encode  -> body: .npy patterns; reply: {"latents": ...}; 400 in
-                   pattern-DI mode
+                   pattern-DI and zero-training mode
   POST /reload  -> body: {"checkpoint": path}; 400 without a loader, in
                    pattern-DI mode, without the key or for a path outside
                    the checkpoint root, 500 when the load fails
+  POST /quality -> body: .npy patterns; reply: {"iq": ..., "band_count": ...}
+  POST /hough   -> body: .npy patterns; reply: {"orientations": ...,
+                   "success": ..., "fit_deg": ..., "iq": ...}; 400 without
+                   a Hough indexer
+  POST /sphere, /strain -> 400: they wait for a later slice
 
 Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
 ``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
@@ -46,8 +55,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from latice_tpu_torch.data import nlpar_denoise, prepare_patterns
+from latice_tpu_torch.data import BandDetector, nlpar_denoise, prepare_patterns
 from latice_tpu_torch.data.transforms import _int_scale
+from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.index import IndexPipeline, PatternDictionaryIndexer
 from latice_tpu_torch.index.pipeline import as_preprocess_fn
 
@@ -87,6 +97,11 @@ class IndexService:
             against the raw stack, with ``model=None, db=None``; ``/encode``
             and ``/reload`` answer 400.
         di_bin: DI mean-pool factor (dictionary and queries).
+        hough_indexer: optional `index.HoughIndexer` (or
+            `index.MultiPhaseHoughIndexer`) enabling ``POST /hough``; with
+            it, ``model``, ``db`` and ``di_dictionary`` may all be None
+            (zero-training mode: ``/index``, ``/encode`` and ``/reload``
+            answer 400).
         device: ``cuda`` unless given; a missing CUDA device raises.
     """
 
@@ -108,17 +123,22 @@ class IndexService:
         nlpar_radius: int = 1,
         di_dictionary: tuple | None = None,
         di_bin: int = 1,
+        hough_indexer=None,
         device: str | torch.device | None = None,
     ) -> None:
-        if di_dictionary is None and (model is None or db is None):
-            raise ValueError("pass model and db, or di_dictionary for pattern-DI mode")
+        if di_dictionary is None and (model is None or db is None) and hough_indexer is None:
+            raise ValueError(
+                "pass model and db, di_dictionary for pattern-DI mode, or hough_indexer "
+                "for the zero-training band plane"
+            )
+        self.device = resolve_device(device)
         phase_kw = {}
         if di_dictionary is not None:
             if len(di_dictionary) == 4 and di_dictionary[2] is not None:
                 phase_kw = dict(
                     dictionary_phases=di_dictionary[2], phase_symmetries=di_dictionary[3]
                 )
-        elif db._has_phases:
+        elif db is not None and db._has_phases:
             phase_kw = dict(
                 dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
             )
@@ -139,7 +159,10 @@ class IndexService:
         self._db = db
         self._di = di_dictionary
         self._di_bin = int(di_bin)
-        self.pipeline = self._build_pipeline(model)
+        self._hough = hough_indexer
+        self._quality_detector = None
+        zero_training = di_dictionary is None and (model is None or db is None)
+        self.pipeline = None if zero_training else self._build_pipeline(model)
         self.image_size = tuple(image_size)
         self.max_body_bytes = int(max_body_bytes)
         self._param_loader = param_loader
@@ -171,10 +194,18 @@ class IndexService:
             raise ValueError(f"checkpoint {checkpoint!r} is outside the configured checkpoint root")
         return target
 
+    def _need_pipeline(self) -> None:
+        if self.pipeline is None:
+            raise ValueError(
+                "this server runs only the zero-training band plane (no dictionary or "
+                "checkpoint loaded); POST /hough or /quality"
+            )
+
     def reload(self, checkpoint: str) -> dict:
         """Hot-swap the model from ``checkpoint`` without dropping requests:
         the new pipeline is built while the old one keeps serving, then
         swapped in under the lock, and ``model_version`` goes up."""
+        self._need_pipeline()
         if self._di is not None:
             raise ValueError("this server runs pattern DI: it has no model to reload")
         if self._param_loader is None:
@@ -195,13 +226,16 @@ class IndexService:
 
     def warmup(self) -> float:
         """Run one dummy batch of each input dtype through the pipeline,
-        which builds the kernels on first use; returns seconds. ``/encode``
-        runs the same encoder."""
+        which builds the kernels on first use, and one through the Hough
+        indexer; returns seconds. ``/encode`` runs the same encoder."""
         t0 = time.time()
         h, w = self.image_size
         with self._lock:
-            for dtype in (np.uint8, np.float32):
-                self.pipeline(np.zeros((1, h, w), dtype))
+            if self.pipeline is not None:
+                for dtype in (np.uint8, np.float32):
+                    self.pipeline(np.zeros((1, h, w), dtype))
+            if self._hough is not None:
+                self._hough(np.zeros((1, h, w), np.float32))
         dt = time.time() - t0
         logger.info(f"warmup ran the served paths in {dt:.1f}s")
         return dt
@@ -226,12 +260,13 @@ class IndexService:
             x *= _int_scale(scan.dtype)
         return nlpar_denoise(
             x, search_radius=self.nlpar_radius, h=self.nlpar_h,
-            hot_pixel_threshold=self._nlpar_hot_threshold, device=self.pipeline.device,
+            hot_pixel_threshold=self._nlpar_hot_threshold, device=self.device,
         ).reshape(-1, *self.image_size)
 
     def index(self, patterns: np.ndarray) -> dict:
         """Index a pattern stack, or with ``nlpar_h`` an ``(R, C, H, W)``
         scan; returns a JSON-ready dict."""
+        self._need_pipeline()
         scan_grid = None
         arr = np.asarray(patterns)
         if arr.ndim == 4 and arr.shape[-1] not in (1, 3):
@@ -266,6 +301,7 @@ class IndexService:
 
     def encode(self, patterns: np.ndarray) -> dict:
         """Encode patterns to ``mu`` latents; returns a JSON-ready dict."""
+        self._need_pipeline()
         if self._di is not None:
             raise ValueError("this server runs pattern DI (no encoder); POST /index")
         x = prepare_patterns(patterns, self.image_size)
@@ -274,23 +310,83 @@ class IndexService:
             self.requests += 1
         return {"n": int(len(x)), "latents": lat.tolist()}
 
+    def quality(self, patterns: np.ndarray) -> dict:
+        """Hough band detection and Image Quality of a stack (`data.BandDetector`)."""
+        x = prepare_patterns(patterns, self.image_size)
+        t0 = time.time()
+        with self._lock:
+            if self._quality_detector is None:
+                # Built at the first request: the Radon matrix costs a
+                # host precompute and 283 MB of device memory at 128x128.
+                batch = 256 if self.pipeline is None else min(self.pipeline.batch_size, 256)
+                self._quality_detector = BandDetector(
+                    height=self.image_size[0], width=self.image_size[1], batch_size=batch,
+                    device=self.device,
+                )
+            det = self._quality_detector(x)
+            self.requests += 1
+        return {
+            "n": int(len(x)),
+            "iq": det.iq.tolist(),
+            "band_count": det.band_count.tolist(),
+            "mean_iq": float(det.iq.mean()) if len(x) else None,
+            "seconds": time.time() - t0,
+        }
+
+    def hough(self, patterns: np.ndarray) -> dict:
+        """Band-based orientation indexing (`index.HoughIndexer`): only
+        reflectors and the geometry, no checkpoint."""
+        if self._hough is None:
+            raise ValueError("server started without a Hough indexer (cli.serve --hough)")
+        x = prepare_patterns(patterns, self.image_size)
+        t0 = time.time()
+        with self._lock:
+            res = self._hough(x)
+            self.requests += 1
+            self.patterns_indexed += len(x)
+        out = {
+            "n": int(len(x)),
+            "orientations": res.eulers_deg.tolist(),
+            "success": res.success.tolist(),
+            "fit_deg": res.fit_deg.tolist(),
+            "n_matched": res.n_matched.tolist(),
+            "iq": res.bands.iq.tolist(),
+            "seconds": time.time() - t0,
+            "input_dtype": str(x.dtype),
+        }
+        if getattr(res, "phase", None) is not None:
+            out["phase"] = res.phase.tolist()
+        return out
+
+    def later_plane(self, patterns: np.ndarray) -> dict:
+        """``/sphere`` and ``/strain``: not ported yet."""
+        raise ValueError(
+            "/sphere and /strain are not ported to latice_tpu_torch yet; they wait for a "
+            "later slice"
+        )
+
     def health(self) -> dict:
-        if self._di is not None:
+        if self.pipeline is None:
+            mode, count, dimension, multiphase = "zero-training", 0, 0, False
+        elif self._di is not None:
             mode, count, dimension = "pattern-di", len(self._di[1]), self.pipeline.dimension
             multiphase = len(self._di) == 4 and self._di[2] is not None
         else:
             mode, count = "latent", self._db.get_count()
             dimension, multiphase = self._db.dimension, self._db._has_phases
+        planes = ["index"] if self.pipeline is not None else []
+        if self._hough is not None:
+            planes.append("hough")
         return {
             "status": "ok",
             "mode": mode,
             "count": int(count),
             "dimension": int(dimension),
-            "platform": self.pipeline.device.type,
-            "engine": self.pipeline.engine,
-            "batch_size": int(self.pipeline.batch_size),
+            "platform": self.device.type,
+            "engine": None if self.pipeline is None else self.pipeline.engine,
+            "batch_size": 0 if self.pipeline is None else int(self.pipeline.batch_size),
             "multiphase": bool(multiphase),
-            "planes": ["index"],
+            "planes": planes,
             "model_version": self.model_version,
             "uptime_s": time.time() - self.started,
             "requests": self.requests,
@@ -359,7 +455,14 @@ class _Handler(BaseHTTPRequestHandler):
                 # The exception may name resolved paths; reply with what was sent.
                 self._reply(500, {"error": f"{type(e).__name__}: could not load {requested!r}"})
             return
-        routes = {"/index": self.service.index, "/encode": self.service.encode}
+        routes = {
+            "/index": self.service.index,
+            "/encode": self.service.encode,
+            "/quality": self.service.quality,
+            "/hough": self.service.hough,
+            "/sphere": self.service.later_plane,
+            "/strain": self.service.later_plane,
+        }
         if self.path not in routes:
             self._reply(404, {"error": f"unknown path {self.path}"})
             return

@@ -121,7 +121,6 @@ def test_build_export_query_match_jax(files, monkeypatch, capsys):
 @pytest.mark.parametrize(
     "flags, match",
     [
-        (["--hough-iq"], "slice D"),
         (["--preprocess", "static=auto", "--patterns", "scan.h5"], "static=auto on HDF5"),
         (["--patterns", "scan.h5"], "slice E"),
         (["--patterns", "scan.up1"], "slice E"),
@@ -136,12 +135,13 @@ def test_later_slice_flags_raise(files, capsys, flags, match):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--refine", "10"], ["--nlpar", "2.0", "--scan-grid", "4", "6"]],
-    ids=["refine", "nlpar"],
+    [["--refine", "10"], ["--nlpar", "2.0", "--scan-grid", "4", "6"], ["--hough-iq"]],
+    ids=["refine", "nlpar", "hough_iq"],
 )
 def test_ported_query_flags_index(files, tmp_path, capsys, flags):
-    """``--refine`` and ``--nlpar``, once refused, index: ``--refine``
-    through the forward model the npz's simulate provenance names."""
+    """``--refine``, ``--nlpar`` and ``--hough-iq``, once refused, index:
+    ``--refine`` through the forward model the npz's simulate provenance
+    names, ``--hough-iq`` writing the frames' Hough IQ beside the result."""
     meta = {"structure": "fcc", "lattice": 3.52, "lattice_c": None, "kv": 20.0, "size": 128,
             "pc": [0.5, 0.5, 0.7], "tilt": 0.0, "max_hkl": 2, "min_d": 1.0}
     pats = tmp_path / "dict.npy"
@@ -156,6 +156,9 @@ def test_ported_query_flags_index(files, tmp_path, capsys, flags):
                                  + SMALL + flags, capsys))
     assert summary["n_patterns"] == N and np.load(out).shape == (N, 3)
     assert ("refine_steps" in summary) == ("--refine" in flags)
+    if "--hough-iq" in flags:
+        iq = np.load(summary["hough_iq_out"])
+        assert iq.shape == (N,) and np.isfinite(iq).all()
 
 
 def test_devices_and_engines(files, capsys, monkeypatch, caplog):

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX imports, and no silent CPU fallback."""
 
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -116,12 +117,34 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
+    from latice_tpu_torch.data import BandDetector
+    from latice_tpu_torch.index import HoughIndexer
+    from latice_tpu_torch.sim import (
+        DetectorGeometry,
+        calibrate_geometry,
+        calibrate_scan_geometry,
+        cubic_reflectors,
+    )
+
+    geom = DetectorGeometry(shape=(16, 16))
+    for call in (
+        lambda: BandDetector(height=16, width=16, n_theta=8, n_rho=8),
+        lambda: HoughIndexer(cubic_reflectors(), geom),
+        lambda: calibrate_geometry(pats, quats, geom),
+        lambda: calibrate_scan_geometry(pats, quats, np.zeros((4, 2)), geom),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
     from latice_tpu_torch.cli.index import main as index_main
 
     for argv in (
         ["sample", "--out", "/nonexistent/grid.txt"],
         ["simulate", "--angles", "/nonexistent/grid.txt"],
         ["di", "--dict-patterns", "d.npy", "--dict-angles", "a.txt", "--patterns", "p.npy"],
+        ["quality", "--patterns", "/nonexistent/p.npy"],
+        ["hough", "--patterns", "/nonexistent/p.npy"],
+        ["calibrate", "--patterns", "/nonexistent/p.npy", "--orientations", "o.npy"],
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             index_main(argv)
@@ -158,13 +181,16 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 def test_unported_options_raise():
     """What the port still refuses: ``mesh`` (slice C), the DB's ``native``
-    engine (slice E) and the query CLI's ``--hough-iq`` (slice D)."""
+    engine (slice E), the ``strain`` command and the server's ``/sphere``
+    and ``/strain`` planes (a later slice)."""
     from latice_tpu_torch import (
         IndexPipeline,
+        IndexService,
         LatentVectorDatabaseConfig,
         TorchLatentVectorDatabase,
         VariationalAutoEncoderRawData,
     )
+    from latice_tpu_torch.cli import serve as serve_cli
     from latice_tpu_torch.cli.index import main as index_main
 
     model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
@@ -173,9 +199,19 @@ def test_unported_options_raise():
         IndexPipeline(model, vecs, orients, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="later slice"):
         TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
-    query = ["query", "--patterns", "p.npy", "--db", "none.npz", "--device", "cpu"]
     with pytest.raises(SystemExit, match="later slice"):
-        index_main(query + ["--hough-iq"])
+        index_main(["strain", "--patterns", "p.npy", "--ref", "3", "--device", "cpu"])
+    for flag in ("--sphere-master", "--strain-ref"):
+        with pytest.raises(SystemExit, match="later slice"):
+            serve_cli.build_service(serve_cli.parse_args(["--hough", flag, "m.npy",
+                                                          "--device", "cpu"]))
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path="/nonexistent/none.npz", dimension=4), device="cpu"
+    )
+    db.add_vectors(vecs, orients)
+    # /sphere and /strain route to this refusal (400).
+    with pytest.raises(ValueError, match="later slice"):
+        IndexService(model, db, device="cpu").later_plane(np.zeros((1, 32, 32), np.float32))
     with pytest.raises(ValueError, match="unknown engine"):
         IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
 
@@ -210,21 +246,26 @@ def _query_with(flags, tmp_path):
         dict(preprocess="config"),
         dict(query=["--nlpar", "2.0", "--scan-grid", "2", "2"]),
         dict(query=["--refine", "3"]),
+        dict(query=["--hough-iq"]),
     ],
     ids=["approx", "int8", "bfloat16", "preprocess_callable", "preprocess_config",
-         "query_nlpar", "query_refine"],
+         "query_nlpar", "query_refine", "query_hough_iq"],
 )
 def test_ported_options_accepted(kw, tmp_path, capsys):
     """The engines, bf16 search and preprocessing build and index on the
-    CPU, and the query CLI's ``--nlpar`` and ``--refine`` index."""
+    CPU, and the query CLI's ``--nlpar``, ``--refine`` and ``--hough-iq``
+    index."""
     from latice_tpu_torch import IndexPipeline, VariationalAutoEncoderRawData
     from latice_tpu_torch.data import PreprocessConfig
 
     if "query" in kw:
         with torch.random.fork_rng(devices=[]):
             got = _query_with(kw["query"], tmp_path)
-        capsys.readouterr()
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert got.shape == (4, 3) and np.isfinite(got).all()
+        if "--hough-iq" in kw["query"]:
+            iq = np.load(summary["hough_iq_out"])
+            assert iq.shape == (4,) and np.isfinite(iq).all()
         return
     if kw.get("preprocess") == "config":
         kw = dict(preprocess=PreprocessConfig(hot_pixel_threshold=5.0, normalize="minmax"))

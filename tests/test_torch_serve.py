@@ -179,9 +179,19 @@ def test_oversized_body_is_413(served):
 
 @pytest.mark.parametrize("path", ["/nope", "/quality", "/hough"])
 def test_unknown_paths_are_404(served, path):
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(f"{served['url']}{path}", _npy_bytes(np.zeros((1, 128, 128), np.float32)))
-    assert e.value.code == 404
+    """Unknown paths answer 404. ``/quality`` and ``/hough`` are routes since
+    the band plane was ported: ``/quality`` answers in every mode, ``/hough``
+    400 on a server started without a Hough indexer."""
+    body = _npy_bytes(np.zeros((1, 128, 128), np.float32))
+    if path == "/quality":
+        reply = _post(f"{served['url']}{path}", body)
+        assert reply["n"] == 1 and len(reply["iq"]) == len(reply["band_count"]) == 1
+    else:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(f"{served['url']}{path}", body)
+        assert e.value.code == (400 if path == "/hough" else 404)
+        if path == "/hough":
+            assert "Hough indexer" in json.loads(e.value.read())["error"]
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(f"{served['url']}/metrics", timeout=30)
     assert e.value.code == 404
