@@ -5,7 +5,7 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 15 and 16, on the serve phase's files, before 7):
+10, 11, 14, 15, 16 and 17, on the serve phase's files, before 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -106,13 +106,30 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
     dictionary (``/healthz``, ``/quality``, ``/hough`` against direct
     calls); and the times of detection (with its product's alternatives),
     vote, refinement and a calibration step.
+17. sphere: the master-pattern plane at full width (master 513, 128x128,
+    L=64, bin 2, chunk 64, 432, Newton 8 steps). 1,024 fcc renders from
+    the kinematical master on the card against the CPU's (1e-5);
+    `SphericalIndexer` in the grid, parabolic and Newton modes over one
+    shared table build, timed (CUDA events), split by stage per chunk
+    (projection, l-contraction, α-DFT, γ-DFT, argmax, Newton) with each
+    stage's bound, held to the JAX package's accuracy on the same inputs
+    (examples/sphere_jax_reference.py) and per pattern to the port's CPU
+    path on 64; the ambiguity diagnostic on 256 and multi-phase fcc + hcp,
+    held to JAX's; ``simulate --master --fit-bands`` over the 2-degree
+    grid, ``build`` and ``query --engine fused --refine 10`` of 4,096 (10
+    InstanceNorm launches per build and query batch, 1 top-k launch per
+    query batch), ``learn-master`` from 4,096 (its NCC to the source
+    master), ``sphere --ang`` of 1,024 (equal to the library's Newton); a
+    ``cli.serve --sphere-master`` server's ``/sphere`` of 256 with and
+    without ``?ambiguity=1``.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
 and a sweep of its launch plan, and prints no verdict line;
 ``--stage0-only`` runs phases 1 and 2 and the stage-0 kernel's checks and
-times, and prints no verdict line.
+times, and prints no verdict line; ``--sphere-only`` runs phases 1, 2 and
+17 (with a seeded checkpoint of its own), and prints no verdict line.
 Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
 and the port's f32 models turn it off around their own forward and
 backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
@@ -226,12 +243,72 @@ CAL_PC_TRUE = (0.52, 0.47, 0.68)
 # pcy +0.02 and dd +0.01 across y, as tests/sim/test_calibrate.py's scan.
 CAL_GRID = (4, 8)
 CAL_GRADIENT = ((-0.03 / 7, 0.0), (0.0, 0.02 / 3), (0.0, 0.01 / 3))
+# sphere: the master-pattern plane at full width (bench.py's sphere row): a
+# kinematical fcc master of 513, 128x128 detector, L=64, bin 2, chunk 64,
+# 432, Newton 8 steps; 1,024 renders, 256 for the ambiguity diagnostic,
+# 256 fcc + 256 hcp for the multi-phase run, 64 held against the CPU path.
+SPHERE_MASTER, SPHERE_L, SPHERE_BIN, SPHERE_CHUNK = 513, 64, 2, 64
+SPHERE_PATTERNS, SPHERE_AMBIGUITY, SPHERE_MULTI, SPHERE_HOLD = 1024, 256, 256, 64
+SPHERE_SEEDS = dict(fcc=40, multi_fcc=41, multi_hcp=42)
+# Cells the ambiguity diagnostic ranks: at L=64 the winner's own basin
+# (2 x 180/64 degrees) covers the default 32, and no rival is ever found.
+SPHERE_AMB_CELLS = 256
+SPHERE_MODES = ("grid", "parabolic", "newton")
+SPHERE_RENDER_ATOL = 1e-5  # test_torch_master.py's bound, card vs CPU render
+# Card (bf16 tables, f32 sums) against the port's CPU path (f32 tables and
+# products) per pattern on SPHERE_HOLD patterns: each orientation within
+# SPHERE_HOLD_DEG, but for SPHERE_HOLD_OUTLIERS (a peak near-tied between
+# two grid cells may take the other under bf16 rounding), each score within
+# SPHERE_SCORE_ATOL. The first run on an H100 80GB HBM3 (700 W) measured
+# at most 0.069 (grid), 0.037 (parabolic), 0.036 (Newton) degrees, none
+# beyond 0.1, and scores within 7.0e-4.
+SPHERE_HOLD_DEG, SPHERE_HOLD_OUTLIERS, SPHERE_SCORE_ATOL = 0.1, 2, 2e-3
+# Against the JAX package's readings on the CPU (float32 tables): the
+# median at most SPHERE_MEDIAN_SLACK_DEG above, each share within 1/2/4
+# degrees (and the ambiguity shares) at most SPHERE_SHARE_SLACK off, the
+# median ambiguity gap within SPHERE_GAP_ATOL. That run: medians within
+# 0.0026 degrees, shares within 0.003, the gap within 2.6e-5.
+SPHERE_MEDIAN_SLACK_DEG, SPHERE_SHARE_SLACK, SPHERE_GAP_ATOL = 0.02, 0.01, 1e-3
+# The band fit of the kinematical master and the master learned back from
+# 4,096 of its renders (that run: 1.0 and 0.9990).
+SPHERE_FIT_NCC_MIN, SPHERE_LEARN_NCC_MIN = 0.99, 0.99
+# The JAX package's readings on this phase's inputs, on the CPU
+# (examples/sphere_jax_reference.py: its own renders, f32 tables).
+JAX_SPHERE = {
+    "grid": {"median_deg": 0.7880949152771654, "max_deg": 2.0095843454956492,
+        "within_1deg": 0.712890625, "within_2deg": 0.9990234375, "within_4deg": 1.0,
+        "mean_score": 0.31836211681365967},
+    "parabolic": {"median_deg": 0.28657672947555923, "max_deg": 2.090086860481747,
+        "within_1deg": 0.9853515625, "within_2deg": 0.9990234375, "within_4deg": 1.0,
+        "mean_score": 0.31836211681365967},
+    "newton": {"median_deg": 0.07665966734540368, "max_deg": 1.1264578705558592,
+        "within_1deg": 0.9990234375, "within_2deg": 1.0, "within_4deg": 1.0,
+        "mean_score": 0.32425588369369507},
+    "ambiguity": {"has_rival": 0.99609375, "median_gap": 0.09188304841518402,
+        "median_angle_deg": 5.797980290656368, "ambiguous": 0.0},
+    "multi": {
+        "phase_wrong": 0,
+        "432": {"median_deg": 0.06776943573600629, "max_deg": 0.6929841411398863,
+            "within_1deg": 1.0, "within_2deg": 1.0, "within_4deg": 1.0},
+        "622": {"median_deg": 0.09402958468455046, "max_deg": 0.6265292036499522,
+            "within_1deg": 1.0, "within_2deg": 1.0, "within_4deg": 1.0},
+    },
+}
 
 
 def _bands_truth(n: int, seed: int) -> np.ndarray:
     """``(n, 4)`` seeded random unit quaternions, float32."""
     q = np.random.default_rng(seed).normal(size=(n, 4))
     return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def sphere_readings(err_deg: np.ndarray) -> dict:
+    """The accuracy readings the sphere phase holds to the JAX package's:
+    median and largest disorientation to the truth, and the shares within
+    1, 2 and 4 degrees."""
+    err = np.asarray(err_deg, np.float64)
+    return dict(median_deg=float(np.median(err)), max_deg=float(err.max()),
+                **{f"within_{d}deg": float((err < d).mean()) for d in (1, 2, 4)})
 
 
 def emit(phase: str, **fields) -> None:
@@ -1582,16 +1659,19 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
     return launches
 
 
-def _disorientation_deg(euler_or_quats: np.ndarray, truth_quats: np.ndarray) -> np.ndarray:
-    """Cubic disorientation, degrees, of zxz Euler degrees (or quaternions)
-    to true quaternions, in f64 on the host."""
-    from latice_tpu_torch.crystal import from_euler_zxz_deg, symmetry_reduced_misorientation
+def _disorientation_deg(a: np.ndarray, b: np.ndarray, group: str = "432") -> np.ndarray:
+    """Disorientation, degrees, in ``group`` (cubic unless given) between
+    rows of zxz Euler degrees or quaternions, in f64 on the host."""
+    from latice_tpu_torch.crystal import (
+        ROTATION_GROUPS,
+        from_euler_zxz_deg,
+        symmetry_reduced_misorientation,
+    )
 
-    a = torch.from_numpy(np.asarray(euler_or_quats, np.float64))
-    if a.shape[-1] == 3:
-        a = from_euler_zxz_deg(a)
-    b = torch.from_numpy(np.asarray(truth_quats, np.float64))
-    return np.rad2deg(symmetry_reduced_misorientation(a, b).numpy())
+    qa, qb = (torch.from_numpy(np.asarray(x, np.float64)) for x in (a, b))
+    qa, qb = (from_euler_zxz_deg(q) if q.shape[-1] == 3 else q for q in (qa, qb))
+    sym = torch.from_numpy(np.asarray(ROTATION_GROUPS[group], np.float64))
+    return np.rad2deg(symmetry_reduced_misorientation(qa, qb, sym=sym).numpy())
 
 
 def _traced(fn) -> dict:
@@ -2264,6 +2344,432 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     return launches
 
 
+def _events_s(fn) -> tuple[float, object]:
+    """Seconds between CUDA events recorded around one call of ``fn`` (which
+    returns host arrays, so the end event follows its last device work)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, result
+
+
+def _hold_sphere_readings(name: str, got: dict, want: dict) -> None:
+    """The card's accuracy against the JAX package's on the same inputs:
+    the median no more than `SPHERE_MEDIAN_SLACK_DEG` above, each share
+    within 1/2/4 degrees no more than `SPHERE_SHARE_SLACK` below."""
+    if not got["median_deg"] <= want["median_deg"] + SPHERE_MEDIAN_SLACK_DEG:
+        raise AssertionError(f"sphere {name}: median {got['median_deg']} degrees, JAX "
+                             f"{want['median_deg']}")
+    for d in (1, 2, 4):
+        key = f"within_{d}deg"
+        if not got[key] >= want[key] - SPHERE_SHARE_SLACK:
+            raise AssertionError(f"sphere {name}: {key} {got[key]}, JAX {want[key]}")
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _traced_stage(fn, calls: int = 3) -> dict:
+    """Device busy ms (profiler sums of its kernel records) and launches (the
+    runtime API's launch calls, counted on the host side of the same trace)
+    per call of ``fn``, over ``calls`` calls in one trace after one untraced
+    call. The launch calls are counted because a short trace can end before
+    some kernel records reach it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.name in _LAUNCH_CALLS)
+    return dict(device_ms=sum(t for _, t, _ in _device_kernels(prof)) / calls,
+                launches=launches / calls)
+
+
+def _stage_ms(fn) -> dict:
+    """Milliseconds per call of ``fn``: device time from CUDA events with
+    the stream held while the host enqueues, or, for a call that waits for
+    the device itself, the host-paced time between events."""
+    if waits_for_device(fn):
+        return dict(ms=host_bound_ms(fn, iters=5), ms_timed_as="host-paced")
+    return dict(ms=cuda_ms(fn, iters=5, warmup=1), ms_timed_as="device")
+
+
+def _sphere_stages(ix, pc: torch.Tensor) -> dict:
+    """Device ms (CUDA events), launches and device busy ms (profiler) of each
+    stage of one chunk, and each stage's bound with its counts: the bytes of
+    its operands and results read or written once and its operations at the
+    bf16 tensor-core peak (argmax and Newton: f32)."""
+    from latice_tpu_torch.index import spherical as sp
+
+    dev, bin_f = ix._dev, ix.config.detector_bin
+    k_n, a_n = dev["k_n"], dev["a_n"]
+    b = pc.shape[0]
+    n_m = dev["br"].shape[0]
+    with torch.inference_mode():
+        xcn = sp._normalize(pc, dev["wvec"], bin_f)
+        f = sp._project(xcn, dev["yt"], n_m)
+        w16 = sp._l_contract(f, dev["br"], dev["bi"], False)
+        w32 = sp._l_contract(f, dev["br"], dev["bi"], True)
+        t2 = sp._alpha_dft(w16, dev["cct"], k_n)
+        x32 = sp._gamma_dft(t2, dev["cgs"], b, k_n, True)
+        x16 = sp._gamma_dft(t2, dev["cgs"], b, k_n, False)
+        _, k, a, g = sp._grid_peak(x16)
+    rows, d = dev["yt"].shape
+    kv = dev["br"].shape[2]
+    two_l = 2 * n_m
+    v = kv // k_n
+    el = lambda t: t.numel() * t.element_size()  # noqa: E731
+    stages = {
+        "projection": (lambda: sp._project(sp._normalize(pc, dev["wvec"], bin_f), dev["yt"], n_m),
+                       el(pc) + el(dev["yt"]) + el(f), 2.0 * rows * d * b, PEAK_BF16_PER_S),
+        "l_contraction": (lambda: sp._l_contract(f, dev["br"], dev["bi"], False),
+                          el(f) + el(dev["br"]) + el(dev["bi"]) + el(w16),
+                          2.0 * 2 * n_m * b * dev["br"].shape[1] * kv, PEAK_BF16_PER_S),
+        "l_contraction_f32_out": (lambda: sp._l_contract(f, dev["br"], dev["bi"], True),
+                                  el(f) + el(dev["br"]) + el(dev["bi"]) + el(w32),
+                                  2.0 * 2 * n_m * b * dev["br"].shape[1] * kv, PEAK_BF16_PER_S),
+        "alpha_dft": (lambda: sp._alpha_dft(w16, dev["cct"], k_n),
+                      el(w16) + el(dev["cct"]) + el(t2), 2.0 * 2 * b * k_n * a_n * two_l * v,
+                      PEAK_BF16_PER_S),
+        "alpha_dft_from_f32": (lambda: sp._alpha_dft(w32, dev["cct"], k_n),
+                               el(w32) + el(dev["cct"]) + el(t2),
+                               2.0 * 2 * b * k_n * a_n * two_l * v, PEAK_BF16_PER_S),
+        "gamma_dft": (lambda: sp._gamma_dft(t2, dev["cgs"], b, k_n, True),
+                      el(t2) + el(dev["cgs"]) + el(x32), 2.0 * b * k_n * a_n * 2 * v * a_n,
+                      PEAK_BF16_PER_S),
+        "gamma_dft_bf16_out": (lambda: sp._gamma_dft(t2, dev["cgs"], b, k_n, False),
+                               el(t2) + el(dev["cgs"]) + el(x16),
+                               2.0 * b * k_n * a_n * 2 * v * a_n, PEAK_BF16_PER_S),
+        "argmax": (lambda: sp._grid_peak(x32), el(x32), float(x32.numel()), PEAK_FP32_PER_S),
+        "argmax_bf16": (lambda: sp._grid_peak(x16), el(x16), float(x16.numel()),
+                        PEAK_FP32_PER_S),
+        "neighborhood": (lambda: sp._neighborhood(x32, k, a, g), 27 * 4 * b, 27.0 * b,
+                         PEAK_FP32_PER_S),
+        # 9 evaluations of value, gradient and Hessian over (b, 3, L, ν):
+        # ~40 operations per term, the 5 f32 rows of each pattern read once.
+        "newton": (lambda: sp._newton(w32, k, a, g, k_n, a_n, ix.config.newton_steps),
+                   2 * 5 * b * n_m * v * 4, 9 * 40.0 * b * 3 * n_m * v, PEAK_FP32_PER_S),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (fn, n_bytes, n_ops, peak_ops) in stages.items():
+            bound, by = bound_ms(n_bytes, n_ops, peak_ops)
+            out[name] = dict(**_stage_ms(fn), **_traced_stage(fn), bound_ms=bound, bound_by=by,
+                             bytes=n_bytes, ops=n_ops)
+        for mode in ("grid", "newton"):
+            fn = lambda m=mode: sp._correlate_chunk(pc, dev, bin_f, m, ix.config.newton_steps)  # noqa: E731
+            tr = _traced(fn)
+            out[f"chunk_{mode}"] = dict(**_stage_ms(fn), **_traced_stage(fn),
+                                        wall_ms=tr["wall_ms"], top=tr["top"])
+    # The whole chunk read once and written once (tables and patterns in,
+    # one peak per pattern out) against all its products at the bf16 peak;
+    # and the staged bound, each intermediate written once and read once.
+    tables = sum(el(dev[key]) for key in ("yt", "br", "bi", "cct", "cgs"))
+    ops = sum(stages[s][2] for s in ("projection", "l_contraction", "alpha_dft", "gamma_dft"))
+    whole, whole_by = bound_ms(tables + el(pc), ops, PEAK_BF16_PER_S)
+    staged = sum(out[s]["bound_ms"] for s in ("projection", "l_contraction", "alpha_dft",
+                                              "gamma_dft", "argmax"))
+    out["chunk_bound"] = dict(bound_ms=whole, bound_by=whole_by, bytes=tables + el(pc), ops=ops,
+                              staged_bound_ms=staged, volume_mb=el(x32) / 1e6,
+                              t2_mb=el(t2) / 1e6, w_mb=el(w16) / 1e6, tables_mb=tables / 1e6)
+    return out
+
+
+def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
+    """The master-pattern plane and spherical indexing at full width (master
+    513, 128x128, L=64, bin 2, chunk 64, 432, Newton 8 steps): 1,024 fcc
+    renders on the card against the CPU's; `SphericalIndexer` in the grid,
+    parabolic and Newton modes, timed, split by stage per chunk with each
+    stage's bound, held to the JAX package's accuracy on the same inputs
+    (examples/sphere_jax_reference.py) and per pattern to the port's CPU
+    path on 64; the ambiguity diagnostic on 256 and the multi-phase fcc +
+    hcp run, both held to JAX's; then the CLI (``simulate --master
+    --fit-bands`` over the 2-degree grid, ``build`` and ``query --engine
+    fused --refine 10`` of 4,096, whose K2f and K1 launches are the path's;
+    ``learn-master`` from 4,096 renders; ``sphere --ang`` of 1,024) and a
+    ``cli.serve --sphere-master`` server's ``/sphere`` of 256 with and
+    without ``?ambiguity=1``. One Wigner table is built: the library
+    indexers share `projection_tables`, and the CLI and the server read it
+    from the port's value-transparent cache in this run's directory."""
+    import contextlib
+    import dataclasses
+    import logging
+    import os
+
+    from latice_tpu_torch.cli.index import main as index_main
+    from latice_tpu_torch.cli.serve import build_service, parse_args
+    from latice_tpu_torch.crystal import write_anglefile
+    from latice_tpu_torch.data import parse_angle_file, read_ang
+    from latice_tpu_torch.index import (
+        MultiPhaseSphericalIndexer,
+        SphericalIndexer,
+        SphericalIndexerConfig,
+    )
+    from latice_tpu_torch.index.spherical import projection_tables
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.serve import make_server
+    from latice_tpu_torch.sim import (
+        DetectorGeometry,
+        hexagonal_reflectors,
+        make_kinematical_master,
+        render_from_master,
+    )
+
+    root = Path(workdir) / "sphere"
+    root.mkdir()
+    os.environ["LATICE_TPU_TORCH_SHT_CACHE"] = str(root / "sht_cache")
+    out = {}
+
+    def cli(argv) -> dict:
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            index_main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+        lines = stdout.getvalue().strip().splitlines()
+        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
+
+    # 1. The master and 1,024 renders on the card, against the CPU's.
+    t0 = time.perf_counter()
+    fcc = make_kinematical_master(size=SPHERE_MASTER)
+    hcp = make_kinematical_master(size=SPHERE_MASTER, reflectors=hexagonal_reflectors(**HCP))
+    master_s = time.perf_counter() - t0
+    truth = _bands_truth(SPHERE_PATTERNS, SPHERE_SEEDS["fcc"])
+    render_from_master(fcc, truth[:64])  # first call: allocations
+    render_s, pats = _events_s(lambda: render_from_master(fcc, truth))
+    cpu = render_from_master(fcc, truth, device="cpu")
+    render_err = float(np.abs(pats - cpu).max())
+    if not render_err <= SPHERE_RENDER_ATOL:
+        raise AssertionError(f"render_from_master card vs CPU: {render_err}")
+    render_tr = _traced(lambda: render_from_master(fcc, truth[:256]))
+    out["render"] = dict(patterns=SPHERE_PATTERNS, s=render_s,
+                         patterns_per_s=SPHERE_PATTERNS / render_s, master_s=master_s,
+                         max_abs_err_vs_cpu=render_err, tolerance=SPHERE_RENDER_ATOL,
+                         per_256=dict(device_ms=render_tr["device_ms"],
+                                      launches=render_tr["launches"],
+                                      wall_ms=render_tr["wall_ms"], top=render_tr["top"]))
+    del cpu
+
+    # 2. The indexer in its three modes, over one shared table build.
+    t0 = time.perf_counter()
+    tables = projection_tables(SPHERE_L, DetectorGeometry(), SPHERE_BIN)
+    tables_s = time.perf_counter() - t0
+    cfg = SphericalIndexerConfig(bandwidth=SPHERE_L, detector_bin=SPHERE_BIN, chunk=SPHERE_CHUNK)
+    refine = dict(grid=False, parabolic="parabolic", newton="newton")
+    modes = {}
+    for mode in SPHERE_MODES:
+        t0 = time.perf_counter()
+        ix = SphericalIndexer(fcc, None, dataclasses.replace(cfg, refine=refine[mode]),
+                              tables=tables)
+        setup_s = time.perf_counter() - t0
+        ix.index_patterns(pats[:SPHERE_CHUNK])  # first call: allocations
+        s, res = _events_s(lambda: ix.index_patterns(pats))
+        readings = sphere_readings(_disorientation_deg(res.quaternions, truth))
+        _hold_sphere_readings(mode, readings, JAX_SPHERE[mode])
+        modes[mode] = dict(ix=ix, res=res)
+        out[mode] = dict(s=s, patterns_per_s=SPHERE_PATTERNS / s, setup_s=setup_s, **readings,
+                         mean_score=float(res.scores.mean()), jax=JAX_SPHERE[mode])
+    newton = modes["newton"]["ix"]
+    out["tables"] = dict(build_s=tables_s, kept_degrees=len(newton._l_keep),
+                         memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    pc = torch.from_numpy(pats[:SPHERE_CHUNK]).cuda()
+    out["per_chunk_64"] = _sphere_stages(newton, pc)
+    del pc
+
+    # 3. Per pattern, the card against the port's CPU path at L=64 (f32
+    # tables and products there, bf16 tables here).
+    hold = {}
+    for mode in SPHERE_MODES:
+        cpu_ix = SphericalIndexer(fcc, None, dataclasses.replace(cfg, refine=refine[mode]),
+                                  tables=tables, device="cpu")
+        t0 = time.perf_counter()
+        cres = cpu_ix.index_patterns(pats[:SPHERE_HOLD])
+        cpu_s = time.perf_counter() - t0
+        card = modes[mode]["res"]
+        dev = _disorientation_deg(card.quaternions[:SPHERE_HOLD], cres.quaternions)
+        dscore = np.abs(card.scores[:SPHERE_HOLD] - cres.scores)
+        hold[mode] = dict(patterns=SPHERE_HOLD, cpu_s=cpu_s, max_deg=float(dev.max()),
+                          median_deg=float(np.median(dev)),
+                          beyond_tolerance=int((dev > SPHERE_HOLD_DEG).sum()),
+                          max_score_diff=float(dscore.max()), tolerance_deg=SPHERE_HOLD_DEG,
+                          score_tolerance=SPHERE_SCORE_ATOL)
+        if hold[mode]["beyond_tolerance"] > SPHERE_HOLD_OUTLIERS or not (
+                dscore.max() <= SPHERE_SCORE_ATOL):
+            raise AssertionError(f"sphere {mode} card vs CPU: {hold[mode]}")
+        if mode == "newton":
+            camb = cpu_ix.ambiguity(pats[:SPHERE_HOLD], n_cells=SPHERE_AMB_CELLS)
+        del cpu_ix
+    out["vs_cpu"] = hold
+
+    # 4. The ambiguity diagnostic (JAX's γ-first ranking) and multi-phase.
+    amb_s, amb = _events_s(lambda: newton.ambiguity(pats[:SPHERE_AMBIGUITY],
+                                                     n_cells=SPHERE_AMB_CELLS))
+    gap = amb.score_gap[amb.has_rival]
+    amb_read = dict(has_rival=float(amb.has_rival.mean()), median_gap=float(np.median(gap)),
+                    median_angle_deg=float(np.median(amb.angle_deg[amb.has_rival])),
+                    ambiguous=float(amb.ambiguous().mean()))
+    want = JAX_SPHERE["ambiguity"]
+    if not (abs(amb_read["has_rival"] - want["has_rival"]) <= SPHERE_SHARE_SLACK
+            and abs(amb_read["median_gap"] - want["median_gap"]) <= SPHERE_GAP_ATOL
+            and abs(amb_read["ambiguous"] - want["ambiguous"]) <= SPHERE_SHARE_SLACK):
+        raise AssertionError(f"sphere ambiguity {amb_read}, JAX {want}")
+    both = amb.has_rival[:SPHERE_HOLD] & camb.has_rival
+    gap_dev = np.abs(amb.score_gap[:SPHERE_HOLD][both] - camb.score_gap[both])
+    out["ambiguity"] = dict(patterns=SPHERE_AMBIGUITY, s=amb_s, **amb_read, jax=want,
+                            vs_cpu=dict(patterns=SPHERE_HOLD,
+                                        same_rival=float((amb.has_rival[:SPHERE_HOLD]
+                                                          == camb.has_rival).mean()),
+                                        max_gap_diff=float(gap_dev.max(initial=0.0)),
+                                        median_gap_diff=float(np.median(gap_dev))
+                                        if gap_dev.size else 0.0))
+    q_f = _bands_truth(SPHERE_MULTI, SPHERE_SEEDS["multi_fcc"])
+    q_h = _bands_truth(SPHERE_MULTI, SPHERE_SEEDS["multi_hcp"])
+    mixed = np.concatenate([render_from_master(fcc, q_f), render_from_master(hcp, q_h)])
+    multi_ix = MultiPhaseSphericalIndexer([fcc, hcp], None, cfg, symmetries=["432", "622"],
+                                          tables=tables)
+    multi_s, mres = _events_s(lambda: multi_ix.index_patterns(mixed))
+    phase_truth = np.repeat([0, 1], SPHERE_MULTI)
+    wrong = int((mres.phase != phase_truth).sum())
+    multi = dict(patterns=len(mixed), s=multi_s, phase_wrong=wrong,
+                 jax_phase_wrong=JAX_SPHERE["multi"]["phase_wrong"])
+    for pid, (group, q) in enumerate((("432", q_f), ("622", q_h))):
+        m = phase_truth == pid
+        multi[group] = sphere_readings(_disorientation_deg(mres.quaternions[m], q, group))
+        _hold_sphere_readings(f"multi-phase {group}", multi[group], JAX_SPHERE["multi"][group])
+    if wrong > JAX_SPHERE["multi"]["phase_wrong"] + SPHERE_SHARE_SLACK * len(mixed):
+        raise AssertionError(f"sphere multi-phase: {wrong} in the wrong phase (JAX "
+                             f"{JAX_SPHERE['multi']['phase_wrong']})")
+    out["multi_phase"] = multi
+    del multi_ix, mixed, tables
+    for m in modes.values():
+        m.pop("ix")
+    torch.cuda.empty_cache()
+
+    # 5. The CLI: simulate --master --fit-bands over the 2-degree grid,
+    # build, query --engine fused --refine 10 of 4,096 (the path's K2f and
+    # K1 launches), learn-master, sphere --ang.
+    master_npy = str(root / "fcc_master.npy")
+    np.save(master_npy, fcc)
+    grid = Path(workdir) / "dictionary" / "grid.txt"
+    steps = {}
+    if not grid.exists():  # --sphere-only runs no dictionary phase
+        grid = root / "grid.txt"
+        steps["sample"] = cli(["sample", "--group", DICT_GROUP, "--resolution",
+                               str(DICT_RESOLUTION), "--out", str(grid)])
+    dict_npy = str(root / "master_dict.npy")
+    steps["simulate"] = cli(["simulate", "--angles", str(grid), "--master", master_npy,
+                             "--fit-bands", "--uint8", "--out", dict_npy])
+    sim_sum = steps["simulate"]["summary"]
+    meta = json.loads(Path(dict_npy + ".simmeta.json").read_text())
+    if not (sim_sum["n_patterns"] == GRID_ROWS and meta["kind"] == "master_fit"
+            and sim_sum["fit_ncc"] > SPHERE_FIT_NCC_MIN):
+        raise AssertionError(f"simulate --master --fit-bands: {sim_sum}")
+    dict_u8 = np.load(dict_npy)
+    query_npy = str(root / "query.npy")
+    np.save(query_npy, dict_u8[:CLI_QUERY])
+    db, oriented = str(root / "db.npz"), str(root / "orientations.npy")
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    steps["build"] = cli(["build", "--patterns", dict_npy, "--angles", str(grid), "--db", db]
+                         + common)
+    steps["query"] = cli(["query", "--patterns", query_npy, "--db", db, "--out", oriented,
+                          "--engine", "fused", "--refine", "10"] + common)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    build_batches, query_batches = -(-GRID_ROWS // BATCH), CLI_QUERY // BATCH
+    want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
+                     "cosine_topk_fused": query_batches}
+    if launches != want_launches:
+        raise AssertionError(f"sphere CLI launches {launches}, want {want_launches}")
+    q_sum = steps["query"]["summary"]
+    angles = parse_angle_file(str(grid))
+    q_err = _disorientation_deg(np.load(oriented), angles[:CLI_QUERY])
+    if not (q_sum.get("refine_steps") == 10 and np.all(np.isfinite(q_err))):
+        raise AssertionError(f"query --refine of the master dictionary: {q_sum}")
+    learn_npy, learn_angles = str(root / "learn_patterns.npy"), str(root / "learn_angles.txt")
+    np.save(learn_npy, dict_u8[:CLI_QUERY])
+    write_anglefile(learn_angles, angles[:CLI_QUERY])
+    # Half the source's edge (257, learn-master's default at full width):
+    # every other source pixel lies on the learned grid.
+    size = (SPHERE_MASTER - 1) // 2 + 1
+    steps["learn_master"] = cli(["learn-master", "--patterns", learn_npy, "--angles",
+                                 learn_angles, "--size", str(size),
+                                 "--out", str(root / "learned.npy")])
+    learned = np.load(root / "learned.npy")
+    src = fcc[::2, ::2]
+    ij = (np.arange(size) - (size - 1) / 2) / ((size - 1) / 2)
+    disc = (ij[None, :] ** 2 + ij[:, None] ** 2) <= 1.0
+    a_, b_ = learned[disc] - learned[disc].mean(), src[disc] - src[disc].mean()
+    learn_ncc = float(a_ @ b_ / np.sqrt((a_ @ a_) * (b_ @ b_)))
+    if not learn_ncc > SPHERE_LEARN_NCC_MIN:
+        raise AssertionError(f"learn-master NCC to the source master {learn_ncc}")
+    del dict_u8
+    sphere_npy = str(root / "sphere_patterns.npy")
+    np.save(sphere_npy, pats)
+    steps["sphere"] = cli(["sphere", "--patterns", sphere_npy, "--master", master_npy,
+                           "--out", str(root / "sphere.npy"), "--ang", str(root / "sphere.ang"),
+                           "--scan-grid", str(SPHERE_PATTERNS // 32), "32"])
+    cli_eulers = np.load(root / "sphere.npy")
+    if not np.array_equal(cli_eulers, modes["newton"]["res"].eulers_deg):
+        raise AssertionError("index sphere differs from the library's Newton result")
+    if read_ang(str(root / "sphere.ang")).grid != (SPHERE_PATTERNS // 32, 32):
+        raise AssertionError("sphere .ang grid")
+    out["cli"] = dict(steps=steps, launches=launches, fit_ncc=sim_sum["fit_ncc"],
+                      n_fitted_bands=sim_sum["n_fitted_bands"],
+                      query_median_deg=float(np.median(q_err)), learned_master_ncc=learn_ncc)
+
+    # 6. cli.serve --sphere-master alone: /healthz, /sphere, /sphere?ambiguity=1.
+    t0 = time.perf_counter()
+    service = build_service(parse_args(["--sphere-master", master_npy]))
+    build_s = time.perf_counter() - t0
+    warm_s = service.warmup()
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    x = np.round(pats[:SPHERE_AMBIGUITY] * 255.0).astype(np.uint8)
+    try:
+        health = _request(f"{url}/healthz")
+        t0 = time.perf_counter()
+        reply = _request(f"{url}/sphere", _npy(x))
+        sphere_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reply_amb = _request(f"{url}/sphere?ambiguity=1", _npy(x))
+        amb_req_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if health["planes"] != ["sphere"] or health["mode"] != "zero-training":
+        raise AssertionError(f"--sphere-master /healthz: {health}")
+    direct = service._sphere.index_patterns(x)
+    if not (reply["orientations"] == direct.eulers_deg.tolist() and reply["input_dtype"] == "uint8"
+            and reply_amb["orientations"] == reply["orientations"]
+            and len(reply_amb["ambiguity_gap"]) == len(x)):
+        raise AssertionError("/sphere differs from a direct SphericalIndexer call")
+    out["serve"] = dict(patterns=len(x), build_s=build_s, warmup_s=warm_s, sphere_s=sphere_s,
+                        sphere_ambiguity_s=amb_req_s, health=dict(mode=health["mode"],
+                                                                  planes=health["planes"]))
+    del service
+    for m in modes.values():
+        m["res"] = None
+    emit("sphere", card=smi, **out,
+         timed_as="s: CUDA events around the call; ms: CUDA events per call; device_ms: "
+                  "profiler sums; *_s else host wall")
+    return launches
+
+
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
     """``n`` seeded 128x128 float32 patterns in [0, 1]: three bright bands
     (Kikuchi-like lines) each, over a smooth background."""
@@ -2573,6 +3079,16 @@ def main() -> int:
         print(json.dumps({"kernels": [check_stage0(gen)]}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--sphere-only"]:  # the sphere phase alone; no verdict line
+        from latice_tpu_torch.models import VariationalAutoEncoderRawData
+
+        with tempfile.TemporaryDirectory() as workdir:
+            ckpt = f"{workdir}/vae.pt"
+            model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+            torch.save(model.init_weights(torch.Generator().manual_seed(0)).state_dict(), ckpt)
+            phase_sphere(workdir, ckpt, smi)
+        print(smi, flush=True)
+        return 0
     k2f, k1 = check_norm(gen), check_topk(gen)
     k2f["bf16_serve"] = check_norm_serve_bf16(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
@@ -2596,6 +3112,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         bands_launches = phase_bands(workdir, ckpt, smi)
         torch.cuda.empty_cache()
+        sphere_launches = phase_sphere(workdir, ckpt, smi)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
     phase_train_parity()
     phase_train_profile(model)
@@ -2610,6 +3128,7 @@ def main() -> int:
         "preprocess": preprocess_launches,
         "dictionary": dictionary_launches,
         "bands": bands_launches,
+        "sphere": sphere_launches,
         "train": train_launches,
     }
     for k in kernels:

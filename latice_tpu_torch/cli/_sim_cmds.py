@@ -1,17 +1,22 @@
-"""``python -m latice_tpu_torch.cli.index sample/simulate``: the simulation
-plane, the port of ``latice_tpu/cli/_sim_cmds.py``. ``simulate --master``,
-``--fit-bands``, ``master`` and ``learn-master`` wait for the master-pattern
-modules of a later slice."""
+"""``python -m latice_tpu_torch.cli.index sample/simulate/learn-master``:
+the simulation plane, the port of ``latice_tpu/cli/_sim_cmds.py``.
+``simulate --master [--fit-bands]`` renders from a master pattern on the
+device and ``learn-master`` learns one from indexed patterns; ``master``
+(the dynamical Bloch-wave master) waits for a later slice."""
 
 from __future__ import annotations
 
 import json
+import logging
 import time
+from pathlib import Path
 
 import numpy as np
 
-from latice_tpu_torch.cli._common import later_slice
+from latice_tpu_torch.cli._common import _load_raw_pattern_stack, later_slice
 from latice_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 def cmd_sample(args) -> None:
@@ -40,10 +45,101 @@ def cmd_sample(args) -> None:
     )
 
 
+def _fit_master_bands(args, master_img):
+    """Fit the differentiable band model to a master image (`sim.master_fit`)
+    for refinement provenance. The candidate band geometry comes from the
+    master's own ``.mastermeta.json`` phase record when there is one, else
+    from the structure and lattice flags under ``--fit-bands``; returns
+    ``(Reflectors, fit_ncc, source)``, or None when neither applies.
+    Candidates use the Bravais sublattice (fcc for zincblende, hcp for
+    wurtzite): lattice-type extinctions are exact master zeros, and the fit
+    measures what the basis adds."""
+    from latice_tpu_torch.sim import (
+        cubic_reflectors,
+        fit_reflectors_to_master,
+        hexagonal_reflectors,
+    )
+
+    mm = Path(args.master + ".mastermeta.json")
+    if mm.exists():
+        meta = json.loads(mm.read_text())
+        structure = meta["structure"]
+        a, kv, c = meta["lattice"], meta["kv"], meta.get("lattice_c")
+        max_hkl = min(int(meta.get("max_hkl", 4)), 5)
+        min_d = max(float(meta.get("min_d", 0.5)), 0.45)
+        source = "mastermeta"
+    elif args.fit_bands:
+        structure = args.structure
+        a, kv, c = args.lattice, args.kv, args.lattice_c
+        max_hkl, min_d = args.max_hkl, max(args.min_d, 0.45)
+        source = "cli_args"
+    else:
+        return None
+    if structure in ("hcp", "wurtzite"):
+        c = c or (1.587 if structure == "hcp" else 1.626) * a
+        cand = hexagonal_reflectors(a=a, c=c, kv=kv, max_hkl=max_hkl, min_d=min_d)
+    else:
+        cand = cubic_reflectors("fcc" if structure == "zincblende" else structure,
+                                a=a, kv=kv, max_hkl=max_hkl, min_d=min_d)
+    fitted, ncc = fit_reflectors_to_master(np.asarray(master_img), cand)
+    logger.info(f"Fitted {len(fitted)} bands to master (source: {source}, NCC {ncc:.3f}); "
+                "refinement provenance persisted")
+    return fitted, ncc, source
+
+
+def _simulate_master(args, eulers, geometry, device) -> None:
+    """``simulate --master``: render by lookup into a master image on the
+    device (`sim.render_from_master`), with ``kind: master_fit`` provenance
+    when the band model is fitted to the master."""
+    from latice_tpu_torch.sim import render_from_master, resample_square_lambert
+
+    t0 = time.time()
+    master_img = np.load(args.master)
+    if args.master_layout == "square":
+        master_img = resample_square_lambert(master_img)  # one-time import
+    patterns = render_from_master(master_img, eulers, geometry, device=device)
+    if args.uint8:
+        patterns = np.round(patterns * 255.0).astype(np.uint8)
+    dt = time.time() - t0
+    out_path = args.out if args.out.endswith(".npy") else args.out + ".npy"
+    np.save(out_path, patterns)
+    summary = {
+        "n_patterns": len(patterns),
+        "shape": list(patterns.shape[1:]),
+        "master": args.master,
+        "seconds": round(dt, 2),
+        "out": args.out,
+    }
+    fit = _fit_master_bands(args, master_img)
+    if fit is not None:
+        fitted, fit_ncc, source = fit
+        meta = {
+            "kind": "master_fit",
+            "master": args.master,
+            "fit_source": source,
+            "fit_ncc": round(fit_ncc, 4),
+            "size": args.size,
+            "pc": list(args.pc),
+            "tilt": args.tilt,
+            "fitted_bands": {
+                "normals": fitted.normals.tolist(),
+                "sin_theta": fitted.sin_theta.tolist(),
+                "intensity": fitted.intensity.tolist(),
+            },
+        }
+        with open(out_path + ".simmeta.json", "w") as f:
+            json.dump(meta, f)
+        summary.update(fit_ncc=round(fit_ncc, 4), n_fitted_bands=len(fitted),
+                       refine_provenance=True)
+    print(json.dumps(summary))
+
+
 def cmd_simulate(args) -> None:
-    """Render a kinematical dictionary stack from an anglefile on the device
-    (`sim.simulate_patterns`), with a ``.simmeta.json`` provenance sidecar
-    that ``build`` copies into the npz for ``query --refine``."""
+    """Render a dictionary stack from an anglefile on the device: the
+    kinematical band model (`sim.simulate_patterns`), or with ``--master``
+    a lookup into a master image. A ``.simmeta.json`` provenance sidecar,
+    which ``build`` copies into the npz, lets ``query --refine`` rebuild the
+    forward model (for a master, when its bands are fitted)."""
     from latice_tpu_torch.data import parse_angle_file
     from latice_tpu_torch.sim import (
         DetectorGeometry,
@@ -52,14 +148,15 @@ def cmd_simulate(args) -> None:
         simulate_patterns,
     )
 
-    if args.master or args.fit_bands:
-        raise later_slice("simulate --master and --fit-bands", "slice D")
     device = resolve_device(args.device)
     eulers = parse_angle_file(args.angles)
     geometry = DetectorGeometry(
         shape=(args.size, args.size), pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2],
         tilt=args.tilt,
     )
+    if args.master:
+        _simulate_master(args, eulers, geometry, device)
+        return
     if args.structure == "hcp":
         c = args.lattice_c if args.lattice_c else 1.587 * args.lattice
         reflectors = hexagonal_reflectors(
@@ -105,13 +202,54 @@ def cmd_simulate(args) -> None:
     )
 
 
-def cmd_master_planes(args) -> None:
-    raise later_slice(args.cmd, "slice D")
+def cmd_learn_master(args) -> None:
+    """Learn a master pattern FROM indexed patterns on the device
+    (`sim.master_from_patterns`), the inverse of ``simulate --master``: the
+    orientations of any indexing plane (an anglefile, or the ``.ang`` any of
+    them exports) back-project the patterns into a master estimate, which
+    then feeds ``sphere`` or ``simulate --master`` as a simulated one
+    would."""
+    from latice_tpu_torch.data import parse_angle_file, read_ang
+    from latice_tpu_torch.sim import DetectorGeometry, master_from_patterns
+
+    device = resolve_device(args.device)
+    raw = _load_raw_pattern_stack(args)
+    if raw.ndim == 4:
+        raw = raw.reshape(-1, *raw.shape[2:])
+    if args.angles.endswith(".ang"):
+        eulers = read_ang(args.angles).eulers
+    else:
+        eulers = parse_angle_file(args.angles)
+    h, w = raw.shape[1], raw.shape[2]
+    geometry = DetectorGeometry(
+        shape=(h, w), pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt
+    )
+    t0 = time.time()
+    master, weights = master_from_patterns(
+        raw, eulers, geometry, size=args.size, group=args.group or None, device=device
+    )
+    dt = time.time() - t0
+    np.save(args.out, master)
+    covered = float((weights > 1e-9).mean())
+    logger.info(f"learned ({args.size}, {args.size}) master from {len(raw)} patterns in "
+                f"{dt:.1f}s; bin coverage {covered:.1%}")
+    print(json.dumps({
+        "n_patterns": int(len(raw)),
+        "size": args.size,
+        "group": args.group,
+        "coverage": round(covered, 4),
+        "seconds": round(dt, 2),
+        "out": args.out,
+    }))
+
+
+def cmd_master(args) -> None:
+    raise later_slice("master (the dynamical Bloch-wave master, sim/dynamical.py)", "slice D")
 
 
 def register(sub, common) -> None:
-    """Attach the sample and simulate parsers, and the master commands that
-    wait for a later slice."""
+    """Attach the sample, simulate and learn-master parsers, and ``master``,
+    which waits for a later slice."""
     s = sub.add_parser("sample", help="generate a dictionary orientation grid (anglefile)")
     s.add_argument(
         "--group", default="432",
@@ -159,16 +297,57 @@ def register(sub, common) -> None:
         help="write detector-native 8-bit patterns (4x smaller; the index "
         "planes take uint8 as it is and divide on the device)",
     )
-    m.add_argument("--master", default=None, metavar="MASTER.npy",
-                   help="render from a master pattern (waits for slice D)")
-    m.add_argument("--master-layout", default="circle", choices=("circle", "square"),
-                   help="--master image layout (slice D)")
-    m.add_argument("--fit-bands", action="store_true",
-                   help="with --master: fit the band model to the master (slice D)")
+    m.add_argument(
+        "--master", default=None, metavar="MASTER.npy",
+        help="render by lookup into a hemisphere master image (sim.master's "
+        "equal-area convention) instead of the kinematical band model; refinement "
+        "provenance is band-fitted from <master>.mastermeta.json when present, or "
+        "from the structure/lattice args under --fit-bands",
+    )
+    m.add_argument(
+        "--master-layout", default="circle", choices=("circle", "square"),
+        help="--master image layout: 'circle' (sim.master's convention) or 'square' "
+        "(square-Lambert, EMsoft-style; resampled on load)",
+    )
+    m.add_argument(
+        "--fit-bands", action="store_true",
+        help="with --master: fit the differentiable band model to the master from the "
+        "structure/lattice flags and persist it as refinement provenance, so "
+        "`query --refine` works on this dictionary",
+    )
     m.add_argument("--device", default=None, help="torch device (default: cuda)")
     m.set_defaults(fn=cmd_simulate)
 
-    for name, text in (("master", "compute a dynamical (Bloch-wave) master pattern"),
-                       ("learn-master", "learn a master pattern from indexed patterns")):
-        p = sub.add_parser(name, help=f"{text} (waits for slice D)")
-        p.set_defaults(fn=cmd_master_planes, takes_any_arguments=True)
+    dm = sub.add_parser(
+        "master", help="compute a dynamical (Bloch-wave) master pattern (waits for slice D)"
+    )
+    dm.set_defaults(fn=cmd_master, takes_any_arguments=True)
+
+    lm = sub.add_parser(
+        "learn-master",
+        help="learn a master pattern FROM indexed patterns (inverse of `simulate "
+        "--master`; feeds `sphere` / `simulate --master` like a simulated one)",
+    )
+    lm.add_argument("--patterns", required=True,
+                    help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)")
+    lm.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+    lm.add_argument(
+        "--angles", required=True,
+        help="orientations of the patterns: anglefile (zxz degrees; `sample`/`query` "
+        "output) or a .ang file from any indexing plane",
+    )
+    lm.add_argument("--out", default="learned_master.npy")
+    lm.add_argument("--size", type=int, default=257, help="master image edge, px")
+    lm.add_argument(
+        "--group", default="432",
+        help="proper point group: the estimate is symmetrized over its orbit (pass an "
+        "empty string to skip)",
+    )
+    lm.add_argument(
+        "--pc", type=float, nargs=3, default=(0.5, 0.5, 0.7), metavar=("PCX", "PCY", "DD"),
+        help="pattern center + detector distance, detector-width units",
+    )
+    lm.add_argument("--tilt", type=float, default=0.0,
+                    help="detector tilt about the horizontal axis, degrees")
+    lm.add_argument("--device", default=None, help="torch device (default: cuda)")
+    lm.set_defaults(fn=cmd_learn_master, scan_grid=None)

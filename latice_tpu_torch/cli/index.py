@@ -35,12 +35,22 @@ indexing, on the GPU by default.
     python -m latice_tpu_torch.cli.index calibrate --patterns scan.npy \\
         --orientations hough.npy --scan-grid 64 64
 
+    # the master-pattern plane: a dictionary rendered from a master (its
+    # bands fitted for --refine), a master learned from an indexed scan,
+    # and dictionary-free spherical indexing against masters
+    python -m latice_tpu_torch.cli.index simulate --angles grid.txt \\
+        --master master.npy --fit-bands --out dict.npy
+    python -m latice_tpu_torch.cli.index learn-master --patterns scan.npy \\
+        --angles scan.ang --out learned.npy
+    python -m latice_tpu_torch.cli.index sphere --patterns scan.npy \\
+        --master fcc.npy --master hcp.npy --group 432 --group 622 --ang scan.ang
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model runs
-at ``16-mixed`` (bf16 autocast). ``master``, ``learn-master``, ``strain``
-and the remaining commands of the JAX package's ``index.py`` wait for later
-slices.
+at ``16-mixed`` (bf16 autocast). ``master`` (the dynamical master),
+``strain`` and the remaining commands of the JAX package's ``index.py`` wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -51,7 +61,14 @@ import logging
 
 def main(argv=None) -> None:
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run the command."""
-    from latice_tpu_torch.cli import _band_cmds, _db_cmds, _di_cmds, _sim_cmds, _strain_cmds
+    from latice_tpu_torch.cli import (
+        _band_cmds,
+        _db_cmds,
+        _di_cmds,
+        _sim_cmds,
+        _sphere_cmds,
+        _strain_cmds,
+    )
 
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -68,6 +85,7 @@ def main(argv=None) -> None:
     _sim_cmds.register(sub, common)
     _di_cmds.register(sub, common)
     _band_cmds.register(sub, common)
+    _sphere_cmds.register(sub, common)
     _strain_cmds.register(sub, common)
     # A command that waits for a later slice takes any arguments and refuses.
     args, extra = parser.parse_known_args(argv)

@@ -12,6 +12,9 @@
     # the zero-training band plane alone: /hough and /quality
     python -m latice_tpu_torch.cli.serve --hough --pc 0.5 0.5 0.7 &
 
+    # dictionary-free spherical indexing alone: /sphere (?ambiguity=1)
+    python -m latice_tpu_torch.cli.serve --sphere-master master.npy &
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model
@@ -21,10 +24,12 @@ builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
 the weights of a ``.pt`` under ``--checkpoint-root``. In pattern-DI mode
 ``/encode`` and ``/reload`` answer 400. ``/quality`` (the Hough IQ) answers
 in every mode; ``--hough`` adds ``/hough`` (band indexing with cubic
-reflectors at ``--pc``/``--tilt``, reduced in ``--group``) and may run
-without ``--db`` and ``--checkpoint``, the zero-training mode, where
-``/index``, ``/encode`` and ``/reload`` answer 400. ``/sphere`` and
-``/strain`` (``--sphere-master``, ``--strain-ref``) wait for a later slice.
+reflectors at ``--pc``/``--tilt``, reduced in ``--group``) and
+``--sphere-master`` adds ``/sphere`` (spherical-harmonic indexing against
+the master at ``--sphere-bandwidth``, same geometry and group); with either
+the server may run without ``--db`` and ``--checkpoint``, the zero-training
+mode, where ``/index``, ``/encode`` and ``/reload`` answer 400. ``/strain``
+(``--strain-ref``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import argparse
 import json
 import logging
 import os
+
+import numpy as np
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -88,18 +95,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     # The zero-training planes: no checkpoint, no dictionary.
     p.add_argument(
         "--pc", type=float, nargs=3, default=(0.5, 0.5, 0.7), metavar=("PCX", "PCY", "DD"),
-        help="detector geometry of the /hough plane (pattern center + distance, width units)",
+        help="detector geometry of the /hough and /sphere planes (pattern center + "
+        "distance, width units)",
     )
     p.add_argument("--tilt", type=float, default=0.0,
-                   help="detector tilt (degrees) of the /hough plane")
-    p.add_argument("--group", default="432", help="point group of /hough's FZ reduction")
+                   help="detector tilt (degrees) of the zero-training planes")
+    p.add_argument("--group", default="432",
+                   help="point group of /hough's and /sphere's FZ reduction")
     p.add_argument(
         "--hough", action="store_true",
         help="enable POST /hough: band-based orientation indexing with cubic reflectors at "
         "--pc (zero training; runs without --db)",
     )
-    p.add_argument("--sphere-master", default=None, metavar="MASTER.npy",
-                   help="POST /sphere (waits for a later slice)")
+    p.add_argument(
+        "--sphere-master", default=None, metavar="MASTER.npy",
+        help="enable POST /sphere: spherical-harmonic indexing against this master "
+        "pattern (zero training; runs without --db)",
+    )
+    p.add_argument("--sphere-bandwidth", type=int, default=64,
+                   help="spherical-harmonic band limit L of /sphere (default %(default)s)")
     p.add_argument("--strain-ref", default=None, metavar="REF.npy",
                    help="POST /strain (waits for a later slice)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -124,22 +138,23 @@ def build_service(args: argparse.Namespace):
     device, the precision the JAX CLI builds its model at) over the ``--db``
     dictionary, with a ``/reload`` loader (`models.load_checkpoint` at
     ``16-mixed``). Pattern-DI mode (``--di-dict``): the stacks and angles,
-    no model. ``--hough`` adds an `index.HoughIndexer` to either, or serves
-    it alone without ``--db`` (zero-training mode). Binds no socket."""
+    no model. ``--hough`` adds an `index.HoughIndexer` and
+    ``--sphere-master`` an `index.SphericalIndexer` to either, or they
+    serve alone without ``--db`` (zero-training mode). Binds no socket."""
     from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks, later_slice
     from latice_tpu_torch.data import parse_preprocess_spec
     from latice_tpu_torch.device import resolve_device
     from latice_tpu_torch.index import (
         HoughIndexer,
         LatentVectorDatabaseConfig,
+        SphericalIndexer,
+        SphericalIndexerConfig,
         TorchLatentVectorDatabase,
     )
     from latice_tpu_torch.models import load_checkpoint
     from latice_tpu_torch.serve import IndexService
     from latice_tpu_torch.sim import DetectorGeometry, cubic_reflectors
 
-    if args.sphere_master:
-        raise later_slice("--sphere-master (/sphere)", "slice D")
     if args.strain_ref:
         raise later_slice("--strain-ref (/strain)", "slice D")
     preprocess = None
@@ -164,10 +179,16 @@ def build_service(args: argparse.Namespace):
         nlpar_radius=args.nlpar_radius,
         device=device,
     )
+    geometry = DetectorGeometry(pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt)
     if args.hough:
-        geometry = DetectorGeometry(pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt)
         common["hough_indexer"] = HoughIndexer(
             cubic_reflectors(), geometry, group=args.group, device=device
+        )
+    if args.sphere_master:
+        common["sphere_indexer"] = SphericalIndexer(
+            np.load(args.sphere_master), geometry,
+            SphericalIndexerConfig(bandwidth=args.sphere_bandwidth, symmetry=args.group),
+            device=device,
         )
     if args.di_dict:
         if args.db:
@@ -180,10 +201,10 @@ def build_service(args: argparse.Namespace):
             **common,
         )
     if not args.db:
-        if not args.hough:
+        if not (args.hough or args.sphere_master):
             raise SystemExit(
-                "pass --db (latent engine), --di-dict (pattern DI) or --hough (the "
-                "zero-training band plane)"
+                "pass --db (latent engine), --di-dict (pattern DI), or at least one "
+                "zero-training plane (--hough / --sphere-master)"
             )
         return IndexService(None, None, **common)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)

@@ -1,6 +1,6 @@
 """Search, consensus, the end-to-end pipeline, the dictionary database, the
-indexer around it, pattern-space dictionary indexing and band-based (Hough)
-indexing."""
+indexer around it, pattern-space dictionary indexing, band-based (Hough)
+indexing and dictionary-free spherical-harmonic indexing."""
 
 from latice_tpu_torch.index.chroma_db import ChromaLatentVectorDatabase
 from latice_tpu_torch.index.consensus import ConsensusOutput, consensus_orientations
@@ -41,6 +41,13 @@ from latice_tpu_torch.index.pattern_di import (
 )
 from latice_tpu_torch.index.pipeline import DenseIndexResult, IndexPipeline, concat_dense_results
 from latice_tpu_torch.index.result import OrientationResult
+from latice_tpu_torch.index.spherical import (
+    MultiPhaseSphericalIndexer,
+    MultiPhaseSphericalResult,
+    SphericalIndexer,
+    SphericalIndexerConfig,
+    SphericalResult,
+)
 
 __all__ = [
     "AmbiguityResult",
@@ -59,7 +66,12 @@ __all__ = [
     "MultiPhaseHoughIndexer",
     "MultiPhaseHoughResult",
     "OrientationResult",
+    "MultiPhaseSphericalIndexer",
+    "MultiPhaseSphericalResult",
     "PatternDictionaryIndexer",
+    "SphericalIndexer",
+    "SphericalIndexerConfig",
+    "SphericalResult",
     "StreamedPatternDI",
     "TorchLatentVectorDatabase",
     "band_plane_normals",

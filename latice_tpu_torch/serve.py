@@ -14,10 +14,12 @@ The port of ``latice_tpu.serve``:
   raw dictionary stack (`index.PatternDictionaryIndexer`), with no model;
 * with ``nlpar_h``, a 4-D ``(R, C, H, W)`` body is a scan, NLPAR-denoised
   (`data.nlpar_denoise`) before it is indexed row by row;
-* the zero-training band plane: ``/quality`` (the Hough IQ of
+* the zero-training planes: ``/quality`` (the Hough IQ of
   `data.BandDetector`, whose detector is built at its first request) in
-  every mode, and ``/hough`` (`index.HoughIndexer`) with ``hough_indexer``.
-  With a Hough indexer the service runs without a model and a dictionary.
+  every mode, ``/hough`` (`index.HoughIndexer`) with ``hough_indexer`` and
+  ``/sphere`` (`index.SphericalIndexer`, dictionary-free) with
+  ``sphere_indexer``. With either the service runs without a model and a
+  dictionary.
 
 Endpoints:
   GET  /healthz -> {"status": "ok", "mode": "latent" | "pattern-di" |
@@ -35,7 +37,12 @@ Endpoints:
   POST /hough   -> body: .npy patterns; reply: {"orientations": ...,
                    "success": ..., "fit_deg": ..., "iq": ...}; 400 without
                    a Hough indexer
-  POST /sphere, /strain -> 400: they wait for a later slice
+  POST /sphere  -> body: .npy patterns; reply: {"orientations": ...,
+                   "scores": ...} (and "phase" multi-phase); with
+                   ?ambiguity=1 also "ambiguity_angle_deg",
+                   "ambiguity_gap", "ambiguity_has_rival"; 400 without a
+                   spherical indexer
+  POST /strain  -> 400: it waits for a later slice
 
 Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
 ``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
@@ -102,6 +109,9 @@ class IndexService:
             it, ``model``, ``db`` and ``di_dictionary`` may all be None
             (zero-training mode: ``/index``, ``/encode`` and ``/reload``
             answer 400).
+        sphere_indexer: optional `index.SphericalIndexer` (or
+            `index.MultiPhaseSphericalIndexer`) enabling ``POST /sphere``;
+            like ``hough_indexer``, it may serve alone (zero-training mode).
         device: ``cuda`` unless given; a missing CUDA device raises.
     """
 
@@ -124,12 +134,14 @@ class IndexService:
         di_dictionary: tuple | None = None,
         di_bin: int = 1,
         hough_indexer=None,
+        sphere_indexer=None,
         device: str | torch.device | None = None,
     ) -> None:
-        if di_dictionary is None and (model is None or db is None) and hough_indexer is None:
+        if (di_dictionary is None and (model is None or db is None) and hough_indexer is None
+                and sphere_indexer is None):
             raise ValueError(
-                "pass model and db, di_dictionary for pattern-DI mode, or hough_indexer "
-                "for the zero-training band plane"
+                "pass model and db, di_dictionary for pattern-DI mode, or hough_indexer or "
+                "sphere_indexer for a zero-training plane"
             )
         self.device = resolve_device(device)
         phase_kw = {}
@@ -160,6 +172,7 @@ class IndexService:
         self._di = di_dictionary
         self._di_bin = int(di_bin)
         self._hough = hough_indexer
+        self._sphere = sphere_indexer
         self._quality_detector = None
         zero_training = di_dictionary is None and (model is None or db is None)
         self.pipeline = None if zero_training else self._build_pipeline(model)
@@ -197,8 +210,8 @@ class IndexService:
     def _need_pipeline(self) -> None:
         if self.pipeline is None:
             raise ValueError(
-                "this server runs only the zero-training band plane (no dictionary or "
-                "checkpoint loaded); POST /hough or /quality"
+                "this server runs only zero-training planes (no dictionary or checkpoint "
+                "loaded); POST /hough, /sphere or /quality"
             )
 
     def reload(self, checkpoint: str) -> dict:
@@ -226,8 +239,9 @@ class IndexService:
 
     def warmup(self) -> float:
         """Run one dummy batch of each input dtype through the pipeline,
-        which builds the kernels on first use, and one through the Hough
-        indexer; returns seconds. ``/encode`` runs the same encoder."""
+        which builds the kernels on first use, and one through each
+        zero-training indexer; returns seconds. ``/encode`` runs the same
+        encoder."""
         t0 = time.time()
         h, w = self.image_size
         with self._lock:
@@ -236,6 +250,8 @@ class IndexService:
                     self.pipeline(np.zeros((1, h, w), dtype))
             if self._hough is not None:
                 self._hough(np.zeros((1, h, w), np.float32))
+            if self._sphere is not None:
+                self._sphere.index_patterns(np.zeros((1, h, w), np.float32))
         dt = time.time() - t0
         logger.info(f"warmup ran the served paths in {dt:.1f}s")
         return dt
@@ -358,11 +374,50 @@ class IndexService:
             out["phase"] = res.phase.tolist()
         return out
 
+    def sphere(self, patterns: np.ndarray, ambiguity: bool = False) -> dict:
+        """Spherical-harmonic SO(3) indexing (`index.SphericalIndexer`):
+        dictionary-free, only a master pattern and the geometry.
+
+        ``ambiguity`` (``POST /sphere?ambiguity=1``) also runs the
+        secondary-peak pseudo-symmetry diagnostic (a second correlation
+        pass) and adds ``ambiguity_angle_deg``, ``ambiguity_gap`` and
+        ``ambiguity_has_rival`` (NaN as null). A multi-phase server
+        diagnoses against its first master."""
+        if self._sphere is None:
+            raise ValueError(
+                "server started without a spherical indexer (cli.serve --sphere-master)"
+            )
+        x = prepare_patterns(patterns, self.image_size)
+        t0 = time.time()
+        with self._lock:
+            res = self._sphere.index_patterns(x)
+            amb = None
+            if ambiguity:
+                amb = getattr(self._sphere, "indexers", [self._sphere])[0].ambiguity(x)
+            self.requests += 1
+            self.patterns_indexed += len(x)
+        out = {
+            "n": int(len(x)),
+            "orientations": res.eulers_deg.tolist(),
+            "scores": res.scores.tolist(),
+            "seconds": time.time() - t0,
+            "input_dtype": str(x.dtype),
+        }
+        if getattr(res, "phase", None) is not None:
+            out["phase"] = res.phase.tolist()
+        if amb is not None:
+            def nan_null(a):
+                return [None if np.isnan(v) else float(v) for v in a]
+
+            out["ambiguity_angle_deg"] = nan_null(amb.angle_deg)
+            out["ambiguity_gap"] = nan_null(amb.score_gap)
+            out["ambiguity_has_rival"] = amb.has_rival.tolist()
+        return out
+
     def later_plane(self, patterns: np.ndarray) -> dict:
-        """``/sphere`` and ``/strain``: not ported yet."""
+        """``/strain``: not ported yet."""
         raise ValueError(
-            "/sphere and /strain are not ported to latice_tpu_torch yet; they wait for a "
-            "later slice"
+            "/strain is not ported to latice_tpu_torch yet; it waits for a later slice"
         )
 
     def health(self) -> dict:
@@ -377,6 +432,8 @@ class IndexService:
         planes = ["index"] if self.pipeline is not None else []
         if self._hough is not None:
             planes.append("hough")
+        if self._sphere is not None:
+            planes.append("sphere")
         return {
             "status": "ok",
             "mode": mode,
@@ -460,19 +517,26 @@ class _Handler(BaseHTTPRequestHandler):
             "/encode": self.service.encode,
             "/quality": self.service.quality,
             "/hough": self.service.hough,
-            "/sphere": self.service.later_plane,
+            "/sphere": self.service.sphere,
             "/strain": self.service.later_plane,
         }
-        if self.path not in routes:
+        path, _, query = self.path.partition("?")
+        if path not in routes:
             self._reply(404, {"error": f"unknown path {self.path}"})
             return
+        kwargs = {}
+        if path == "/sphere" and query:
+            from urllib.parse import parse_qs
+
+            amb = parse_qs(query).get("ambiguity", ["0"])[-1].lower()
+            kwargs["ambiguity"] = amb in ("1", "true", "yes")
         try:
             patterns = np.load(io.BytesIO(self.rfile.read(length)), allow_pickle=False)
         except Exception as e:  # a malformed body must not kill the server
             self._reply(400, {"error": f"body must be .npy bytes: {e}"})
             return
         try:
-            self._reply(200, routes[self.path](patterns))
+            self._reply(200, routes[path](patterns, **kwargs))
         except ValueError as e:
             self._reply(400, {"error": str(e)})
         except Exception as e:

@@ -179,10 +179,12 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
     assert cosine_topk_fused.launches == 0
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """What the port still refuses: ``mesh`` (slice C), the DB's ``native``
-    engine (slice E), the ``strain`` command and the server's ``/sphere``
-    and ``/strain`` planes (a later slice)."""
+    engine (slice E), the ``strain`` command and the server's ``/strain``
+    plane (a later slice). ``--sphere-master`` and ``/sphere``, once refused
+    here, serve: the flag alone builds a zero-training service whose
+    ``/sphere`` answers."""
     from latice_tpu_torch import (
         IndexPipeline,
         IndexService,
@@ -201,15 +203,23 @@ def test_unported_options_raise():
         TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
     with pytest.raises(SystemExit, match="later slice"):
         index_main(["strain", "--patterns", "p.npy", "--ref", "3", "--device", "cpu"])
-    for flag in ("--sphere-master", "--strain-ref"):
-        with pytest.raises(SystemExit, match="later slice"):
-            serve_cli.build_service(serve_cli.parse_args(["--hough", flag, "m.npy",
-                                                          "--device", "cpu"]))
+    with pytest.raises(SystemExit, match="later slice"):
+        serve_cli.build_service(serve_cli.parse_args(["--hough", "--strain-ref", "m.npy",
+                                                      "--device", "cpu"]))
+    from latice_tpu_torch.sim import make_kinematical_master
+
+    np.save(tmp_path / "m.npy", make_kinematical_master(size=65))
+    sphere = serve_cli.build_service(serve_cli.parse_args(
+        ["--sphere-master", str(tmp_path / "m.npy"), "--sphere-bandwidth", "8",
+         "--device", "cpu"]))
+    assert sphere.health()["planes"] == ["sphere"] and sphere.pipeline is None
+    reply = sphere.sphere(np.random.default_rng(0).random((2, 128, 128), np.float32))
+    assert reply["n"] == 2 and len(reply["orientations"]) == 2
     db = TorchLatentVectorDatabase(
         LatentVectorDatabaseConfig(npz_path="/nonexistent/none.npz", dimension=4), device="cpu"
     )
     db.add_vectors(vecs, orients)
-    # /sphere and /strain route to this refusal (400).
+    # /strain routes to this refusal (400).
     with pytest.raises(ValueError, match="later slice"):
         IndexService(model, db, device="cpu").later_plane(np.zeros((1, 32, 32), np.float32))
     with pytest.raises(ValueError, match="unknown engine"):

@@ -9,8 +9,10 @@ CPU, at 64x64 over HTTP.
 * ``/quality`` builds its detector at its first request and answers JAX's
   IQ within 1e-5 and its band counts exactly;
 * ``/healthz`` reports the zero-training mode and its planes; ``/index``,
-  ``/encode`` and ``/reload`` answer 400, and so do ``/sphere`` and
-  ``/strain``, which wait for a later slice.
+  ``/encode`` and ``/reload`` answer 400, and so do ``/sphere`` (this
+  server has no spherical indexer) and ``/strain`` (a later slice);
+  ``--sphere-master`` alone builds the zero-training service that serves
+  ``/sphere`` (`test_torch_serve_sphere.py` holds it to JAX).
 """
 
 import io
@@ -126,17 +128,23 @@ def test_zero_training_health_and_refusals(plane):
         assert code == 400 and "zero-training" in msg
     code, msg = _error(url + "/reload", json.dumps({"checkpoint": "vae.pt"}).encode())
     assert code == 400 and "zero-training" in msg
-    for path in ("/sphere", "/strain"):
-        code, msg = _error(url + path, body)
-        assert code == 400 and "later slice" in msg
+    code, msg = _error(url + "/sphere", body)
+    assert code == 400 and "without a spherical indexer" in msg
+    code, msg = _error(url + "/strain", body)
+    assert code == 400 and "later slice" in msg
 
 
-def test_serve_cli_modes():
+def test_serve_cli_modes(tmp_path):
     with pytest.raises(SystemExit, match="--hough"):
         serve_cli.build_service(serve_cli.parse_args(["--device", "cpu"]))
-    for flag in ("--sphere-master", "--strain-ref"):
-        with pytest.raises(SystemExit, match="later slice"):
-            serve_cli.build_service(serve_cli.parse_args(["--hough", flag, "x.npy",
-                                                          "--device", "cpu"]))
+    with pytest.raises(SystemExit, match="later slice"):
+        serve_cli.build_service(serve_cli.parse_args(["--hough", "--strain-ref", "x.npy",
+                                                      "--device", "cpu"]))
+    # --sphere-master, once refused, adds /sphere beside /hough.
+    np.save(tmp_path / "m.npy", tsim.make_kinematical_master(size=65))
+    both = serve_cli.build_service(serve_cli.parse_args(
+        ["--hough", "--sphere-master", str(tmp_path / "m.npy"), "--sphere-bandwidth", "8",
+         "--device", "cpu"]))
+    assert both.health()["planes"] == ["hough", "sphere"]
     with pytest.raises(ValueError, match="hough_indexer"):
         IndexService(None, None, device="cpu")
