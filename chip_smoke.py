@@ -5,7 +5,7 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 15, 16 and 17, on the serve phase's files, before 7):
+10, 11, 14, 15, 16, 17 and 18, on the serve phase's files, before 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -122,14 +122,30 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
     master), ``sphere --ang`` of 1,024 (equal to the library's Newton); a
     ``cli.serve --sphere-master`` server's ``/sphere`` of 256 with and
     without ``?ambiguity=1``.
+18. strain: HR-EBSD and the scan readers at bench.py's hrebsd row
+    (128x128, the 21 default ROIs of 64x64, kappa 20, chunk 128).
+    `hrebsd_map` on 512 seeded truth patterns (strains to 2e-3, rotations
+    to 3 degrees) with 0 and 1 remap passes, without and with the Ni
+    stiffness, held to the JAX package's readings on the same inputs
+    (examples/hrebsd_jax_reference.py) and, on 64, to the port's CPU path
+    stage by stage; the JAX suite's two anchors at 256x256 at 1e-4; the
+    warp, `_xcorr_shifts` and the solve of one chunk timed (CUDA events,
+    profiler) with their bounds, and `hrebsd_map` over a 64x64 uint8 scan
+    (patterns/s, idle share); then ``strain --patterns scan.up2 --ref 0
+    --stiffness ni --remap 1`` (equal to the library on its frames), a
+    ``cli.serve --strain-ref`` server's ``/strain`` of 256 (equal to the
+    library), and ``build`` + ``query --engine fused`` of the ``.up2`` scan
+    (10 InstanceNorm launches per build and query batch, 1 top-k launch
+    per query batch, the header's 64x64 grid in the ``.ang``).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
 and a sweep of its launch plan, and prints no verdict line;
 ``--stage0-only`` runs phases 1 and 2 and the stage-0 kernel's checks and
-times, and prints no verdict line; ``--sphere-only`` runs phases 1, 2 and
-17 (with a seeded checkpoint of its own), and prints no verdict line.
+times, and prints no verdict line; ``--sphere-only`` and ``--strain-only``
+run phases 1, 2 and 17 or 18 (with a seeded checkpoint of their own), and
+print no verdict line.
 Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
 and the port's f32 models turn it off around their own forward and
 backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
@@ -294,6 +310,150 @@ JAX_SPHERE = {
             "within_1deg": 1.0, "within_2deg": 1.0, "within_4deg": 1.0},
     },
 }
+
+
+# strain: HR-EBSD at bench.py's `bench_hrebsd_throughput` configuration (a
+# 128x128 detector, the 21 default ROIs of 64x64, kappa 20, chunk 128) on
+# synthetic patterns from tests/test_hrebsd.py's direction-function oracle:
+# 512 truth patterns (strains up to 2e-3, rotations up to 3 degrees, f32),
+# a 64x64 scan of 4,096 uint8 patterns (the truth set tiled) for timing, 64
+# held against the port's CPU path, 256 POSTed to /strain.
+STRAIN_SIZE, STRAIN_ROI, STRAIN_UPSAMPLE, STRAIN_CHUNK = 128, 64, 20, 128
+STRAIN_TRUTH, STRAIN_SCAN_SIDE, STRAIN_HOLD, STRAIN_SERVE = 512, 64, 64, 256
+STRAIN_SEED, STRAIN_MAX, STRAIN_ROT_MAX_DEG = 50, 2e-3, 3.0
+STRAIN_CONFIGS = {  # hrebsd_map's remap passes and stiffness (crystal frame = detector frame)
+    "remap0": dict(remap_iterations=0, stiffness=None),
+    "remap1": dict(remap_iterations=1, stiffness=None),
+    "remap0_ni": dict(remap_iterations=0, stiffness="ni"),
+    "remap1_ni": dict(remap_iterations=1, stiffness="ni"),
+}
+# Card against the port's CPU path on STRAIN_HOLD truth patterns
+# (tests/test_torch_hrebsd.py's tolerances), stage by stage: the first pass
+# and the closure end to end, and the remap pass on the same deformation
+# (the CPU's first-pass A). The JAX suite's two anchors against the truth
+# (tests/test_hrebsd.py:180 and :353, 256x256, kappa 50).
+STRAIN_A_ATOL, STRAIN_SHIFT_ATOL, STRAIN_ANCHOR_ATOL = 1e-6, 1e-3, 1e-4
+# The remap pass end to end starts from each device's own first-pass A,
+# which differ by ~4e-7 (cuFFT against pocketFFT). On the CPU alone a 4e-7
+# change of A moves the remap pass's shifts by up to 1.3e-3 px (a fine-grid
+# argmax tie: the parabolic peak jumps) and its A by up to 3.1e-6, so the
+# end-to-end hold is this bound (30x under the configuration's median
+# error), with the acceptance decisions equal where their margin exceeds
+# STRAIN_ACCEPT_MARGIN_PX.
+STRAIN_REMAP_A_ATOL, STRAIN_REMAP_SHIFT_ATOL, STRAIN_ACCEPT_MARGIN_PX = 1e-4, 5e-3, 1e-3
+# Against the JAX package's readings on the same inputs: the median error at
+# most STRAIN_MEDIAN_SLACK above, the largest at most STRAIN_MAX_SLACK above,
+# each share at most STRAIN_SHARE_SLACK below, the mean quality and median
+# residual within STRAIN_QUALITY_ATOL and STRAIN_RESIDUAL_ATOL px.
+STRAIN_MEDIAN_SLACK, STRAIN_MAX_SLACK, STRAIN_SHARE_SLACK = 1e-5, 1e-4, 0.01
+STRAIN_QUALITY_ATOL, STRAIN_RESIDUAL_ATOL = 1e-4, 1e-3
+# The JAX package's readings on this phase's truth patterns, on the CPU
+# (examples/hrebsd_jax_reference.py). No pattern lands within 1e-4 at this
+# configuration: the 64x64 ROIs' rings reach only 30 px from the pattern
+# center, where the projective a31/a32 terms move features by ~0.02 px, under
+# the kappa-20 grid's 0.05 px; those two components carry most of the error
+# (the port's CPU path on 128 of these patterns, one remap pass: median
+# 2.2e-3 and 1.7e-3 against 2.4e-4 to 6.2e-4 in-plane).
+JAX_STRAIN = {
+    "remap0": {"median_err": 0.004156158473969296, "max_err": 0.026091787329571396,
+        "within_1e4": 0.0, "within_5e4": 0.0,
+        "mean_quality": 0.7401827876650108, "median_residual_px": 0.06322850659489632},
+    "remap1": {"median_err": 0.0028495291795351337, "max_err": 0.008708042310502725,
+        "within_1e4": 0.0, "within_5e4": 0.01171875,
+        "mean_quality": 0.8701650694267646, "median_residual_px": 0.015380018390715122},
+    "remap0_ni": {"median_err": 0.004156158473969296, "max_err": 0.026091787329571396,
+        "within_1e4": 0.0, "within_5e4": 0.0,
+        "mean_quality": 0.7401827876650108, "median_residual_px": 0.06322850659489632},
+    "remap1_ni": {"median_err": 0.0028495289273362105, "max_err": 0.008708041627202944,
+        "within_1e4": 0.0, "within_5e4": 0.01171875,
+        "mean_quality": 0.8701650694267646, "median_residual_px": 0.015380018390715122},
+}
+
+
+def _direction_waves(seed: int, n_waves: int = 60):
+    """``(k (n, 3), phase (n,), amp (n,))`` of tests/test_hrebsd.py's
+    `_band_function`: a broadband sum of 3-D cosine waves of the unit
+    scattering direction, ``sum(amp * cos(u @ k.T + phase))``."""
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(n_waves, 3))
+    k /= np.linalg.norm(k, axis=1, keepdims=True)
+    mag = rng.uniform(100.0, 500.0, size=(n_waves, 1))
+    k *= mag
+    phase = rng.uniform(0, 2 * np.pi, n_waves)
+    return k, phase, mag[:, 0] ** -0.5
+
+
+def _direction_function(seed: int):
+    """`_direction_waves` as a function of ``(..., 3)`` unit directions."""
+    k, phase, amp = _direction_waves(seed)
+    return lambda u: (amp * np.cos(u @ k.T + phase)).sum(axis=-1)
+
+
+def _render_deformed(f, size: int, a: np.ndarray | None = None) -> np.ndarray:
+    """tests/test_hrebsd.py's `_render` at the default PC (0.5, 0.5, 0.7):
+    the pattern under deformation gradient ``I + a``, exactly (no image
+    interpolation), float32."""
+    x = (np.arange(size) + 0.5) / size - 0.5
+    r = np.stack([np.broadcast_to(x[None, :], (size, size)),
+                  np.broadcast_to(-x[:, None], (size, size)), np.full((size, size), 0.7)], axis=-1)
+    if a is not None:
+        r = r @ np.linalg.inv(np.eye(3) + a).T
+    return f(r / np.linalg.norm(r, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _rotation_a(theta_deg: float, axis, eps: np.ndarray) -> np.ndarray:
+    """``R(I + eps) - I`` in the solve's ``a33 = 0`` gauge."""
+    from scipy.spatial.transform import Rotation
+
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    a = Rotation.from_rotvec(np.radians(theta_deg) * axis).as_matrix() @ (np.eye(3) + eps)
+    a -= np.eye(3)
+    return a - a[2, 2] * np.eye(3)
+
+
+def strain_truth(n: int = STRAIN_TRUTH, seed: int = STRAIN_SEED, device: str = "cuda"):
+    """``(reference (H, W), patterns (n, H, W) float32, a_true (n, 3, 3))``
+    at ``STRAIN_SIZE``: symmetric strains with components up to
+    `STRAIN_MAX` under rotations up to `STRAIN_ROT_MAX_DEG` about random
+    axes, seeded. `_render_deformed`'s oracle in float64 torch on
+    ``device``, 16 patterns at a time."""
+    rng = np.random.default_rng(seed)
+    k, phase, amp = _direction_waves(seed)
+    a_true = []
+    for _ in range(n):
+        e = rng.uniform(-STRAIN_MAX, STRAIN_MAX, (3, 3))
+        e = 0.5 * (e + e.T)
+        e[2, 2] = 0.0
+        a_true.append(_rotation_a(rng.uniform(0.0, STRAIN_ROT_MAX_DEG), rng.normal(size=3), e))
+    a_true = np.stack(a_true)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=device)  # noqa: E731
+    x = (np.arange(STRAIN_SIZE) + 0.5) / STRAIN_SIZE - 0.5
+    r = t(np.stack([np.broadcast_to(x[None, :], (STRAIN_SIZE,) * 2),
+                    np.broadcast_to(-x[:, None], (STRAIN_SIZE,) * 2),
+                    np.full((STRAIN_SIZE,) * 2, 0.7)], axis=-1).reshape(-1, 3))
+    kt, pt, at = t(k.T), t(phase), t(amp)
+    inv = t(np.linalg.inv(np.eye(3) + np.concatenate([np.zeros((1, 3, 3)), a_true])))
+    out = []
+    for start in range(0, n + 1, 16):
+        rr = r @ inv[start:start + 16].transpose(1, 2)
+        u = rr / rr.norm(dim=-1, keepdim=True)
+        out.append(((torch.cos(u @ kt + pt) * at).sum(dim=-1)).float().cpu())
+    img = torch.cat(out).reshape(n + 1, STRAIN_SIZE, STRAIN_SIZE).numpy()
+    return img[0], img[1:], a_true
+
+
+def strain_readings(a: np.ndarray, a_true: np.ndarray, quality: np.ndarray,
+                    residual_px: np.ndarray) -> dict:
+    """The accuracy readings the strain phase holds to the JAX package's: the
+    median and largest ``max|a - a_true|`` per pattern (``a`` taken back to
+    the ``a33 = 0`` gauge, which a stiffness's closure leaves), the shares
+    under 1e-4 and 5e-4, the mean quality and the median residual (px)."""
+    gauge = a - a[:, 2, 2, None, None] * np.eye(3)
+    err = np.abs(gauge - a_true).max(axis=(1, 2))
+    return dict(median_err=float(np.median(err)), max_err=float(err.max()),
+                within_1e4=float((err < 1e-4).mean()), within_5e4=float((err < 5e-4).mean()),
+                mean_quality=float(np.mean(quality)),
+                median_residual_px=float(np.median(residual_px)))
 
 
 def _bands_truth(n: int, seed: int) -> np.ndarray:
@@ -2770,6 +2930,336 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     return launches
 
 
+def _write_up2(path: str, patterns: np.ndarray, rows: int, cols: int) -> None:
+    """An EDAX ``.up2`` file (version-3 header with the square scan grid,
+    then the frames as little-endian uint16), as `data.up.read_up_header`
+    reads it."""
+    h, w = patterns.shape[1:]
+    with open(path, "wb") as f:
+        f.write(np.asarray([3, w, h, 42], "<u4").tobytes())  # version, width, height, offset
+        f.write(np.uint8(0).tobytes() + np.asarray([cols, rows], "<u4").tobytes())
+        f.write(np.uint8(0).tobytes() + np.asarray([1.0, 1.0], "<f8").tobytes())  # square; steps
+        patterns.astype("<u2").tofile(f)
+
+
+def _strain_stages(ref_dev: torch.Tensor, x: torch.Tensor, a: np.ndarray) -> dict:
+    """Device ms (CUDA events), launches and device busy ms (profiler) of
+    each stage of one chunk of `STRAIN_CHUNK` uint8 patterns, with each
+    stage's bound: the bytes of its operands and results read or written
+    once, and its operations at the FP32 peak."""
+    from latice_tpu_torch import hrebsd as hr
+    from latice_tpu_torch.device import full_f32_matmul
+    from latice_tpu_torch.sim import DetectorGeometry
+
+    geom = DetectorGeometry(shape=(STRAIN_SIZE, STRAIN_SIZE))
+    centers = hr.default_roi_centers(geom, roi_size=STRAIN_ROI)
+    rint = np.rint(centers).astype(int)
+    dev = x.device
+    hann = torch.from_numpy(hr._hann2(STRAIN_ROI)).to(dev)
+    fmask = torch.from_numpy(hr._annular_mask(STRAIN_ROI, 1.5, None)).to(dev)
+    idx = torch.from_numpy(hr._roi_index(rint, STRAIN_ROI, STRAIN_SIZE)).to(dev)
+    base = torch.from_numpy(hr._pixel_screen_vectors(geom)).to(dev)
+    f = torch.from_numpy((np.eye(3) + a).astype(np.float32)).to(dev)
+    pc = torch.tensor([[0.5, 0.5, 0.7]], device=dev).expand(len(x), 3).contiguous()
+    m = torch.from_numpy(hr._design_matrix(hr.roi_position_vectors(geom, centers), geom.dd)
+                         .astype(np.float32)).to(dev)
+    b, n_roi, s = len(x), len(centers), STRAIN_ROI
+    u = 2 * round(STRAIN_UPSAMPLE) + 1
+    panels, px = b * n_roi, b * n_roi * s * s
+    with torch.no_grad(), full_f32_matmul():
+        warped = hr._remap_core(x, f, base, pc)
+        shifts, quality = hr._xcorr_shifts(ref_dev, x, hann, fmask, idx, s, STRAIN_UPSAMPLE, 1.0)
+        q_xy = torch.stack([shifts[..., 1], -shifts[..., 0]], dim=-1) / STRAIN_SIZE
+        stages = {
+            # 3x3 product, projection and four taps per pixel: ~60 operations.
+            "warp": (lambda: hr._remap_core(x, f, base, pc),
+                     x.numel() * x.element_size() + warped.numel() * 4 + base.numel() * 4,
+                     60.0 * x.numel()),
+            # Per panel: two complex 64x64 FFTs (5 N log2 N each) and the
+            # matrix DFT's (U x S)(S x S) and (U x S)(S x U) complex products
+            # (8 operations per complex multiply-add).
+            "xcorr": (lambda: hr._xcorr_shifts(ref_dev, x, hann, fmask, idx, s, STRAIN_UPSAMPLE,
+                                               1.0),
+                      x.numel() * x.element_size() + ref_dev.numel() * 4 + 3 * panels * 4,
+                      panels * (2 * 5.0 * s * s * np.log2(s * s) + 8.0 * (u * s * s + u * s * u))),
+            "xcorr_after_warp": (lambda: hr._xcorr_shifts(ref_dev, warped, hann, fmask, idx, s,
+                                                          STRAIN_UPSAMPLE, 1.0),
+                                 warped.numel() * 4 + ref_dev.numel() * 4 + 3 * panels * 4,
+                                 panels * (2 * 5.0 * s * s * np.log2(s * s)
+                                           + 8.0 * (u * s * s + u * s * u))),
+            # M^T W M, M^T W q, the 8x8 solve and the prediction per pattern.
+            "solve": (lambda: hr._solve_core(m, q_xy, quality),
+                      (q_xy.numel() + quality.numel() + m.numel() + b * 9) * 4,
+                      b * (2.0 * 64 * 2 * n_roi + 4.0 * 8 * 2 * n_roi + 2 * 8 ** 3 / 3)),
+        }
+        out = {}
+        for name, (fn, n_bytes, n_ops) in stages.items():
+            bound, by = bound_ms(n_bytes, n_ops)
+            out[name] = dict(**_stage_ms(fn), **_traced_stage(fn), bound_ms=bound, bound_by=by,
+                             bytes=n_bytes, ops=n_ops)
+    # The staged floor of `_xcorr_shifts`: each (panels, S, S) intermediate
+    # it writes, written once and read once (ROIs f32, centred, windowed,
+    # spectrum c64, masked, cross c64, inverse c64, real part f32).
+    staged = 2 * px * (4 + 4 + 4 + 8 + 8 + 8 + 8 + 4)
+    out["xcorr"]["staged_bytes"] = staged
+    out["xcorr"]["staged_bound_ms"] = staged / PEAK_BYTES_PER_S * 1e3
+    out["xcorr"]["panel_c64_mb"] = px * 8 / 1e6
+    return out
+
+
+def _strain_anchors() -> dict:
+    """tests/test_hrebsd.py's two accuracy anchors on the card, at their
+    256x256 settings (64x64 ROIs, kappa 50), each held to the truth at
+    `STRAIN_ANCHOR_ATOL`."""
+    from latice_tpu_torch.hrebsd import hrebsd_map
+    from latice_tpu_torch.sim import DetectorGeometry
+
+    geom = DetectorGeometry(shape=(256, 256))
+    f = _direction_function(11)
+    rot = np.array([1.5e-3, -2.5e-3, 2e-3])
+    a_rot = np.array([[0.0, -rot[2], rot[1]], [rot[2], 0.0, -rot[0]], [-rot[1], rot[0], 0.0]])
+    res = hrebsd_map(_render_deformed(f, 256, a_rot)[None], _render_deformed(f, 256), geom,
+                     upsample=50)
+    rotation_only = dict(rotation_err=float(np.abs(res.rotation[0] - rot).max()),
+                         strain_err=float(np.abs(res.strain[0]).max()))
+    f = _direction_function(57)
+    eps = np.array([[1e-3, 3e-4, 0.0], [3e-4, -8e-4, 2e-4], [0.0, 2e-4, 0.0]])
+    a_true = _rotation_a(3.0, [0.3, -0.5, 0.8], eps)
+    pat, ref = _render_deformed(f, 256, a_true)[None], _render_deformed(f, 256)
+    bare = hrebsd_map(pat, ref, geom, upsample=50, remap_iterations=0)
+    remap = hrebsd_map(pat, ref, geom, upsample=50, remap_iterations=1)
+    three = dict(bare_err=float(np.abs(bare.a[0] - a_true).max()),
+                 remap_err=float(np.abs(remap.a[0] - a_true).max()),
+                 bare_residual_px=float(bare.residual_px[0]),
+                 remap_residual_px=float(remap.residual_px[0]))
+    if not (max(rotation_only.values()) < STRAIN_ANCHOR_ATOL
+            and three["remap_err"] < STRAIN_ANCHOR_ATOL < three["bare_err"]
+            and three["remap_residual_px"] < three["bare_residual_px"]):
+        raise AssertionError(f"HR-EBSD anchors: {rotation_only} {three}")
+    return dict(rotation_only=rotation_only, three_degree=three, tolerance=STRAIN_ANCHOR_ATOL)
+
+
+def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
+    """HR-EBSD and the scan readers at full width (bench.py's hrebsd row:
+    128x128, 21 ROIs of 64x64, kappa 20, chunk 128). The library on 512
+    truth patterns with 0 and 1 remap passes, without and with the Ni
+    stiffness, held to the JAX package's readings on the same inputs
+    (examples/hrebsd_jax_reference.py) and on 64 to the port's CPU path; the
+    JAX suite's two anchors; each stage of a chunk timed with its bound, and
+    patterns/s over a 64x64 uint8 scan; then through the entry points:
+    ``strain --patterns scan.up2 --ref 0 --stiffness ni --remap 1`` (the
+    scan grid from the UP header), a ``cli.serve --strain-ref`` server's
+    ``/strain`` of 256, and ``build`` + ``query --engine fused`` of the
+    ``.up2`` scan (its K2f and K1 launches are the path's)."""
+    import contextlib
+    import logging
+
+    from latice_tpu_torch import hrebsd as hr
+    from latice_tpu_torch.cli.index import main as index_main
+    from latice_tpu_torch.cli.serve import build_service, parse_args
+    from latice_tpu_torch.crystal import CUBIC_STIFFNESS, cubic_stiffness
+    from latice_tpu_torch.data import read_ang
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.serve import make_server
+    from latice_tpu_torch.sim import DetectorGeometry
+
+    root = Path(workdir) / "strain"
+    root.mkdir()
+    out = {}
+    geom = DetectorGeometry(shape=(STRAIN_SIZE, STRAIN_SIZE))
+    kw = dict(roi_size=STRAIN_ROI, upsample=STRAIN_UPSAMPLE, chunk=STRAIN_CHUNK)
+
+    def cli(argv) -> dict:
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            index_main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+        lines = stdout.getvalue().strip().splitlines()
+        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
+
+    # 1. The library on the truth patterns against the JAX package's
+    # readings, and on STRAIN_HOLD of them against the port's CPU path.
+    t0 = time.perf_counter()
+    ref, pats, a_true = strain_truth()
+    out["render_s"] = time.perf_counter() - t0
+    hr.hrebsd_map(pats[:8], ref, geom, **kw)  # first call: cuFFT plans, allocations
+    library, hold = {}, {}
+    for name, cfg in STRAIN_CONFIGS.items():
+        stiff = cfg["stiffness"] and cubic_stiffness(*CUBIC_STIFFNESS[cfg["stiffness"]])
+        run = dict(kw, remap_iterations=cfg["remap_iterations"], stiffness=stiff)
+        sec, res = _events_s(lambda: hr.hrebsd_map(pats, ref, geom, **run))
+        got = strain_readings(res.a, a_true, res.quality, res.residual_px)
+        want = JAX_STRAIN[name]
+        if not (got["median_err"] <= want["median_err"] + STRAIN_MEDIAN_SLACK
+                and got["max_err"] <= want["max_err"] + STRAIN_MAX_SLACK
+                and got["within_1e4"] >= want["within_1e4"] - STRAIN_SHARE_SLACK
+                and got["within_5e4"] >= want["within_5e4"] - STRAIN_SHARE_SLACK
+                and abs(got["mean_quality"] - want["mean_quality"]) <= STRAIN_QUALITY_ATOL
+                and abs(got["median_residual_px"] - want["median_residual_px"])
+                <= STRAIN_RESIDUAL_ATOL):
+            raise AssertionError(f"strain {name}: card {got}, JAX {want}")
+        if stiff is not None:
+            normal_stress = np.abs(res.stress[:, 2, 2]).max() / np.abs(res.stress).max()
+            if not normal_stress < 1e-4:
+                raise AssertionError(f"strain {name}: sigma_33 / max|sigma| = {normal_stress}")
+            got["max_sigma33_share"] = float(normal_stress)
+        library[name] = dict(s=sec, patterns_per_s=len(pats) / sec, **got, jax=want)
+        if name in ("remap0", "remap0_ni", "remap1_ni"):
+            t0 = time.perf_counter()
+            cres = hr.hrebsd_map(pats[:STRAIN_HOLD], ref, geom, device="cpu", **run)
+            cpu_s = time.perf_counter() - t0
+            a_err = float(np.abs(res.a[:STRAIN_HOLD] - cres.a).max())
+            s_err = float(np.abs(res.shifts_px[:STRAIN_HOLD] - cres.shifts_px).max())
+            a_tol, s_tol = ((STRAIN_REMAP_A_ATOL, STRAIN_REMAP_SHIFT_ATOL)
+                            if cfg["remap_iterations"] else (STRAIN_A_ATOL, STRAIN_SHIFT_ATOL))
+            hold[name] = dict(patterns=STRAIN_HOLD, cpu_s=cpu_s, max_a_diff=a_err,
+                              max_shift_diff_px=s_err, a_tolerance=a_tol,
+                              shift_tolerance_px=s_tol)
+            if stiff is not None:
+                scale = np.abs(cres.stress).max()
+                hold[name]["max_stress_diff_share"] = float(
+                    np.abs(res.stress[:STRAIN_HOLD] - cres.stress).max() / scale)
+            if not (a_err <= a_tol and s_err <= s_tol):
+                raise AssertionError(f"strain {name} card vs CPU: {hold[name]}")
+    # The remap pass on the same deformation (the CPU's first-pass A), and
+    # the acceptance decisions of the end-to-end run where their margin is
+    # clear of the residuals' differences.
+    centers = hr.default_roi_centers(geom, roi_size=STRAIN_ROI)
+    first = {}
+    for dev in ("cuda", "cpu"):
+        s0, q0 = hr.measure_roi_shifts(ref, pats[:STRAIN_HOLD], centers, device=dev, **kw)
+        first[dev] = hr.solve_deformation(s0, q0, geom, centers, 0.1, device=dev)
+    same = {}
+    for dev in ("cuda", "cpu"):
+        s1, q1 = hr.measure_roi_shifts(ref, pats[:STRAIN_HOLD], centers,
+                                       deformation=first["cpu"][0], geometry=geom, device=dev,
+                                       **kw)
+        same[dev] = (s1, q1) + hr.solve_deformation(s1, q1, geom, centers, 0.1, device=dev)
+    margin = np.abs(first["cpu"][1] - same["cpu"][3]) * STRAIN_SIZE
+    clear = margin > STRAIN_ACCEPT_MARGIN_PX
+    accept = {dev: same[dev][3] < first[dev][1] for dev in ("cuda", "cpu")}
+    remap = dict(patterns=STRAIN_HOLD,
+                 max_shift_diff_px=float(np.abs(same["cuda"][0] - same["cpu"][0]).max()),
+                 max_a_diff=float(np.abs(same["cuda"][2] - same["cpu"][2]).max()),
+                 first_pass_max_a_diff=float(np.abs(first["cuda"][0] - first["cpu"][0]).max()),
+                 accept_clear=int(clear.sum()),
+                 accept_differs_where_clear=int((accept["cuda"] != accept["cpu"])[clear].sum()),
+                 a_tolerance=STRAIN_A_ATOL, shift_tolerance_px=STRAIN_SHIFT_ATOL)
+    hold["remap_pass_same_deformation"] = remap
+    if not (remap["max_shift_diff_px"] <= STRAIN_SHIFT_ATOL and remap["max_a_diff"] <= STRAIN_A_ATOL
+            and remap["accept_differs_where_clear"] == 0):
+        raise AssertionError(f"strain remap pass card vs CPU: {remap}")
+    out["library"], out["vs_cpu"] = library, hold
+    out["anchors"] = _strain_anchors()
+
+    # 2. The scan: the truth set tiled to 64x64, quantized to uint8.
+    lo, hi = min(ref.min(), pats.min()), max(ref.max(), pats.max())
+    quantize = lambda v: np.round((v - lo) / (hi - lo) * 255.0).astype(np.uint8)  # noqa: E731
+    ref8 = quantize(ref)
+    scan = np.tile(quantize(pats), (STRAIN_SCAN_SIDE ** 2 // len(pats), 1, 1))
+    x = torch.from_numpy(scan[:STRAIN_CHUNK]).cuda()
+    out["per_chunk_128"] = _strain_stages(torch.from_numpy(ref8).cuda(), x, a_true[:STRAIN_CHUNK])
+    del x
+    for name in ("remap0", "remap1"):
+        run = dict(kw, remap_iterations=STRAIN_CONFIGS[name]["remap_iterations"])
+        tr = _traced(lambda: hr.hrebsd_map(scan[:STRAIN_CHUNK], ref8, geom, **run))
+        sec, _ = _events_s(lambda: hr.hrebsd_map(scan, ref8, geom, **run))
+        out[f"scan_{name}"] = dict(
+            patterns=len(scan), s=sec, patterns_per_s=len(scan) / sec,
+            per_chunk=dict(device_ms=tr["device_ms"], launches=tr["launches"],
+                           wall_ms=tr["wall_ms"], idle_share=1.0 - tr["device_ms"] / tr["wall_ms"],
+                           top=tr["top"]))
+
+    # 3. The CLI on an EDAX .up2 copy of the scan (16-bit frames, x257).
+    up2 = str(root / "scan.up2")
+    _write_up2(up2, scan.astype(np.uint16) * 257, STRAIN_SCAN_SIDE, STRAIN_SCAN_SIDE)
+    steps = {"strain": cli(["strain", "--patterns", up2, "--ref", "0", "--stiffness", "ni",
+                            "--remap", "1", "--out", str(root / "strain.npz")])}
+    summary = steps["strain"]["summary"]
+    cli_out = np.load(root / "strain.npz")
+    frames = (scan.astype(np.uint16) * 257).astype(np.float32)
+    lib = hr.hrebsd_map(frames, frames[0], geom, remap_iterations=1,
+                        stiffness=cubic_stiffness(*CUBIC_STIFFNESS["ni"]), **kw)
+    cli_diff = float(np.abs(cli_out["a"] - lib.a).max())
+    if not (summary["n_patterns"] == len(scan) and cli_diff <= STRAIN_A_ATOL
+            and np.isfinite(cli_out["stress"]).all()):
+        raise AssertionError(f"strain CLI on the .up2 scan: {summary}, a differs by {cli_diff}")
+    steps["strain"]["patterns_per_s"] = len(scan) / steps["strain"]["wall_s"]
+    steps["strain"]["max_a_diff_vs_library"] = cli_diff
+    del frames, lib
+
+    # 4. cli.serve --strain-ref alone: /healthz, then /strain of 256 uint8.
+    np.save(root / "ref.npy", ref8)
+    t0 = time.perf_counter()
+    service = build_service(parse_args(["--strain-ref", str(root / "ref.npy")]))
+    build_s = time.perf_counter() - t0
+    warm_s = service.warmup()
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    body = scan[:STRAIN_SERVE]
+    try:
+        health = _request(f"{url}/healthz")
+        t0 = time.perf_counter()
+        reply = _request(f"{url}/strain", _npy(body))
+        strain_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    direct = hr.hrebsd_map(body, ref8, geom, remap_iterations=1, chunk=STRAIN_CHUNK)
+    serve_diff = float(np.abs(np.asarray(reply["strain"]) - direct.strain).max())
+    if not (health["planes"] == ["strain"] and health["mode"] == "zero-training"
+            and reply["n"] == STRAIN_SERVE and reply["input_dtype"] == "uint8"
+            and serve_diff <= STRAIN_A_ATOL):
+        raise AssertionError(f"/strain: {health}, strain differs by {serve_diff}")
+    out["serve"] = dict(patterns=STRAIN_SERVE, build_s=build_s, warmup_s=warm_s,
+                        strain_s=strain_s, patterns_per_s=STRAIN_SERVE / strain_s,
+                        max_strain_diff_vs_library=serve_diff,
+                        health=dict(mode=health["mode"], planes=health["planes"]))
+    del service
+
+    # 5. build + query --engine fused of the .up2 scan: the slab reader on
+    # the card, the scan grid from the header.
+    np.save(root / "dict.npy", quantize(pats))
+    angles = np.random.default_rng(STRAIN_SEED).uniform([0, 0, 0], [360, 180, 360],
+                                                       size=(len(pats), 3))
+    with open(root / "angles.txt", "w") as f:
+        f.write(f"zxz\n{len(pats)}\n")
+        np.savetxt(f, angles, fmt="%.4f")
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    db = str(root / "db.npz")
+    steps["build"] = cli(["build", "--patterns", str(root / "dict.npy"), "--angles",
+                          str(root / "angles.txt"), "--db", db] + common)
+    steps["query"] = cli(["query", "--patterns", up2, "--db", db, "--engine", "fused",
+                          "--out", str(root / "orientations.npy"), "--ang",
+                          str(root / "scan.ang")] + common)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    build_batches, query_batches = len(pats) // BATCH, len(scan) // BATCH
+    want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
+                     "cosine_topk_fused": query_batches}
+    q_sum = steps["query"]["summary"]
+    grid = read_ang(str(root / "scan.ang")).grid
+    if not (launches == want_launches and q_sum["n_patterns"] == len(scan)
+            and grid == (STRAIN_SCAN_SIDE, STRAIN_SCAN_SIDE)
+            and np.isfinite(np.load(root / "orientations.npy")).all()):
+        raise AssertionError(f"query of the .up2 scan: {q_sum}, launches {launches} (want "
+                             f"{want_launches}), .ang grid {grid}")
+    out["cli"] = dict(steps=steps, launches=launches, ang_grid=list(grid))
+    emit("strain", card=smi, **out,
+         timed_as="s: CUDA events around the call; ms: CUDA events per call; device_ms: "
+                  "profiler sums; wall_ms, *_s else host wall")
+    return launches
+
+
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
     """``n`` seeded 128x128 float32 patterns in [0, 1]: three bright bands
     (Kikuchi-like lines) each, over a smooth background."""
@@ -3079,14 +3569,15 @@ def main() -> int:
         print(json.dumps({"kernels": [check_stage0(gen)]}), flush=True)
         print(smi, flush=True)
         return 0
-    if sys.argv[1:] == ["--sphere-only"]:  # the sphere phase alone; no verdict line
+    only = {"--sphere-only": phase_sphere, "--strain-only": phase_strain}
+    if len(sys.argv) == 2 and sys.argv[1] in only:  # one plane's phase alone; no verdict line
         from latice_tpu_torch.models import VariationalAutoEncoderRawData
 
         with tempfile.TemporaryDirectory() as workdir:
             ckpt = f"{workdir}/vae.pt"
             model = VariationalAutoEncoderRawData(INPLANES, LATENT)
             torch.save(model.init_weights(torch.Generator().manual_seed(0)).state_dict(), ckpt)
-            phase_sphere(workdir, ckpt, smi)
+            only[sys.argv[1]](workdir, ckpt, smi)
         print(smi, flush=True)
         return 0
     k2f, k1 = check_norm(gen), check_topk(gen)
@@ -3114,6 +3605,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         sphere_launches = phase_sphere(workdir, ckpt, smi)
         torch.cuda.empty_cache()
+        strain_launches = phase_strain(workdir, ckpt, smi)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
     phase_train_parity()
     phase_train_profile(model)
@@ -3129,6 +3622,7 @@ def main() -> int:
         "dictionary": dictionary_launches,
         "bands": bands_launches,
         "sphere": sphere_launches,
+        "strain": strain_launches,
         "train": train_launches,
     }
     for k in kernels:

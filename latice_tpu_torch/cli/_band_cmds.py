@@ -291,8 +291,9 @@ def register(sub, common) -> None:
         help="Hough/Radon band detection + Image Quality maps (no indexing)",
     )
     qu.add_argument("--patterns", required=True,
-                    help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)")
-    qu.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+                    help=".npy stack, HDF5 scan or EDAX .up1/.up2")
+    qu.add_argument("--h5-dataset", default=None,
+                    help="HDF5 dataset path (default: the detected pattern stack)")
     qu.add_argument("--out-prefix", default="quality")
     qu.add_argument(
         "--scan-grid", type=int, nargs=2, metavar=("ROWS", "COLS"),
@@ -318,8 +319,9 @@ def register(sub, common) -> None:
         "dictionary (the vendor OIM/AZtec algorithm)",
     )
     ho.add_argument("--patterns", required=True,
-                    help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)")
-    ho.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+                    help=".npy stack, HDF5 scan or EDAX .up1/.up2")
+    ho.add_argument("--h5-dataset", default=None,
+                    help="HDF5 dataset path (default: the detected pattern stack)")
     ho.add_argument("--out", default="hough_orientations.npy")
     ho.add_argument(
         "--structure", default="fcc", choices=("fcc", "bcc", "sc", "hcp"),

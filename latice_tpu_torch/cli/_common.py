@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
@@ -9,10 +10,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
-
-# The raw-scan containers of the JAX package's CLI (data/h5io.py, data/up.py).
-HDF5_EXTENSIONS = (".h5", ".hdf5", ".h5oina", ".oh5", ".hdf")
-UP_EXTENSIONS = (".up1", ".up2")
 
 
 def later_slice(what: str, slice_name: str) -> SystemExit:
@@ -39,15 +36,46 @@ def _load_model(checkpoint: str | None, inplanes: int, latent_dim: int, device):
     return model.set_precision("16-mixed").eval()
 
 
-def _load_raw_pattern_stack(args) -> np.ndarray:
-    """``args.patterns`` as an array: ``.npy`` stacks; HDF5 scans and EDAX
-    UP files raise until slice E."""
+@contextlib.contextmanager
+def _open_scan(args):
+    """``args.patterns`` as ``(patterns, batches)`` while the block runs: an
+    indexable ``(N, H, W)`` HDF5 dataset or UP memmap and the function that
+    yields its slabs of ``--h5-chunk`` rows (the file is closed on exit); or
+    ``(stack, None)`` for a ``.npy`` stack, read whole. A UP header fills
+    ``args.scan_grid`` when the flag is absent."""
+    from latice_tpu_torch.data import (
+        HDF5_EXTENSIONS,
+        UP_EXTENSIONS,
+        find_pattern_dataset,
+        iter_pattern_batches,
+        iter_up_batches,
+        open_up_patterns,
+    )
+
     low = args.patterns.lower()
     if low.endswith(HDF5_EXTENSIONS):
-        raise later_slice("reading HDF5 scans", "slice E")
-    if low.endswith(UP_EXTENSIONS):
-        raise later_slice("reading EDAX UP files", "slice E")
-    return np.load(args.patterns)
+        f, dset = find_pattern_dataset(args.patterns, args.h5_dataset)
+        try:
+            yield dset, lambda: iter_pattern_batches(dset, args.h5_chunk)
+        finally:
+            f.close()
+    elif low.endswith(UP_EXTENSIONS):
+        header, pats = open_up_patterns(args.patterns)
+        if not args.scan_grid and header.scan_grid:
+            # Square-grid UP headers carry the scan geometry, so NLPAR and
+            # the .ang/.ctf export work without the flag.
+            args.scan_grid = list(header.scan_grid)
+            logger.info(f"scan grid {header.scan_grid[0]}x{header.scan_grid[1]} from the UP header")
+        yield pats, lambda: iter_up_batches(pats, args.h5_chunk)
+    else:
+        yield np.load(args.patterns), None
+
+
+def _load_raw_pattern_stack(args) -> np.ndarray:
+    """``args.patterns`` read whole (`_open_scan`): a ``.npy`` stack, an
+    HDF5 scan or an EDAX ``.up1``/``.up2`` file."""
+    with _open_scan(args) as (raw, _):
+        return np.asarray(raw[...])
 
 
 def _load_phase_stacks(pattern_paths, angle_paths, phase_groups: str | None):

@@ -11,14 +11,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from latice_tpu_torch.cli._common import (
-    HDF5_EXTENSIONS,
-    UP_EXTENSIONS,
-    _load_model,
-    _load_raw_pattern_stack,
-    _refine_result,
-    later_slice,
-)
+from latice_tpu_torch.cli._common import _load_model, _open_scan, _refine_result, later_slice
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -145,98 +138,124 @@ def _nlpar(x: np.ndarray, args, hot_pixel_threshold, device) -> np.ndarray:
 
 
 def _parse_preprocess(args):
-    """``--preprocess`` as a `data.PreprocessConfig`, or None. ``static=auto``
-    on an HDF5 or UP scan raises: reading those waits for slice E."""
+    """``--preprocess`` as a `data.PreprocessConfig`, or None."""
     from latice_tpu_torch.data import parse_preprocess_spec
 
-    if not args.preprocess:
-        return None
-    cfg = parse_preprocess_spec(args.preprocess)
-    if isinstance(cfg.static_background, str) and args.patterns.lower().endswith(
-        HDF5_EXTENSIONS + UP_EXTENSIONS
-    ):
-        raise later_slice("--preprocess static=auto on HDF5 and UP scans", "slice E")
-    return cfg
+    return parse_preprocess_spec(args.preprocess) if args.preprocess else None
 
 
-def _resolve_static_auto(cfg, raw: np.ndarray):
+def _resolve_static_auto(cfg, raw):
     """``static=auto`` replaced by the scan's mean pattern, taken in model
     units (uint8 divided by 255 first, as the pipeline does before the
-    recipe runs)."""
+    recipe runs). ``raw`` is the stack or an iterable of its slabs."""
     import dataclasses
 
     from latice_tpu_torch.data import estimate_static_background, prepare_patterns
 
     if cfg is None or not isinstance(cfg.static_background, str):
         return cfg
-    s = prepare_patterns(raw)
-    if s.dtype == np.uint8:
-        s = s.astype(np.float32) / 255.0
+
+    def model_units(s):
+        s = prepare_patterns(s)
+        return s.astype(np.float32) / 255.0 if s.dtype == np.uint8 else s
+
+    chunks = [raw] if isinstance(raw, np.ndarray) else raw
+    bg = estimate_static_background(model_units(s) for s in chunks)
     logger.info("static=auto: using the scan-mean background")
-    return dataclasses.replace(cfg, static_background=estimate_static_background(s))
+    return dataclasses.replace(cfg, static_background=bg)
 
 
 def cmd_query(args) -> None:
-    from latice_tpu_torch.data import prepare_patterns, write_ang, write_ctf
+    """Index ``--patterns``: a whole ``.npy`` stack, or an HDF5 or UP scan
+    streamed in ``--h5-chunk`` slabs (prefetched on a host thread) unless
+    ``--nlpar`` or ``--refine`` needs it whole."""
+    from latice_tpu_torch.data import (
+        BandDetector,
+        prefetch_host,
+        prepare_patterns,
+        write_ang,
+        write_ctf,
+    )
     from latice_tpu_torch.index import (
         IndexPipeline,
         LatentVectorDatabaseConfig,
         TorchLatentVectorDatabase,
         candidate_ambiguity,
+        concat_dense_results,
     )
 
-    _check_devices(args)
-    device = resolve_device(args.device)
-    preprocess = _parse_preprocess(args)
-    raw = _load_raw_pattern_stack(args)
-    preprocess = _resolve_static_auto(preprocess, raw)
-    model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
-    db = TorchLatentVectorDatabase(
-        LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim), device=device
-    )
-    if db.get_count() == 0:
-        raise SystemExit(f"Database {args.db} is empty — run 'build' first")
-    phase_kw = {}
-    if db._has_phases:
-        phase_kw = dict(
-            dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
+    with _open_scan(args) as (raw, batches):
+        raw_dtype = raw.dtype
+        _check_devices(args)
+        device = resolve_device(args.device)
+        preprocess = _resolve_static_auto(
+            _parse_preprocess(args), raw if batches is None else batches()
         )
-    pipe = IndexPipeline(
-        model,
-        db._vectors,
-        db._orientations,
-        top_n=args.top_n,
-        orientation_threshold=args.threshold,
-        min_required_matches=args.min_matches,
-        consensus_weight_power=args.weight_power,
-        batch_size=args.batch_size,
-        engine=args.engine,
-        device=device,
-        preprocess=preprocess,
-        **phase_kw,
-    )
-
-    if args.refine and db.sim_meta is None:
-        raise SystemExit(
-            "--refine needs a dictionary with simulation provenance (built from "
-            "'simulate' output); this npz has none"
+        model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
+        db = TorchLatentVectorDatabase(
+            LatentVectorDatabaseConfig(npz_path=args.db, dimension=args.latent_dim), device=device
         )
-
-    t0 = time.time()
-    x = prepare_patterns(raw)
-    hough = None
-    if args.hough_iq:
-        # Detector-side quality of the raw frames, before NLPAR: the vendor
-        # .ang IQ and .ctf Bands, not the similarity stand-ins.
-        from latice_tpu_torch.data import BandDetector
-
-        hough = BandDetector(
-            height=x.shape[1], width=x.shape[2], batch_size=min(args.batch_size, 256),
+        if db.get_count() == 0:
+            raise SystemExit(f"Database {args.db} is empty — run 'build' first")
+        phase_kw = {}
+        if db._has_phases:
+            phase_kw = dict(
+                dictionary_phases=db._phases, phase_symmetries=db.config.phase_symmetries
+            )
+        pipe = IndexPipeline(
+            model,
+            db._vectors,
+            db._orientations,
+            top_n=args.top_n,
+            orientation_threshold=args.threshold,
+            min_required_matches=args.min_matches,
+            consensus_weight_power=args.weight_power,
+            batch_size=args.batch_size,
+            engine=args.engine,
             device=device,
-        )(x)
-    x = _nlpar(x, args, preprocess.hot_pixel_threshold if preprocess is not None else None, device)
-    result = pipe(x)
-    n = len(x)
+            preprocess=preprocess,
+            **phase_kw,
+        )
+
+        if args.refine and db.sim_meta is None:
+            raise SystemExit(
+                "--refine needs a dictionary with simulation provenance (built from "
+                "'simulate' output); this npz has none"
+            )
+
+        hough: dict = {"detector": None, "iq": [], "bands": []}
+
+        def detect(s: np.ndarray) -> np.ndarray:
+            """``--hough-iq``: detector-side quality of the raw frames, before
+            NLPAR (the vendor .ang IQ and .ctf Bands, not the similarity
+            stand-ins), slab by slab."""
+            if args.hough_iq:
+                if hough["detector"] is None:
+                    hough["detector"] = BandDetector(
+                        height=s.shape[1], width=s.shape[2],
+                        batch_size=min(args.batch_size, 256), device=device,
+                    )
+                det = hough["detector"](s)
+                hough["iq"].append(det.iq)
+                hough["bands"].append(det.band_count)
+            return s
+
+        hot = preprocess.hot_pixel_threshold if preprocess is not None else None
+        t0 = time.time()
+        if batches is None or args.nlpar or args.refine:
+            # NLPAR averages across scan rows and --refine reads the patterns
+            # again after indexing, so a streamed scan is read whole here.
+            x = _nlpar(detect(prepare_patterns(np.asarray(raw[...]))), args, hot, device)
+            result = pipe(x)
+        else:
+            # The next slab's disk read and host prep overlap the device work.
+            slabs = prefetch_host(prepare_patterns(s) for s in batches())
+            try:
+                result = concat_dense_results(pipe(detect(s)) for s in slabs)
+            finally:
+                slabs.close()  # joins the reader before the file closes
+            x = None
+    n = len(result.success)
     dt = time.time() - t0
     logger.info(
         f"Indexed {n} patterns in {dt:.2f}s ({n / dt:,.0f}/s); "
@@ -249,7 +268,8 @@ def cmd_query(args) -> None:
         "out": args.out,
         # uint8 stacks reach the device as uint8 and are divided there;
         # every other dtype reaches the model as float32.
-        "input_dtype": str(x.dtype),
+        "input_dtype": str(x.dtype) if x is not None
+        else ("uint8" if raw_dtype == np.uint8 else "float32"),
     }
     # Saved BEFORE refinement, so a refinement failure keeps the indexing
     # result; refinement overwrites it on success.
@@ -270,12 +290,13 @@ def cmd_query(args) -> None:
         list(db.config.phase_symmetries) if db.config.phase_symmetries is not None else None
     )
     ang_kw, ctf_kw = {}, {}
-    if hough is not None:
+    if hough["iq"]:
+        iq, bands = np.concatenate(hough["iq"]), np.concatenate(hough["bands"])
         iq_out = args.out.replace(".npy", "") + "_iq.npy"
-        np.save(iq_out, hough.iq)
+        np.save(iq_out, iq)
         summary["hough_iq_out"] = iq_out
-        summary["mean_iq"] = round(float(hough.iq.mean()), 4)
-        ang_kw, ctf_kw = {"iq": hough.iq}, {"bands": hough.band_count}
+        summary["mean_iq"] = round(float(iq.mean()), 4)
+        ang_kw, ctf_kw = {"iq": iq}, {"bands": bands}
     if args.ang:
         write_ang(args.ang, result, grid=grid, step=args.step, phase_groups=db_groups, **ang_kw)
         summary["ang_out"] = args.ang
@@ -339,9 +360,11 @@ def register(sub, common) -> None:
     q = sub.add_parser("query", parents=[common], help="index patterns")
     q.add_argument(
         "--patterns", required=True,
-        help=".npy stack to index (HDF5 scans and EDAX .up1/.up2 wait for slice E)",
+        help=".npy stack, HDF5 scan or EDAX .up1/.up2 to index (scans stream in "
+        "--h5-chunk slabs)",
     )
-    q.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+    q.add_argument("--h5-dataset", default=None,
+                   help="HDF5 dataset path (default: the detected pattern stack)")
     q.add_argument("--h5-chunk", type=int, default=4096, help="patterns per HDF5/UP slab")
     q.add_argument("--out", default="orientations.npy")
     q.add_argument("--ang", default=None, help="also write a TSL/OIM .ang result file")

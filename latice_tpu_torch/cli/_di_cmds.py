@@ -137,9 +137,10 @@ def register(sub, common) -> None:
     )
     d.add_argument(
         "--patterns", required=True,
-        help=".npy stack to index (HDF5 scans and EDAX .up1/.up2 wait for slice E)",
+        help=".npy stack, HDF5 scan or EDAX .up1/.up2 to index",
     )
-    d.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+    d.add_argument("--h5-dataset", default=None,
+                   help="HDF5 dataset path (default: the detected pattern stack)")
     d.add_argument("--out", default="orientations.npy")
     d.add_argument(
         "--bin", type=int, default=1,

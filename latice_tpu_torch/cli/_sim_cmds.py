@@ -329,8 +329,9 @@ def register(sub, common) -> None:
         "--master`; feeds `sphere` / `simulate --master` like a simulated one)",
     )
     lm.add_argument("--patterns", required=True,
-                    help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)")
-    lm.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+                    help=".npy stack, HDF5 scan or EDAX .up1/.up2")
+    lm.add_argument("--h5-dataset", default=None,
+                    help="HDF5 dataset path (default: the detected pattern stack)")
     lm.add_argument(
         "--angles", required=True,
         help="orientations of the patterns: anglefile (zxz degrees; `sample`/`query` "

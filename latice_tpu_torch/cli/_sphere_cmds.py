@@ -205,9 +205,10 @@ def register(sub, common) -> None:
     )
     sp.add_argument(
         "--patterns", required=True,
-        help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)",
+        help=".npy stack, HDF5 scan or EDAX .up1/.up2",
     )
-    sp.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+    sp.add_argument("--h5-dataset", default=None,
+                    help="HDF5 dataset path (default: the detected pattern stack)")
     sp.add_argument(
         "--master", required=True, action="append",
         help="master image .npy (learn-master output, or an external "

@@ -1,6 +1,6 @@
-"""``python -m latice_tpu_torch.cli.index calibrate``: autodiff detector
-calibration, the port of ``calibrate`` in ``latice_tpu/cli/_strain_cmds.py``.
-``strain`` (HR-EBSD) waits for a later slice."""
+"""``python -m latice_tpu_torch.cli.index strain|calibrate``: HR-EBSD strain
+mapping and autodiff detector calibration, the port of
+``latice_tpu/cli/_strain_cmds.py``."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from latice_tpu_torch.cli._band_cmds import _parse_hough_phase, _structure_spec
-from latice_tpu_torch.cli._common import _load_raw_pattern_stack, later_slice
+from latice_tpu_torch.cli._common import _load_raw_pattern_stack
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -75,8 +75,135 @@ def _calibration_subset(n: int, grid, success: np.ndarray, max_patterns: int) ->
     return idx
 
 
+def _parse_stiffness(spec: str | None, flag: str) -> np.ndarray | None:
+    """A cubic ``(6, 6)`` Voigt stiffness from a `crystal.CUBIC_STIFFNESS`
+    preset name or a ``C11,C12,C44`` GPa triplet; None without a spec."""
+    from latice_tpu_torch.crystal import CUBIC_STIFFNESS, cubic_stiffness
+
+    if not spec:
+        return None
+    parts = spec.split(",")
+    if len(parts) == 3:
+        return cubic_stiffness(*(float(p) for p in parts))
+    if spec in CUBIC_STIFFNESS:
+        return cubic_stiffness(*CUBIC_STIFFNESS[spec])
+    raise SystemExit(
+        f"{flag} {spec!r}: use C11,C12,C44 (GPa) or one of {sorted(CUBIC_STIFFNESS)}"
+    )
+
+
 def cmd_strain(args) -> None:
-    raise later_slice("strain (HR-EBSD, hrebsd.py)", "slice D")
+    """HR-EBSD cross-correlation strain and rotation mapping (`hrebsd`).
+
+    Measures the RELATIVE elastic strain and lattice rotation of every
+    pattern against a reference pattern from the same grain (sub-pixel ROI
+    shifts → displacement-gradient tensor). With ``--stiffness`` the
+    traction-free surface condition closes the hydrostatic gauge and stress
+    maps are written too. The reference must share the grain: run per
+    grain, with ``--ref`` inside it.
+    """
+    from latice_tpu_torch.crystal import from_euler_zxz_deg
+    from latice_tpu_torch.hrebsd import hrebsd_map, von_mises_strain
+    from latice_tpu_torch.sim import DetectorGeometry, ScanCalibration
+
+    device = resolve_device(args.device)
+    raw = _load_raw_pattern_stack(args)
+    if raw.ndim == 4:
+        raw = raw.reshape(-1, *raw.shape[-2:])
+    if raw.dtype != np.uint8:
+        raw = raw.astype(np.float32, copy=False)
+    if not 0 <= args.ref < len(raw):
+        raise SystemExit(f"--ref {args.ref} out of range for {len(raw)} patterns")
+    geometry = DetectorGeometry(
+        shape=raw.shape[1:], pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt
+    )
+    stiffness = _parse_stiffness(args.stiffness, "--stiffness")
+    orientations = None
+    if args.euler:
+        orientations = from_euler_zxz_deg(
+            torch.tensor([args.euler], dtype=torch.float32)
+        ).numpy()[0]
+
+    calibration = scan_xy = None
+    if args.calibration:
+        if not args.scan_grid:
+            raise SystemExit(
+                "--calibration needs --scan-grid ROWS COLS (per-pattern scan positions "
+                "evaluate the PC model)"
+            )
+        blob = np.load(args.calibration)
+        for key in ("pc0", "gradient"):
+            if key not in blob:
+                raise SystemExit(
+                    f"--calibration {args.calibration}: missing {key!r} (expected the "
+                    "`calibrate --scan-grid` npz)"
+                )
+        calibration = ScanCalibration(
+            pc0=blob["pc0"], gradient=blob["gradient"], shape=raw.shape[1:], tilt=args.tilt
+        )
+        rows, cols = args.scan_grid
+        if rows * cols != len(raw):
+            raise SystemExit(f"--scan-grid {rows}x{cols} does not hold {len(raw)} patterns")
+        rr, cc = np.divmod(np.arange(len(raw)), cols)
+        # The (x = col·step, y = row·step) convention `calibrate --scan-grid`
+        # fitted the model in.
+        scan_xy = np.stack([cc * args.calibration_step, rr * args.calibration_step], axis=1)
+        # The deformation model expands around the REFERENCE's geometry.
+        geometry = calibration.geometry_at(scan_xy[args.ref])
+
+    t0 = time.time()
+    res = hrebsd_map(
+        raw, raw[args.ref], geometry,
+        roi_size=args.roi_size, upsample=args.upsample,
+        stiffness=stiffness, orientations=orientations,
+        f_min=args.f_min, f_max=args.f_max,
+        min_quality=args.min_quality, chunk=args.batch_size,
+        remap_iterations=args.remap,
+        calibration=calibration, scan_xy=scan_xy, device=device,
+    )
+    dt = time.time() - t0
+
+    vm = von_mises_strain(res.strain)
+    out = {
+        "a": res.a, "strain": res.strain, "rotation": res.rotation,
+        "rotation_deg": res.rotation_deg, "von_mises": vm,
+        "shifts_px": res.shifts_px, "quality": res.quality,
+        "residual_px": res.residual_px,
+        "pc": np.asarray(args.pc), "ref_index": args.ref,
+    }
+    if res.stress is not None:
+        out["stress"] = res.stress
+    np.savez(args.out, **out)
+    summary = {
+        "n_patterns": len(raw),
+        "ref_index": args.ref,
+        "median_von_mises": round(float(np.median(vm)), 8),
+        "max_von_mises": round(float(vm.max()), 8),
+        "median_rotation_deg": round(float(np.median(res.rotation_deg)), 5),
+        "max_rotation_deg": round(float(res.rotation_deg.max()), 5),
+        "mean_quality": round(float(res.quality.mean()), 4),
+        "median_residual_px": round(float(np.median(res.residual_px)), 4),
+        "first_order_valid": bool(res.rotation_deg.max() < 1.5),
+        "remap_iterations": args.remap,
+        "seconds": round(dt, 2),
+        "output": args.out,
+    }
+    if args.map:
+        if not args.scan_grid:
+            raise SystemExit("--map needs --scan-grid ROWS COLS")
+        rows, cols = args.scan_grid
+        if rows * cols != len(vm):
+            raise SystemExit(f"--scan-grid {rows}x{cols} does not hold {len(vm)} patterns")
+        from latice_tpu_torch.utils._mpl import ensure_headless_backend
+
+        ensure_headless_backend()
+        import matplotlib.image as mpimg
+
+        img = vm.reshape(rows, cols)
+        lo, hi = float(img.min()), float(img.max())
+        mpimg.imsave(args.map, (img - lo) / max(hi - lo, 1e-12), cmap="viridis")
+        summary["map"] = args.map
+    print(json.dumps(summary))
 
 
 def cmd_calibrate(args) -> None:
@@ -170,13 +297,75 @@ def cmd_calibrate(args) -> None:
 
 
 def register(sub, common) -> None:
-    """Attach the calibrate parser, and strain, which waits for a later
-    slice."""
+    """Attach the strain and calibrate parsers."""
     st = sub.add_parser(
         "strain",
-        help="HR-EBSD cross-correlation strain + lattice-rotation mapping (waits for slice D)",
+        help="HR-EBSD cross-correlation strain + lattice-rotation mapping "
+        "(relative to a reference pattern in the same grain)",
     )
-    st.set_defaults(fn=cmd_strain, takes_any_arguments=True)
+    st.add_argument("--patterns", required=True, help=".npy stack, HDF5 scan or EDAX .up1/.up2")
+    st.add_argument("--h5-dataset", default=None,
+                    help="HDF5 dataset path (default: the detected pattern stack)")
+    st.add_argument(
+        "--ref", type=int, default=0,
+        help="index of the reference pattern (strain is relative to it; pick a "
+        "low-strain point inside the grain)",
+    )
+    st.add_argument("--out", default="strain.npz")
+    st.add_argument(
+        "--pc", type=float, nargs=3, default=(0.5, 0.5, 0.7), metavar=("PCX", "PCY", "DD"),
+        help="pattern center + detector distance, detector-width units: PC errors "
+        "alias into phantom strain; calibrate first",
+    )
+    st.add_argument("--tilt", type=float, default=0.0,
+                    help="detector tilt, degrees (sets the traction-free surface normal)")
+    st.add_argument("--roi-size", type=int, default=64,
+                    help="ROI window edge, px (21 ROIs: center + two rings)")
+    st.add_argument("--upsample", type=int, default=20,
+                    help="sub-pixel factor kappa: shifts resolve to ~1/kappa px")
+    st.add_argument(
+        "--stiffness", default=None, metavar="PHASE|C11,C12,C44",
+        help="cubic elastic constants (GPa): a preset name (ni, cu, al, fe-alpha, "
+        "fe-gamma, w) or three comma-separated values; enables the traction-free "
+        "gauge closure and stress output",
+    )
+    st.add_argument(
+        "--euler", type=float, nargs=3, default=None, metavar=("PHI1", "PHI", "PHI2"),
+        help="grain orientation (zxz extrinsic, degrees) rotating the stiffness into "
+        "the detector frame",
+    )
+    st.add_argument("--f-min", type=float, default=1.5,
+                    help="Fourier high-pass, cycles per ROI (kills background)")
+    st.add_argument("--f-max", type=float, default=None,
+                    help="Fourier low-pass, cycles per ROI (None keeps all)")
+    st.add_argument("--min-quality", type=float, default=0.1,
+                    help="drop ROIs whose XCF peak quality falls below this")
+    st.add_argument(
+        "--calibration", default=None, metavar="CAL.npz",
+        help="scan-varying PC model from `calibrate --scan-grid` (pc0 + gradient): "
+        "every pattern's design matrix and remap warp then use its own pattern "
+        "center; needs --scan-grid (and --calibration-step if the fit used a scan step)",
+    )
+    st.add_argument(
+        "--calibration-step", type=float, default=1.0,
+        help="scan step in the calibration's units (the --step given to `calibrate`; "
+        "default %(default)s)",
+    )
+    st.add_argument(
+        "--remap", type=int, default=1, metavar="N",
+        help="iterative remapping passes: re-project each pattern through the recovered "
+        "deformation and re-correlate (accepted per pattern only where the fit "
+        "residual drops); 0 disables",
+    )
+    st.add_argument("--batch-size", type=int, default=128)
+    st.add_argument(
+        "--scan-grid", type=int, nargs=2, metavar=("ROWS", "COLS"), default=None,
+        help="scan shape for --map and --calibration (UP headers fill it)",
+    )
+    st.add_argument("--map", default=None, metavar="OUT.png",
+                    help="render the von Mises equivalent-strain map (needs --scan-grid)")
+    st.add_argument("--device", default=None, help="torch device (default: cuda)")
+    st.set_defaults(fn=cmd_strain)
 
     cal = sub.add_parser(
         "calibrate",
@@ -184,8 +373,9 @@ def register(sub, common) -> None:
         "scan-varying model PC(xy) = PC0 + G.xy (--scan-grid)",
     )
     cal.add_argument("--patterns", required=True,
-                     help=".npy stack (HDF5 scans and EDAX .up1/.up2 wait for slice E)")
-    cal.add_argument("--h5-dataset", default=None, help="HDF5 dataset path (slice E)")
+                     help=".npy stack, HDF5 scan or EDAX .up1/.up2")
+    cal.add_argument("--h5-dataset", default=None,
+                     help="HDF5 dataset path (default: the detected pattern stack)")
     cal.add_argument(
         "--orientations", required=True,
         help="initial orientations from any indexing pass: (N, 3) Euler-degree "

@@ -45,12 +45,20 @@ indexing, on the GPU by default.
     python -m latice_tpu_torch.cli.index sphere --patterns scan.npy \\
         --master fcc.npy --master hcp.npy --group 432 --group 622 --ang scan.ang
 
-``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
-converts with `models.flax_params_to_state_dict` and ``torch.save``);
-without one the weights are random, drawn from a fixed seed. The model runs
-at ``16-mixed`` (bf16 autocast). ``master`` (the dynamical master),
-``strain`` and the remaining commands of the JAX package's ``index.py`` wait
-for later slices.
+    # HR-EBSD: elastic strain and lattice rotation of every pattern of a
+    # grain against a reference pattern in it (stress with --stiffness)
+    python -m latice_tpu_torch.cli.index strain --patterns scan.up2 \\
+        --ref 0 --stiffness ni --out strain.npz
+
+Every command that reads patterns takes a ``.npy`` stack, an HDF5 scan
+(``--h5-dataset``, or the detected pattern stack) or an EDAX ``.up1``/``.up2``
+file, whose header gives ``--scan-grid`` when the flag is absent; ``query``
+streams such scans in ``--h5-chunk`` slabs. ``--checkpoint`` is a
+reference-layout ``.pt`` state dict (a JAX checkpoint converts with
+`models.flax_params_to_state_dict` and ``torch.save``); without one the
+weights are random, drawn from a fixed seed. The model runs at ``16-mixed``
+(bf16 autocast). ``master`` (the dynamical master) and the remaining
+commands of the JAX package's ``index.py`` wait for later slices.
 """
 
 from __future__ import annotations

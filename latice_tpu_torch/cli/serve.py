@@ -15,6 +15,9 @@
     # dictionary-free spherical indexing alone: /sphere (?ambiguity=1)
     python -m latice_tpu_torch.cli.serve --sphere-master master.npy &
 
+    # HR-EBSD strain against a held reference alone: /strain
+    python -m latice_tpu_torch.cli.serve --strain-ref ref.npy --strain-stiffness ni &
+
 ``--checkpoint`` is a reference-layout ``.pt`` state dict (a JAX checkpoint
 converts with `models.flax_params_to_state_dict` and ``torch.save``);
 without one the weights are random, drawn from a fixed seed. The model
@@ -24,17 +27,20 @@ builds its model at. Clients POST raw ``.npy`` bytes to ``/index`` and
 the weights of a ``.pt`` under ``--checkpoint-root``. In pattern-DI mode
 ``/encode`` and ``/reload`` answer 400. ``/quality`` (the Hough IQ) answers
 in every mode; ``--hough`` adds ``/hough`` (band indexing with cubic
-reflectors at ``--pc``/``--tilt``, reduced in ``--group``) and
+reflectors at ``--pc``/``--tilt``, reduced in ``--group``),
 ``--sphere-master`` adds ``/sphere`` (spherical-harmonic indexing against
-the master at ``--sphere-bandwidth``, same geometry and group); with either
-the server may run without ``--db`` and ``--checkpoint``, the zero-training
-mode, where ``/index``, ``/encode`` and ``/reload`` answer 400. ``/strain``
-(``--strain-ref``) waits for a later slice.
+the master at ``--sphere-bandwidth``, same geometry and group) and
+``--strain-ref`` adds ``/strain`` (HR-EBSD against that reference pattern
+at ``--pc``/``--tilt``, with ``--strain-stiffness`` and
+``--strain-remap``); with any of them the server may run without ``--db``
+and ``--checkpoint``, the zero-training mode, where ``/index``, ``/encode``
+and ``/reload`` answer 400.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -95,8 +101,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     # The zero-training planes: no checkpoint, no dictionary.
     p.add_argument(
         "--pc", type=float, nargs=3, default=(0.5, 0.5, 0.7), metavar=("PCX", "PCY", "DD"),
-        help="detector geometry of the /hough and /sphere planes (pattern center + "
-        "distance, width units)",
+        help="detector geometry of the /hough, /sphere and /strain planes (pattern "
+        "center + distance, width units)",
     )
     p.add_argument("--tilt", type=float, default=0.0,
                    help="detector tilt (degrees) of the zero-training planes")
@@ -114,8 +120,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument("--sphere-bandwidth", type=int, default=64,
                    help="spherical-harmonic band limit L of /sphere (default %(default)s)")
-    p.add_argument("--strain-ref", default=None, metavar="REF.npy",
-                   help="POST /strain (waits for a later slice)")
+    p.add_argument(
+        "--strain-ref", default=None, metavar="REF.npy",
+        help="enable POST /strain: HR-EBSD strain/rotation of every POSTed pattern "
+        "against this reference pattern (zero training; runs without --db)",
+    )
+    p.add_argument(
+        "--strain-stiffness", default=None, metavar="PHASE|C11,C12,C44",
+        help="cubic stiffness for /strain's traction-free closure and stress output "
+        "(preset name or GPa triplet)",
+    )
+    p.add_argument("--strain-remap", type=int, default=1,
+                   help="HR-EBSD iterative remapping passes of /strain (0 disables)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument(
         "--host", default="127.0.0.1",
@@ -139,9 +155,11 @@ def build_service(args: argparse.Namespace):
     dictionary, with a ``/reload`` loader (`models.load_checkpoint` at
     ``16-mixed``). Pattern-DI mode (``--di-dict``): the stacks and angles,
     no model. ``--hough`` adds an `index.HoughIndexer` and
-    ``--sphere-master`` an `index.SphericalIndexer` to either, or they
-    serve alone without ``--db`` (zero-training mode). Binds no socket."""
-    from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks, later_slice
+    ``--sphere-master`` an `index.SphericalIndexer` and ``--strain-ref`` an
+    HR-EBSD reference to either, or they serve alone without ``--db``
+    (zero-training mode). Binds no socket."""
+    from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks
+    from latice_tpu_torch.cli._strain_cmds import _parse_stiffness
     from latice_tpu_torch.data import parse_preprocess_spec
     from latice_tpu_torch.device import resolve_device
     from latice_tpu_torch.index import (
@@ -155,8 +173,6 @@ def build_service(args: argparse.Namespace):
     from latice_tpu_torch.serve import IndexService
     from latice_tpu_torch.sim import DetectorGeometry, cubic_reflectors
 
-    if args.strain_ref:
-        raise later_slice("--strain-ref (/strain)", "slice D")
     preprocess = None
     if args.preprocess:
         preprocess = parse_preprocess_spec(args.preprocess)
@@ -190,6 +206,14 @@ def build_service(args: argparse.Namespace):
             SphericalIndexerConfig(bandwidth=args.sphere_bandwidth, symmetry=args.group),
             device=device,
         )
+    if args.strain_ref:
+        ref = np.load(args.strain_ref)
+        common["strain_config"] = dict(
+            reference=ref,
+            geometry=dataclasses.replace(geometry, shape=ref.shape),
+            stiffness=_parse_stiffness(args.strain_stiffness, "--strain-stiffness"),
+            remap_iterations=args.strain_remap,
+        )
     if args.di_dict:
         if args.db:
             raise SystemExit("--di-dict and --db are mutually exclusive")
@@ -201,10 +225,10 @@ def build_service(args: argparse.Namespace):
             **common,
         )
     if not args.db:
-        if not (args.hough or args.sphere_master):
+        if not (args.hough or args.sphere_master or args.strain_ref):
             raise SystemExit(
                 "pass --db (latent engine), --di-dict (pattern DI), or at least one "
-                "zero-training plane (--hough / --sphere-master)"
+                "zero-training plane (--hough / --sphere-master / --strain-ref)"
             )
         return IndexService(None, None, **common)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)

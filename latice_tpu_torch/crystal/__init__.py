@@ -1,6 +1,13 @@
 """Orientation algebra and crystal symmetry in torch, and orientation
-sampling over a fundamental zone (host numpy)."""
+sampling over a fundamental zone and elastic constants (host numpy)."""
 
+from latice_tpu_torch.crystal.elastic import (
+    CUBIC_STIFFNESS,
+    PolycrystalModuli,
+    cubic_stiffness,
+    directional_youngs_modulus,
+    polycrystal_moduli,
+)
 from latice_tpu_torch.crystal.quaternion import (
     from_euler_zxz_deg,
     matrix_to_euler_zxz_deg,
@@ -32,15 +39,20 @@ from latice_tpu_torch.crystal.symmetry import (
 )
 
 __all__ = [
+    "CUBIC_STIFFNESS",
     "CUBIC_SYMMETRY",
+    "PolycrystalModuli",
     "QUAT_SYM_WXYZ",
     "ROTATION_GROUPS",
+    "cubic_stiffness",
+    "directional_youngs_modulus",
     "euler_grid",
     "from_euler_zxz_deg",
     "matrix_to_euler_zxz_deg",
     "misorientation_angle",
     "misorientation_deg",
     "nearest_symmetry_equivalent",
+    "polycrystal_moduli",
     "quat_angle",
     "quat_canonical",
     "quat_inv",

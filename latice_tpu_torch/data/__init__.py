@@ -1,6 +1,6 @@
-"""Host-side pattern preparation, device-side preprocessing, NLPAR denoising,
-Hough/Radon band detection, the training data module, prefetch and result
-export."""
+"""Host-side pattern preparation, the HDF5 and EDAX UP scan readers,
+device-side preprocessing, NLPAR denoising, Hough/Radon band detection, the
+training data module, prefetch and result export."""
 
 from latice_tpu_torch.data.datamodule import (
     DPDataModule,
@@ -10,6 +10,12 @@ from latice_tpu_torch.data.datamodule import (
 )
 from latice_tpu_torch.data.dataset import DPdataset, parse_angle_file
 from latice_tpu_torch.data.export import VendorMap, read_ang, read_ctf, write_ang, write_ctf
+from latice_tpu_torch.data.h5io import (
+    HDF5_EXTENSIONS,
+    find_pattern_dataset,
+    iter_pattern_batches,
+    load_patterns,
+)
 from latice_tpu_torch.data.hough import BandDetection, BandDetector, butterfly_kernel, radon_matrix
 from latice_tpu_torch.data.nlpar import estimate_noise_sigma, nlpar_denoise
 from latice_tpu_torch.data.prefetch import prefetch_host, prefetch_to_device
@@ -26,6 +32,14 @@ from latice_tpu_torch.data.preprocess import (
     remove_dynamic_background,
     remove_static_background,
 )
+from latice_tpu_torch.data.up import (
+    UP_EXTENSIONS,
+    UpHeader,
+    iter_up_batches,
+    load_up_patterns,
+    open_up_patterns,
+    read_up_header,
+)
 from latice_tpu_torch.data.transforms import (
     center_crop,
     default_transform,
@@ -34,11 +48,14 @@ from latice_tpu_torch.data.transforms import (
 )
 
 __all__ = [
+    "HDF5_EXTENSIONS",
+    "UP_EXTENSIONS",
     "BandDetection",
     "BandDetector",
     "DPDataModule",
     "DPdataset",
     "PreprocessConfig",
+    "UpHeader",
     "VendorMap",
     "batch_iterator",
     "bin_patterns",
@@ -48,10 +65,16 @@ __all__ = [
     "equalize_histogram",
     "estimate_noise_sigma",
     "estimate_static_background",
+    "find_pattern_dataset",
     "fix_hot_pixels",
     "gaussian_blur",
+    "iter_pattern_batches",
+    "iter_up_batches",
+    "load_patterns",
+    "load_up_patterns",
     "make_preprocess_fn",
     "nlpar_denoise",
+    "open_up_patterns",
     "normalize_patterns",
     "pad_batch",
     "padded_batches",
@@ -63,6 +86,7 @@ __all__ = [
     "radon_matrix",
     "read_ang",
     "read_ctf",
+    "read_up_header",
     "remove_dynamic_background",
     "remove_static_background",
     "to_grayscale",

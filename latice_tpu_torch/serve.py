@@ -18,8 +18,9 @@ The port of ``latice_tpu.serve``:
   `data.BandDetector`, whose detector is built at its first request) in
   every mode, ``/hough`` (`index.HoughIndexer`) with ``hough_indexer`` and
   ``/sphere`` (`index.SphericalIndexer`, dictionary-free) with
-  ``sphere_indexer``. With either the service runs without a model and a
-  dictionary.
+  ``sphere_indexer`` and ``/strain`` (`hrebsd.hrebsd_map` against a held
+  reference) with ``strain_config``. With any of these three the service
+  runs without a model and a dictionary.
 
 Endpoints:
   GET  /healthz -> {"status": "ok", "mode": "latent" | "pattern-di" |
@@ -42,7 +43,11 @@ Endpoints:
                    ?ambiguity=1 also "ambiguity_angle_deg",
                    "ambiguity_gap", "ambiguity_has_rival"; 400 without a
                    spherical indexer
-  POST /strain  -> 400: it waits for a later slice
+  POST /strain  -> body: .npy of (N, H, W) raw patterns matching the
+                   reference; reply: {"strain": ..., "rotation": ...,
+                   "rotation_deg": ..., "von_mises": ..., "residual_px": ...,
+                   "mean_quality": ...} (and "stress" with a stiffness); 400
+                   without a strain reference or for another shape
 
 Replies are strict RFC-8259 JSON: consensus failures are ``null`` rows in
 ``mean_orientations``, never bare ``NaN`` tokens. Bodies larger than
@@ -65,6 +70,7 @@ import torch
 from latice_tpu_torch.data import BandDetector, nlpar_denoise, prepare_patterns
 from latice_tpu_torch.data.transforms import _int_scale
 from latice_tpu_torch.device import resolve_device
+from latice_tpu_torch.hrebsd import hrebsd_map, von_mises_strain
 from latice_tpu_torch.index import IndexPipeline, PatternDictionaryIndexer
 from latice_tpu_torch.index.pipeline import as_preprocess_fn
 
@@ -112,6 +118,12 @@ class IndexService:
         sphere_indexer: optional `index.SphericalIndexer` (or
             `index.MultiPhaseSphericalIndexer`) enabling ``POST /sphere``;
             like ``hough_indexer``, it may serve alone (zero-training mode).
+        strain_config: optional dict enabling ``POST /strain`` (HR-EBSD
+            against a held reference): required keys ``reference`` (an
+            ``(H, W)`` array) and ``geometry`` (`sim.DetectorGeometry`);
+            the other keys pass through to `hrebsd.hrebsd_map`
+            (``stiffness``, ``remap_iterations``, ``roi_size``, ...), and
+            ``chunk`` defaults to 128. It may serve alone too.
         device: ``cuda`` unless given; a missing CUDA device raises.
     """
 
@@ -135,13 +147,26 @@ class IndexService:
         di_bin: int = 1,
         hough_indexer=None,
         sphere_indexer=None,
+        strain_config: dict | None = None,
         device: str | torch.device | None = None,
     ) -> None:
+        self._strain = None
+        if strain_config is not None:
+            sc = dict(strain_config)
+            strain_ref = np.asarray(sc.pop("reference"))
+            strain_geom = sc.pop("geometry")
+            if strain_ref.shape != tuple(strain_geom.shape):
+                raise ValueError(
+                    f"strain reference {strain_ref.shape} does not match geometry "
+                    f"{strain_geom.shape}"
+                )
+            sc.setdefault("chunk", 128)
+            self._strain = (strain_ref, strain_geom, sc)
         if (di_dictionary is None and (model is None or db is None) and hough_indexer is None
-                and sphere_indexer is None):
+                and sphere_indexer is None and self._strain is None):
             raise ValueError(
-                "pass model and db, di_dictionary for pattern-DI mode, or hough_indexer or "
-                "sphere_indexer for a zero-training plane"
+                "pass model and db, di_dictionary for pattern-DI mode, or at least one "
+                "zero-training plane (hough_indexer, sphere_indexer or strain_config)"
             )
         self.device = resolve_device(device)
         phase_kw = {}
@@ -211,7 +236,7 @@ class IndexService:
         if self.pipeline is None:
             raise ValueError(
                 "this server runs only zero-training planes (no dictionary or checkpoint "
-                "loaded); POST /hough, /sphere or /quality"
+                "loaded); POST /hough, /sphere, /strain or /quality"
             )
 
     def reload(self, checkpoint: str) -> dict:
@@ -252,6 +277,9 @@ class IndexService:
                 self._hough(np.zeros((1, h, w), np.float32))
             if self._sphere is not None:
                 self._sphere.index_patterns(np.zeros((1, h, w), np.float32))
+            if self._strain is not None:
+                ref, geom, kw = self._strain
+                hrebsd_map(ref[None], ref, geom, device=self.device, **kw)
         dt = time.time() - t0
         logger.info(f"warmup ran the served paths in {dt:.1f}s")
         return dt
@@ -414,11 +442,43 @@ class IndexService:
             out["ambiguity_has_rival"] = amb.has_rival.tolist()
         return out
 
-    def later_plane(self, patterns: np.ndarray) -> dict:
-        """``/strain``: not ported yet."""
-        raise ValueError(
-            "/strain is not ported to latice_tpu_torch yet; it waits for a later slice"
-        )
+    def strain(self, patterns: np.ndarray) -> dict:
+        """HR-EBSD strain and rotation against the held reference
+        (`hrebsd.hrebsd_map`)."""
+        if self._strain is None:
+            raise ValueError("server started without a strain reference (cli.serve --strain-ref)")
+        ref, geom, kw = self._strain
+        # The raw frames, not prepare_patterns': center-crop padding would
+        # plant false features, and hrebsd_map widens uint8 on the device.
+        x = np.asarray(patterns)
+        if x.ndim == 2:
+            x = x[None]
+        if x.ndim == 4 and x.shape[-1] == 1:
+            x = x[..., 0]
+        if x.ndim != 3 or x.shape[1:] != tuple(geom.shape):
+            raise ValueError(
+                f"strain patterns must be (N, {geom.shape[0]}, {geom.shape[1]}) matching the "
+                f"reference; got {np.asarray(patterns).shape}"
+            )
+        t0 = time.time()
+        with self._lock:
+            res = hrebsd_map(x, ref, geom, device=self.device, **kw)
+            self.requests += 1
+            self.patterns_indexed += len(x)
+        out = {
+            "n": int(len(x)),
+            "strain": res.strain.tolist(),
+            "rotation": res.rotation.tolist(),
+            "rotation_deg": res.rotation_deg.tolist(),
+            "von_mises": von_mises_strain(res.strain).tolist(),
+            "residual_px": res.residual_px.tolist(),
+            "mean_quality": float(res.quality.mean()) if len(x) else None,
+            "seconds": time.time() - t0,
+            "input_dtype": str(x.dtype),
+        }
+        if res.stress is not None:
+            out["stress"] = res.stress.tolist()
+        return out
 
     def health(self) -> dict:
         if self.pipeline is None:
@@ -434,6 +494,8 @@ class IndexService:
             planes.append("hough")
         if self._sphere is not None:
             planes.append("sphere")
+        if self._strain is not None:
+            planes.append("strain")
         return {
             "status": "ok",
             "mode": mode,
@@ -518,7 +580,7 @@ class _Handler(BaseHTTPRequestHandler):
             "/quality": self.service.quality,
             "/hough": self.service.hough,
             "/sphere": self.service.sphere,
-            "/strain": self.service.later_plane,
+            "/strain": self.service.strain,
         }
         path, _, query = self.path.partition("?")
         if path not in routes:

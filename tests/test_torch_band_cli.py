@@ -245,6 +245,14 @@ def test_calibrate_matches_jax(files, monkeypatch, capsys, model):
                        str(files / "quats.npy"), "--scan-grid", "5", "5", "--device", "cpu"])
 
 
-def test_strain_waits_for_a_later_slice():
-    with pytest.raises(SystemExit, match="later slice"):
-        port_cli.main(["strain", "--patterns", "p.npy", "--ref", "0", "--device", "cpu"])
+def test_strain_waits_for_a_later_slice(files, capsys):
+    """Once refused, ``strain`` now runs (tests/test_torch_strain_cli.py
+    holds it against JAX): on the fcc renders against the first, every
+    pattern's quality is finite and the reference's own shift is zero."""
+    t = files
+    port_cli.main(["strain", "--patterns", str(t / "fcc.npy"), "--ref", "0", "--remap", "0",
+                   "--out", str(t / "strain.npz"), "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out = np.load(t / "strain.npz")
+    assert summary["n_patterns"] == len(out["a"]) and summary["ref_index"] == 0
+    assert np.all(np.isfinite(out["quality"])) and np.abs(out["shifts_px"][0]).max() < 1e-3

@@ -119,18 +119,42 @@ def test_build_export_query_match_jax(files, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize(
-    "flags, match",
+    "flags, ext",
     [
-        (["--preprocess", "static=auto", "--patterns", "scan.h5"], "static=auto on HDF5"),
-        (["--patterns", "scan.h5"], "slice E"),
-        (["--patterns", "scan.up1"], "slice E"),
+        (["--preprocess", "static=auto"], ".h5"),
+        ([], ".h5"),
+        ([], ".up1"),
     ],
 )
-def test_later_slice_flags_raise(files, capsys, flags, match):
-    argv = ["query", "--patterns", str(files / "dict.npy"), "--db",
-            str(files / "missing.npz"), "--device", "cpu"] + SMALL + flags
-    with pytest.raises(SystemExit, match=match):
-        _run_port(argv, capsys)
+def test_later_slice_flags_raise(files, tmp_path, capsys, flags, ext):
+    """HDF5 and EDAX UP scans (and ``static=auto`` on them), once refused,
+    index: streamed in ``--h5-chunk`` slabs, the scan gives the ``.npy``
+    stack's orientations (tests/test_torch_scan_io.py holds the readers
+    against JAX's)."""
+    import h5py
+
+    raw = np.round(np.load(files / "dict.npy") * 255).astype(np.uint8)
+    np.save(tmp_path / "scan.npy", raw)
+    scan = tmp_path / f"scan{ext}"
+    if ext == ".h5":
+        with h5py.File(scan, "w") as f:
+            f["Scan 1/EBSD/Data/Pattern"] = raw
+    else:
+        with open(scan, "wb") as f:  # a version-1 header: width, height, offset
+            f.write(np.asarray([1, 128, 128, 16], "<u4").tobytes() + raw.tobytes())
+    db = str(tmp_path / "db.npz")
+    _run_port(["build", "--patterns", str(tmp_path / "scan.npy"), "--angles",
+               str(files / "dict.txt"), "--db", db, "--device", "cpu"] + SMALL, capsys)
+    got = {}
+    for src in ("scan.npy", scan.name):
+        out = str(tmp_path / f"{src}.o.npy")
+        summary = _summary(_run_port(
+            ["query", "--patterns", str(tmp_path / src), "--db", db, "--out", out,
+             "--top-n", "3", "--min-matches", "1", "--h5-chunk", "10", "--device", "cpu"]
+            + SMALL + flags, capsys))
+        assert summary["n_patterns"] == N and summary["input_dtype"] == "uint8"
+        got[src] = np.load(out)
+    np.testing.assert_allclose(got[scan.name], got["scan.npy"], atol=1e-4)
 
 
 @pytest.mark.parametrize(

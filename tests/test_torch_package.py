@@ -180,11 +180,11 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still refuses: ``mesh`` (slice C), the DB's ``native``
-    engine (slice E), the ``strain`` command and the server's ``/strain``
-    plane (a later slice). ``--sphere-master`` and ``/sphere``, once refused
-    here, serve: the flag alone builds a zero-training service whose
-    ``/sphere`` answers."""
+    """What the port still refuses: ``mesh`` (slice C) and the DB's
+    ``native`` engine (slice E). ``--sphere-master`` and ``/sphere``, and
+    ``strain``, ``--strain-ref`` and ``/strain``, once refused here, run:
+    each flag alone builds a zero-training service whose plane answers, and
+    ``/strain`` without a reference answers 400 with the JAX message."""
     from latice_tpu_torch import (
         IndexPipeline,
         IndexService,
@@ -201,11 +201,20 @@ def test_unported_options_raise(tmp_path):
         IndexPipeline(model, vecs, orients, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="later slice"):
         TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
-    with pytest.raises(SystemExit, match="later slice"):
-        index_main(["strain", "--patterns", "p.npy", "--ref", "3", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="later slice"):
-        serve_cli.build_service(serve_cli.parse_args(["--hough", "--strain-ref", "m.npy",
-                                                      "--device", "cpu"]))
+    ref = np.random.default_rng(1).random((128, 128)).astype(np.float32)
+    np.save(tmp_path / "p.npy", np.stack([ref, np.roll(ref, 1, axis=1)]))
+    with pytest.raises(SystemExit, match="out of range"):
+        index_main(["strain", "--patterns", str(tmp_path / "p.npy"), "--ref", "3",
+                    "--device", "cpu"])
+    index_main(["strain", "--patterns", str(tmp_path / "p.npy"), "--ref", "0", "--remap", "0",
+                "--out", str(tmp_path / "s.npz"), "--device", "cpu"])
+    # A one-pixel roll of the columns: every ROI moves by one column.
+    np.testing.assert_allclose(np.load(tmp_path / "s.npz")["shifts_px"][1], [[0.0, 1.0]] * 21,
+                               atol=0.05)
+    np.save(tmp_path / "ref.npy", ref)
+    strain = serve_cli.build_service(serve_cli.parse_args(
+        ["--hough", "--strain-ref", str(tmp_path / "ref.npy"), "--device", "cpu"]))
+    assert strain.health()["planes"] == ["hough", "strain"] and strain.pipeline is None
     from latice_tpu_torch.sim import make_kinematical_master
 
     np.save(tmp_path / "m.npy", make_kinematical_master(size=65))
@@ -219,9 +228,9 @@ def test_unported_options_raise(tmp_path):
         LatentVectorDatabaseConfig(npz_path="/nonexistent/none.npz", dimension=4), device="cpu"
     )
     db.add_vectors(vecs, orients)
-    # /strain routes to this refusal (400).
-    with pytest.raises(ValueError, match="later slice"):
-        IndexService(model, db, device="cpu").later_plane(np.zeros((1, 32, 32), np.float32))
+    # /strain without a strain reference answers 400 with this message.
+    with pytest.raises(ValueError, match="without a strain reference"):
+        IndexService(model, db, device="cpu").strain(np.zeros((1, 32, 32), np.float32))
     with pytest.raises(ValueError, match="unknown engine"):
         IndexPipeline(model, vecs, orients, device="cpu", engine="hnsw")
 

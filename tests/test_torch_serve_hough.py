@@ -10,7 +10,7 @@ CPU, at 64x64 over HTTP.
   IQ within 1e-5 and its band counts exactly;
 * ``/healthz`` reports the zero-training mode and its planes; ``/index``,
   ``/encode`` and ``/reload`` answer 400, and so do ``/sphere`` (this
-  server has no spherical indexer) and ``/strain`` (a later slice);
+  server has no spherical indexer) and ``/strain`` (no strain reference);
   ``--sphere-master`` alone builds the zero-training service that serves
   ``/sphere`` (`test_torch_serve_sphere.py` holds it to JAX).
 """
@@ -131,15 +131,17 @@ def test_zero_training_health_and_refusals(plane):
     code, msg = _error(url + "/sphere", body)
     assert code == 400 and "without a spherical indexer" in msg
     code, msg = _error(url + "/strain", body)
-    assert code == 400 and "later slice" in msg
+    assert code == 400 and "without a strain reference" in msg
 
 
 def test_serve_cli_modes(tmp_path):
     with pytest.raises(SystemExit, match="--hough"):
         serve_cli.build_service(serve_cli.parse_args(["--device", "cpu"]))
-    with pytest.raises(SystemExit, match="later slice"):
-        serve_cli.build_service(serve_cli.parse_args(["--hough", "--strain-ref", "x.npy",
-                                                      "--device", "cpu"]))
+    # --strain-ref, once refused, adds /strain beside /hough.
+    np.save(tmp_path / "ref.npy", np.zeros((128, 128), np.float32))
+    strain = serve_cli.build_service(serve_cli.parse_args(
+        ["--hough", "--strain-ref", str(tmp_path / "ref.npy"), "--device", "cpu"]))
+    assert strain.health()["planes"] == ["hough", "strain"]
     # --sphere-master, once refused, adds /sphere beside /hough.
     np.save(tmp_path / "m.npy", tsim.make_kinematical_master(size=65))
     both = serve_cli.build_service(serve_cli.parse_args(

@@ -135,7 +135,7 @@ def test_sphere_health_and_refusals(plane):
     code, msg = _error(url + "/index", body)
     assert code == 400 and "zero-training" in msg and "/sphere" in msg
     code, msg = _error(url + "/strain", body)
-    assert code == 400 and "later slice" in msg
+    assert code == 400 and "without a strain reference" in msg
     code, msg = _error(url + "/sphere", _npy(np.zeros((2, 5, 5, 5), np.float32)))
     assert code == 400
 
