@@ -5,7 +5,8 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 15, 16, 17 and 18, on the serve phase's files, before 7):
+10, 11, 14, 15, 16, 17, 18 and 19, on the serve phase's files, before 7,
+and 20 after 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -138,14 +139,39 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
     (10 InstanceNorm launches per build and query batch, 1 top-k launch
     per query batch, the header's 64x64 grid in the ``.ang``).
 
+19. master: the dynamical master at ``cli.index master``'s defaults
+    (201x201, 64 beams). 1,024 seeded generic directions on the real path
+    (fcc Ni), the 2N embedding (zincblende GaAs) and the measured-depth
+    quadrature, each traced and held to the port's CPU path and to the JAX
+    package's readings (examples/dynamical_jax_reference.py) at 1e-3
+    relative; ``eigh`` alone on one chunk of 2,048, real and embedded (and
+    MAGMA's on the real one), beside its bound; ``master`` for both
+    structures through the CLI, the fcc master held to the port's CPU
+    master by its median and 99th-percentile error; the Monte-Carlo
+    simulation at its defaults (200,000 electrons, tilt 70 degrees),
+    traced, its yield, energy weights and depth percentiles held to the
+    JAX package's statistics; ``master --mc`` with its energy bins cut (the
+    cut is printed); then ``simulate --master --fit-bands`` of the 2-degree
+    grid from the master's sidecar, ``build`` and ``query --engine fused``
+    of 4,096 (10 InstanceNorm launches per build and query batch, 1 top-k
+    launch per query batch).
+20. train_robust: ``cli.train trainer=robust data_module=streamed`` at
+    full width (16-mixed, batch 64, the conf's augmentation, denoising)
+    for 2 epochs over a seeded ``.up2`` scan of 2,048 patterns, streamed:
+    19 forward and 19 backward InstanceNorm launches per train step, 19
+    and 0 per eval step; the augmentation's application on the card
+    against the CPU on the same draws (1e-6); one step's gradients with
+    ``remat=stage`` against ``remat=none`` (18 more forward launches for
+    the recompute), with the peak memory of each.
+
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
 and a sweep of its launch plan, and prints no verdict line;
 ``--stage0-only`` runs phases 1 and 2 and the stage-0 kernel's checks and
-times, and prints no verdict line; ``--sphere-only`` and ``--strain-only``
-run phases 1, 2 and 17 or 18 (with a seeded checkpoint of their own), and
-print no verdict line.
+times, and prints no verdict line; ``--sphere-only``, ``--strain-only``
+and ``--master-only`` run phases 1, 2 and 17, 18 or 19 (with a seeded
+checkpoint of their own), and print no verdict line.
 Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
 and the port's f32 models turn it off around their own forward and
 backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
@@ -199,6 +225,14 @@ DECODER_SHAPES = [  # (C, H, W) after each decoder transposed conv, in order
 ]
 TRAIN_SHAPES = [s for s in ENCODER_SHAPES for _ in range(2)] + DECODER_SHAPES  # the 19 norms
 TRAIN_PATTERNS = 704  # 634 training rows: 10 batches of 64, the last masked
+# train_robust: `trainer=robust data_module=streamed` over a seeded .up2 scan
+# of 2,048 patterns (a 32x64 grid): 1,844 training rows, 29 batches of 64.
+ROBUST_PATTERNS, ROBUST_GRID = 2048, (32, 64)
+AUGMENT_ATOL = 1e-6  # the augmentation's application, card against CPU on the same draws
+# remat=stage against remat=none at 16-mixed: each gradient leaf within twice
+# the difference of two remat=none steps plus REMAT_RTOL, both over the
+# leaf's largest |gradient| (a wrong recompute is off by O(1)).
+REMAT_RTOL = 1e-3
 K2_ATOL = 1e-4  # reduction order differs from the plain twin's
 K2_BF16_ATOL = 1e-2  # bf16 outputs: 1e-2 plus one bf16 ulp of the value (K2_BF16_RTOL),
 K2_BF16_RTOL = 2.0**-7  # since kernel and twin may round an f32 value near a tie apart
@@ -367,6 +401,183 @@ JAX_STRAIN = {
     "remap1_ni": {"median_err": 0.0028495289273362105, "max_err": 0.008708041627202944,
         "within_1e4": 0.0, "within_5e4": 0.01171875,
         "mean_quality": 0.8701650694267646, "median_residual_px": 0.015380018390715122},
+}
+
+
+# master: the dynamical master at `cli.index master`'s defaults (201x201,
+# 64 beams, max_hkl 5, min_d 0.4, 20 kV, depth 50 nm, kappa 0.1, Debye-Waller
+# 0.35): fcc Ni on the real path, zincblende GaAs on the 2N embedding; the
+# Monte-Carlo weighting at 200,000 electrons, tilt 70 degrees, 400 steps,
+# seed 0. 1,024 seeded generic directions are held card against the port's
+# CPU path and against the JAX package's readings; MASTER_SHOWN of them per
+# direction, the rest by their spread.
+MASTER_SIZE, MASTER_BEAMS, MASTER_CHUNK = 201, 64, 2048
+MASTER_DIRS, MASTER_SEED, MASTER_SHOWN = 1024, 60, 64
+MASTER_TRACED = 64  # directions of the traced chunk
+MASTER_CASES = {  # `master` flags: --structure, --element, --lattice
+    "fcc": ("fcc", "ni", 3.52),
+    "zincblende": ("zincblende", "ga,as", 5.65),
+}
+MASTER_DEBYE_WALLER = 0.35  # the CLI's default
+# The measured-depth quadrature on fcc: a 40-bin histogram of the
+# exponential profile over 0-400 nm.
+MASTER_QUAD_BINS, MASTER_QUAD_DEPTH_NM = 40, 400.0
+MC_ELECTRONS, MC_TILT_DEG, MC_DEPTH_BINS = 200_000, 70.0, 40
+MC_ENERGY_BINS = 8  # the CLI's default, which the direct simulation keeps
+# The `master --mc` run keeps MC_ENERGY_BINS_RUN exit-energy bins, not the
+# default 8: each kept bin is one more full 201x201 Bloch solve (about 18 s
+# on the card, `eigh` looping over matrices of more than 32 rows), which
+# would take the whole script past six minutes.
+MC_ENERGY_BINS_RUN = 2
+# Card against the port's CPU path and against the JAX package's readings at
+# generic directions, relative: cuSOLVER and LAPACK return eigenvectors that
+# differ by f32 roundoff over the eigengaps (the port's CPU path against the
+# JAX package on the CPU: at most 1.6e-5 at 27 beams).
+MASTER_RTOL = 1e-3
+# The whole fcc master, card against the port's CPU path: along zone axes
+# and mirror lines the Bloch states are degenerate and the intensity depends
+# on the basis each solver returns, so the median and the 99th percentile of
+# the relative error are held, and the count above MASTER_RTOL reported.
+MASTER_MEDIAN_RTOL, MASTER_P99_RTOL = 1e-4, 1e-2
+# The Monte-Carlo statistics against the JAX package's at the same settings
+# (other draws): the yield and each energy bin's weight within
+# MC_SIGMAS standard errors of the difference of two binomial estimates, the
+# depth percentiles within MC_DEPTH_RTOL (the JAX package's own spread over
+# its two seeds in JAX_MASTER: at most 1.5%, the 10th percentile).
+MC_SIGMAS, MC_DEPTH_RTOL = 4.0, 0.06
+# The Monte-Carlo-weighted master from the phase's simulation (all 8 bins),
+# card against the port's CPU path, at this edge (largest difference of the
+# normalized images within MASTER_RTOL).
+MC_HOLD_SIZE = 33
+MASTER_QUERY = 4096  # the chain's query: patterns rendered from the fcc master
+
+
+def master_structure(sim, name: str):
+    """The structure ``cli.index master`` builds for case ``name`` of
+    `MASTER_CASES`, from ``sim`` (the port's ``sim`` package, or the JAX
+    package's in examples/dynamical_jax_reference.py)."""
+    structure, element, lattice = MASTER_CASES[name]
+    if structure == "zincblende":
+        cation, anion = element.split(",")
+        return sim.zincblende_structure(cation, anion, a=lattice,
+                                        debye_waller=MASTER_DEBYE_WALLER)
+    return sim.cubic_structure(structure, element, a=lattice, debye_waller=MASTER_DEBYE_WALLER)
+
+
+def master_directions(n: int = MASTER_DIRS, seed: int = MASTER_SEED) -> np.ndarray:
+    """``(n, 3)`` seeded generic unit directions of the north hemisphere."""
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:, 2] = np.abs(d[:, 2])
+    return d
+
+
+def master_quad_histogram() -> tuple[np.ndarray, np.ndarray]:
+    """The quadrature case's depth centers (nm) and weights."""
+    zc = (np.arange(MASTER_QUAD_BINS) + 0.5) * (MASTER_QUAD_DEPTH_NM / MASTER_QUAD_BINS)
+    return zc, np.exp(-zc / 50.0)
+
+
+def master_readings(values: np.ndarray) -> dict:
+    """What `JAX_MASTER` keeps of 1,024 intensities: their spread and the
+    first `MASTER_SHOWN`."""
+    v = np.asarray(values, np.float64)
+    return {"mean": float(v.mean()), "median": float(np.median(v)),
+            "p01": float(np.percentile(v, 1)), "p99": float(np.percentile(v, 99)),
+            "shown": [float(x) for x in v[:MASTER_SHOWN]]}
+
+
+def mc_readings(mc) -> dict:
+    """What `JAX_MASTER` keeps of a `MonteCarloBSE`: the yield, the count of
+    backscattered electrons, the energy weights and the depth percentiles."""
+    p10, p50, p90 = np.percentile(mc.max_depth_nm, [10, 50, 90])
+    return {"bse_yield": float(mc.bse_yield), "n_bse": int(len(mc.exit_energy_kev)),
+            "energy_weights": [float(w) for w in mc.energy_weights],
+            "depth_p10_nm": float(p10), "depth_p50_nm": float(p50), "depth_p90_nm": float(p90)}
+
+
+# The JAX package's readings on this phase's inputs, on the CPU
+# (examples/dynamical_jax_reference.py; Monte Carlo at seeds 0 and 1).
+JAX_MASTER = {
+    "fcc": {
+        "n_beams": 59, "u0": 0.07635882844995204, "mean": 0.4326032644021325,
+        "median": 0.4327742010354996, "p01": 0.21233814999461173, "p99": 0.6475464063882826,
+        "shown": [
+            0.3741886615753174, 0.47628307342529297, 0.47974035143852234, 0.43524786829948425,
+            0.4345126748085022, 0.49233290553092957, 0.5054990649223328, 0.6772767305374146,
+            0.2987234890460968, 0.186101496219635, 0.43388882279396057, 0.5332418084144592,
+            0.5190032124519348, 0.3222285807132721, 0.46611160039901733, 0.31651046872138977,
+            0.5670694708824158, 0.5244373083114624, 0.38876694440841675, 0.43674561381340027,
+            0.2812097370624542, 0.5767378211021423, 0.48033201694488525, 0.4309259057044983,
+            0.33485496044158936, 0.40571320056915283, 0.3462693989276886, 0.48633843660354614,
+            0.42166605591773987, 0.43697795271873474, 0.3962109684944153, 0.4077100157737732,
+            0.5622326731681824, 0.44141560792922974, 0.47652876377105713, 0.38823240995407104,
+            0.46181929111480713, 0.5779234766960144, 0.28930380940437317, 0.45952659845352173,
+            0.6010321974754333, 0.5186882615089417, 0.39850422739982605, 0.46400919556617737,
+            0.4702208638191223, 0.4932377338409424, 0.5262046456336975, 0.3871712386608124,
+            0.5018037557601929, 0.2805286943912506, 0.25443193316459656, 0.5152101516723633,
+            0.5887923240661621, 0.6246814131736755, 0.4068225920200348, 0.25162845849990845,
+            0.5440329313278198, 0.501380980014801, 0.29310256242752075, 0.4695705771446228,
+            0.6113404035568237, 0.5398003458976746, 0.4872226119041443, 0.3190244138240814],
+    },
+    "zincblende": {
+        "n_beams": 51, "u0": 0.038606053179651045, "mean": 0.6141994917124975,
+        "median": 0.6128090620040894, "p01": 0.3185083842277527, "p99": 0.9130226987600326,
+        "shown": [
+            0.5963388085365295, 0.7319161295890808, 0.40246519446372986, 0.5241627097129822,
+            0.706078290939331, 0.3800866901874542, 0.4045335352420807, 1.1644235849380493,
+            0.455678790807724, 0.5911069512367249, 0.8542177677154541, 0.7044594287872314,
+            0.48467329144477844, 0.5966430902481079, 0.7955141663551331, 0.5549918413162231,
+            0.6768273711204529, 0.6398546099662781, 0.6700869202613831, 0.6066979169845581,
+            0.8142176866531372, 0.7204343676567078, 0.6333930492401123, 0.3687081038951874,
+            0.7154538035392761, 0.6154752969741821, 0.6671916842460632, 0.44486910104751587,
+            0.6844344735145569, 0.6082969903945923, 0.5606794953346252, 0.8027459383010864,
+            0.7417032718658447, 0.7302408814430237, 0.7337235808372498, 0.6365844011306763,
+            0.5781933665275574, 0.8069823980331421, 0.7439938187599182, 0.6922388672828674,
+            0.33996835350990295, 0.8198351860046387, 0.5943222641944885, 0.7815369963645935,
+            0.5821400880813599, 0.7012639045715332, 0.6136962175369263, 0.5679304599761963,
+            0.8059971332550049, 0.6154775023460388, 0.5586945414543152, 0.8308923840522766,
+            0.7282823324203491, 0.4005658030509949, 0.7110006809234619, 0.6172835826873779,
+            0.7378104329109192, 0.7009915709495544, 0.6606332063674927, 0.7635732293128967,
+            0.6225683093070984, 0.3474736511707306, 0.6606666445732117, 0.49975574016571045],
+    },
+    "fcc_quad": {
+        "n_beams": 59, "u0": 0.07635882844995204, "mean": 0.42939041553472634,
+        "median": 0.43129318952560425, "p01": 0.20984234482049943, "p99": 0.6369503289461135,
+        "shown": [
+            0.3731001913547516, 0.47416678071022034, 0.4775804877281189, 0.43373435735702515,
+            0.43298569321632385, 0.48994457721710205, 0.5028544068336487, 0.6464649438858032,
+            0.29642120003700256, 0.1855034977197647, 0.4323909282684326, 0.5296003222465515,
+            0.5106677412986755, 0.32149991393089294, 0.4641728103160858, 0.3158050775527954,
+            0.5627171993255615, 0.5213133096694946, 0.387726753950119, 0.43511462211608887,
+            0.27855637669563293, 0.5718136429786682, 0.47816193103790283, 0.4294452667236328,
+            0.3340395390987396, 0.4044567346572876, 0.3444976806640625, 0.4792436957359314,
+            0.4203079342842102, 0.4354459047317505, 0.3951125741004944, 0.4064641296863556,
+            0.5567660927772522, 0.43980783224105835, 0.47441962361335754, 0.3871428668498993,
+            0.4599345624446869, 0.5731915235519409, 0.28853821754455566, 0.4553855061531067,
+            0.5946422815322876, 0.5157472491264343, 0.3973213732242584, 0.46208953857421875,
+            0.4681597352027893, 0.49080556631088257, 0.5230585336685181, 0.3859916627407074,
+            0.49921995401382446, 0.2781328558921814, 0.2531610429286957, 0.5123493671417236,
+            0.5814797282218933, 0.6152525544166565, 0.4013982117176056, 0.24958987534046173,
+            0.5402905344963074, 0.4988073706626892, 0.2923486828804016, 0.46757805347442627,
+            0.6043103933334351, 0.5362047553062439, 0.4843272566795349, 0.31491225957870483],
+    },
+    "mc_seed0": {
+        "bse_yield": 0.59772, "n_bse": 119544,
+        "energy_weights": [
+            0.0, 0.0019908987485779293, 0.02173258381851034, 0.04063775680920832,
+            0.06606772401793481, 0.10951616141337081, 0.2087432242521582, 0.5513116509402396],
+        "depth_p10_nm": 5.1277721405029295, "depth_p50_nm": 36.167348861694336,
+        "depth_p90_nm": 181.68867492675773,
+    },
+    "mc_seed1": {
+        "bse_yield": 0.596405, "n_bse": 119281,
+        "energy_weights": [
+            0.0, 0.0019449870473922921, 0.02221644687754127, 0.04037524836310896,
+            0.06581098414667885, 0.10963187766702157, 0.20849925805450994, 0.5515211978437471],
+        "depth_p10_nm": 5.054355621337891, "depth_p50_nm": 36.17298889160156,
+        "depth_p90_nm": 182.76637268066406,
+    },
 }
 
 
@@ -1881,10 +2092,6 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     of the dictionary with the full-width model and ``query --engine fused
     --nlpar 1 --scan-grid 64 64 --refine 10`` of the noisy scan, whose K2f
     and K1 launches are the path's."""
-    import contextlib
-    import logging
-
-    from latice_tpu_torch.cli.index import main as index_main
     from latice_tpu_torch.crystal import from_euler_zxz_deg
     from latice_tpu_torch.data import nlpar_denoise, parse_angle_file
     from latice_tpu_torch.index import (
@@ -1900,23 +2107,12 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     grid, dict_npy = str(root / "grid.txt"), str(root / "dict.npy")
     out = {}
 
-    def cli(argv) -> dict:
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            index_main(argv)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
-        lines = stdout.getvalue().strip().splitlines()
-        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
-
     # 1-2. The grid and its patterns through the CLI.
-    sample = cli(["sample", "--group", DICT_GROUP, "--resolution", str(DICT_RESOLUTION),
-                  "--out", grid])
+    sample = _index_cli(["sample", "--group", DICT_GROUP, "--resolution", str(DICT_RESOLUTION),
+                         "--out", grid])
     if sample["summary"]["n_orientations"] != GRID_ROWS:
         raise AssertionError(f"dictionary grid: {sample['summary']}")
-    sim = cli(["simulate", "--angles", grid, "--out", dict_npy, "--uint8"])
+    sim = _index_cli(["simulate", "--angles", grid, "--out", dict_npy, "--uint8"])
     card_u8 = np.load(dict_npy)
     if card_u8.shape != (GRID_ROWS, 128, 128) or card_u8.dtype != np.uint8:
         raise AssertionError(f"simulate wrote {card_u8.shape} {card_u8.dtype}")
@@ -2085,11 +2281,11 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     counters = (instance_norm_leaky_relu, cosine_topk_fused)
     for fn in counters:
         fn.launches = 0
-    steps = {"build": cli(["build", "--patterns", dict_npy, "--angles", grid, "--db", db]
-                          + common)}
-    steps["query"] = cli(["query", "--patterns", scan_npy, "--db", db, "--out", oriented,
-                          "--engine", "fused", "--nlpar", "1", "--scan-grid", str(SCAN_SIDE),
-                          str(SCAN_SIDE), "--refine", "10"] + common)
+    steps = {"build": _index_cli(["build", "--patterns", dict_npy, "--angles", grid, "--db", db]
+                                 + common)}
+    steps["query"] = _index_cli(["query", "--patterns", scan_npy, "--db", db, "--out", oriented,
+                                 "--engine", "fused", "--nlpar", "1", "--scan-grid", str(SCAN_SIDE),
+                                 str(SCAN_SIDE), "--refine", "10"] + common)
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = -(-GRID_ROWS // BATCH), SCAN_SIDE**2 // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
@@ -2200,10 +2396,6 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     renders at a known pattern center; ``cli.serve --hough`` with no
     dictionary; and the times of detection, vote, refinement and a
     calibration step."""
-    import contextlib
-    import logging
-
-    from latice_tpu_torch.cli.index import main as index_main
     from latice_tpu_torch.cli.serve import build_service, parse_args
     from latice_tpu_torch.data import BandDetector
     from latice_tpu_torch.device import full_f32_matmul
@@ -2222,16 +2414,6 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     root = Path(workdir) / "bands"
     root.mkdir()
     out = {}
-
-    def cli(argv) -> dict:
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            index_main(argv)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
-        return dict(wall_s=wall_s, summary=json.loads(stdout.getvalue().strip().splitlines()[-1]))
 
     # 1. The renders, on the card.
     fcc, hcp = cubic_reflectors(), hexagonal_reflectors(**HCP)
@@ -2315,15 +2497,15 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     # 5. The CLI: quality, hough --ang, hough --refine 20.
     pats = str(root / "fcc_u8.npy")
     np.save(pats, np.round(clean * 255.0).astype(np.uint8))
-    steps = {"quality": cli(["quality", "--patterns", pats, "--scan-grid", "32", "32",
-                             "--out-prefix", str(root / "q")])}
+    steps = {"quality": _index_cli(["quality", "--patterns", pats, "--scan-grid", "32", "32",
+                                    "--out-prefix", str(root / "q")])}
     qiq = np.load(root / "q_iq.npy")
     if qiq.shape != (32, 32) or not np.all(np.isfinite(qiq)):
         raise AssertionError(f"quality IQ map {qiq.shape}")
-    steps["hough"] = cli(["hough", "--patterns", pats, "--out", str(root / "h.npy"),
-                          "--ang", str(root / "h.ang"), "--scan-grid", "32", "32"])
-    steps["hough_refine"] = cli(["hough", "--patterns", pats, "--out", str(root / "r.npy"),
-                                 "--refine", "20"])
+    steps["hough"] = _index_cli(["hough", "--patterns", pats, "--out", str(root / "h.npy"),
+                                 "--ang", str(root / "h.ang"), "--scan-grid", "32", "32"])
+    steps["hough_refine"] = _index_cli(["hough", "--patterns", pats, "--out", str(root / "r.npy"),
+                                        "--refine", "20"])
     raw_err = _disorientation_deg(np.load(root / "h.npy"), truth)
     ref_err = _disorientation_deg(np.load(root / "r.npy"), truth)
     if not np.median(ref_err) < np.median(raw_err):
@@ -2345,10 +2527,10 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     for fn in counters:
         fn.launches = 0
     qout = str(root / "query.npy")
-    query = cli(["query", "--patterns", str(cli_root / "query.npy"), "--db",
-                 str(cli_root / "db.npz"), "--out", qout, "--engine", "fused", "--hough-iq",
-                 "--ang", str(root / "query.ang"), "--checkpoint", ckpt, "--inplanes",
-                 str(INPLANES), "--latent-dim", str(LATENT), "--batch-size", str(BATCH)])
+    query = _index_cli(["query", "--patterns", str(cli_root / "query.npy"), "--db",
+                        str(cli_root / "db.npz"), "--out", qout, "--engine", "fused", "--hough-iq",
+                        "--ang", str(root / "query.ang"), "--checkpoint", ckpt, "--inplanes",
+                        str(INPLANES), "--latent-dim", str(LATENT), "--batch-size", str(BATCH)])
     launches = {fn.__name__: fn.launches for fn in counters}
     batches = CLI_QUERY // BATCH
     want = {"instance_norm_leaky_relu": 10 * batches, "cosine_topk_fused": batches}
@@ -2380,9 +2562,9 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     cal = {}
     for name, pats_npy, extra in (("shared", "cal_shared.npy", []),
                                   ("affine", "cal_scan.npy", ["--scan-grid", str(rows), str(cols)])):
-        res_cli = cli(["calibrate", "--patterns", str(root / pats_npy), "--orientations",
-                       str(root / "cal_q.npy"), "--out", str(root / f"cal_{name}.npz"), "--pin",
-                       "--steps", str(CAL_STEPS)] + extra)
+        res_cli = _index_cli(["calibrate", "--patterns", str(root / pats_npy), "--orientations",
+                              str(root / "cal_q.npy"), "--out", str(root / f"cal_{name}.npz"),
+                              "--pin", "--steps", str(CAL_STEPS)] + extra)
         with np.load(root / f"cal_{name}.npz") as f:
             fit = {k: f[k] for k in f.files}
         if name == "shared":
@@ -2658,12 +2840,9 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     without ``?ambiguity=1``. One Wigner table is built: the library
     indexers share `projection_tables`, and the CLI and the server read it
     from the port's value-transparent cache in this run's directory."""
-    import contextlib
     import dataclasses
-    import logging
     import os
 
-    from latice_tpu_torch.cli.index import main as index_main
     from latice_tpu_torch.cli.serve import build_service, parse_args
     from latice_tpu_torch.crystal import write_anglefile
     from latice_tpu_torch.data import parse_angle_file, read_ang
@@ -2686,17 +2865,6 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     root.mkdir()
     os.environ["LATICE_TPU_TORCH_SHT_CACHE"] = str(root / "sht_cache")
     out = {}
-
-    def cli(argv) -> dict:
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            index_main(argv)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
-        lines = stdout.getvalue().strip().splitlines()
-        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
 
     # 1. The master and 1,024 renders on the card, against the CPU's.
     t0 = time.perf_counter()
@@ -2823,11 +2991,11 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     steps = {}
     if not grid.exists():  # --sphere-only runs no dictionary phase
         grid = root / "grid.txt"
-        steps["sample"] = cli(["sample", "--group", DICT_GROUP, "--resolution",
-                               str(DICT_RESOLUTION), "--out", str(grid)])
+        steps["sample"] = _index_cli(["sample", "--group", DICT_GROUP, "--resolution",
+                                      str(DICT_RESOLUTION), "--out", str(grid)])
     dict_npy = str(root / "master_dict.npy")
-    steps["simulate"] = cli(["simulate", "--angles", str(grid), "--master", master_npy,
-                             "--fit-bands", "--uint8", "--out", dict_npy])
+    steps["simulate"] = _index_cli(["simulate", "--angles", str(grid), "--master", master_npy,
+                                    "--fit-bands", "--uint8", "--out", dict_npy])
     sim_sum = steps["simulate"]["summary"]
     meta = json.loads(Path(dict_npy + ".simmeta.json").read_text())
     if not (sim_sum["n_patterns"] == GRID_ROWS and meta["kind"] == "master_fit"
@@ -2842,10 +3010,10 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     counters = (instance_norm_leaky_relu, cosine_topk_fused)
     for fn in counters:
         fn.launches = 0
-    steps["build"] = cli(["build", "--patterns", dict_npy, "--angles", str(grid), "--db", db]
-                         + common)
-    steps["query"] = cli(["query", "--patterns", query_npy, "--db", db, "--out", oriented,
-                          "--engine", "fused", "--refine", "10"] + common)
+    steps["build"] = _index_cli(["build", "--patterns", dict_npy, "--angles", str(grid), "--db", db]
+                                + common)
+    steps["query"] = _index_cli(["query", "--patterns", query_npy, "--db", db, "--out", oriented,
+                                 "--engine", "fused", "--refine", "10"] + common)
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = -(-GRID_ROWS // BATCH), CLI_QUERY // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
@@ -2863,9 +3031,9 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     # Half the source's edge (257, learn-master's default at full width):
     # every other source pixel lies on the learned grid.
     size = (SPHERE_MASTER - 1) // 2 + 1
-    steps["learn_master"] = cli(["learn-master", "--patterns", learn_npy, "--angles",
-                                 learn_angles, "--size", str(size),
-                                 "--out", str(root / "learned.npy")])
+    steps["learn_master"] = _index_cli(["learn-master", "--patterns", learn_npy, "--angles",
+                                        learn_angles, "--size", str(size),
+                                        "--out", str(root / "learned.npy")])
     learned = np.load(root / "learned.npy")
     src = fcc[::2, ::2]
     ij = (np.arange(size) - (size - 1) / 2) / ((size - 1) / 2)
@@ -2877,9 +3045,10 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     del dict_u8
     sphere_npy = str(root / "sphere_patterns.npy")
     np.save(sphere_npy, pats)
-    steps["sphere"] = cli(["sphere", "--patterns", sphere_npy, "--master", master_npy,
-                           "--out", str(root / "sphere.npy"), "--ang", str(root / "sphere.ang"),
-                           "--scan-grid", str(SPHERE_PATTERNS // 32), "32"])
+    steps["sphere"] = _index_cli(["sphere", "--patterns", sphere_npy, "--master", master_npy,
+                                  "--out", str(root / "sphere.npy"),
+                                  "--ang", str(root / "sphere.ang"),
+                                  "--scan-grid", str(SPHERE_PATTERNS // 32), "32"])
     cli_eulers = np.load(root / "sphere.npy")
     if not np.array_equal(cli_eulers, modes["newton"]["res"].eulers_deg):
         raise AssertionError("index sphere differs from the library's Newton result")
@@ -3051,11 +3220,7 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     scan grid from the UP header), a ``cli.serve --strain-ref`` server's
     ``/strain`` of 256, and ``build`` + ``query --engine fused`` of the
     ``.up2`` scan (its K2f and K1 launches are the path's)."""
-    import contextlib
-    import logging
-
     from latice_tpu_torch import hrebsd as hr
-    from latice_tpu_torch.cli.index import main as index_main
     from latice_tpu_torch.cli.serve import build_service, parse_args
     from latice_tpu_torch.crystal import CUBIC_STIFFNESS, cubic_stiffness
     from latice_tpu_torch.data import read_ang
@@ -3068,17 +3233,6 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     out = {}
     geom = DetectorGeometry(shape=(STRAIN_SIZE, STRAIN_SIZE))
     kw = dict(roi_size=STRAIN_ROI, upsample=STRAIN_UPSAMPLE, chunk=STRAIN_CHUNK)
-
-    def cli(argv) -> dict:
-        stdout = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            index_main(argv)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
-        lines = stdout.getvalue().strip().splitlines()
-        return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
 
     # 1. The library on the truth patterns against the JAX package's
     # readings, and on STRAIN_HOLD of them against the port's CPU path.
@@ -3176,8 +3330,8 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     # 3. The CLI on an EDAX .up2 copy of the scan (16-bit frames, x257).
     up2 = str(root / "scan.up2")
     _write_up2(up2, scan.astype(np.uint16) * 257, STRAIN_SCAN_SIDE, STRAIN_SCAN_SIDE)
-    steps = {"strain": cli(["strain", "--patterns", up2, "--ref", "0", "--stiffness", "ni",
-                            "--remap", "1", "--out", str(root / "strain.npz")])}
+    steps = {"strain": _index_cli(["strain", "--patterns", up2, "--ref", "0", "--stiffness", "ni",
+                                   "--remap", "1", "--out", str(root / "strain.npz")])}
     summary = steps["strain"]["summary"]
     cli_out = np.load(root / "strain.npz")
     frames = (scan.astype(np.uint16) * 257).astype(np.float32)
@@ -3237,11 +3391,11 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     for fn in counters:
         fn.launches = 0
     db = str(root / "db.npz")
-    steps["build"] = cli(["build", "--patterns", str(root / "dict.npy"), "--angles",
-                          str(root / "angles.txt"), "--db", db] + common)
-    steps["query"] = cli(["query", "--patterns", up2, "--db", db, "--engine", "fused",
-                          "--out", str(root / "orientations.npy"), "--ang",
-                          str(root / "scan.ang")] + common)
+    steps["build"] = _index_cli(["build", "--patterns", str(root / "dict.npy"), "--angles",
+                                 str(root / "angles.txt"), "--db", db] + common)
+    steps["query"] = _index_cli(["query", "--patterns", up2, "--db", db, "--engine", "fused",
+                                 "--out", str(root / "orientations.npy"), "--ang",
+                                 str(root / "scan.ang")] + common)
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = len(pats) // BATCH, len(scan) // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
@@ -3257,6 +3411,300 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     emit("strain", card=smi, **out,
          timed_as="s: CUDA events around the call; ms: CUDA events per call; device_ms: "
                   "profiler sums; wall_ms, *_s else host wall")
+    return launches
+
+
+def _progress(phase: str, t0: float, step: str) -> None:
+    """A line per finished step of a long phase: a failure later in the
+    phase still leaves the steps' times in the output."""
+    print(json.dumps({"progress": phase, "step": step,
+                      "elapsed_s": time.perf_counter() - t0}), flush=True)
+
+
+def _index_cli(argv) -> dict:
+    """One ``cli.index`` command in this process: its host wall seconds and
+    its JSON summary line."""
+    import contextlib
+    import logging
+
+    from latice_tpu_torch.cli.index import main as index_main
+
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        index_main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
+    lines = stdout.getvalue().strip().splitlines()
+    return dict(wall_s=wall_s, summary=json.loads(lines[-1]) if lines else None)
+
+
+def _traced_call(fn) -> tuple[dict, object]:
+    """One call of ``fn`` under the profiler: device busy ms, device
+    activities, host wall ms and the device's idle share of it; and the
+    call's result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy = sum(t for _, t, _ in kernels)
+    return dict(device_ms=busy, launches=sum(c for _, _, c in kernels), wall_ms=wall_ms,
+                idle_share=1.0 - busy / wall_ms), result
+
+
+def _eigh_chunk(beams, d: np.ndarray) -> dict:
+    """``torch.linalg.eigh`` alone on one chunk's Bloch matrices (the real
+    N×N or the embedded 2N×2N ones), CUDA events around one call, beside
+    its bound: ~9n³ operations per matrix with vectors at the FP32 peak,
+    each matrix read and its vectors written once."""
+    from latice_tpu_torch.sim import dynamical as dyn
+
+    dirs = torch.as_tensor(d, dtype=torch.float32, device="cuda")
+    g, cr = (torch.as_tensor(a, device="cuda") for a in (beams.g, beams.coupling))
+    a = cr[None] + torch.diag_embed(dyn._excitation_errors(dirs, g, beams.k_int))
+    if not beams.is_centrosymmetric:
+        ci = torch.as_tensor(beams.coupling_imag, device="cuda").expand(a.shape)
+        a = torch.cat([torch.cat([a, -ci], dim=2), torch.cat([ci, a], dim=2)], dim=1)
+    b, n = a.shape[0], a.shape[-1]
+    ms, _ = _events_s(lambda: torch.linalg.eigh(a))
+    bound, by = bound_ms(b * (2 * n * n + n) * 4, b * 9.0 * n**3)
+    return dict(n=n, batch=b, ms=ms * 1e3, bound_ms=bound, bound_by=by)
+
+
+def _hold_mc(got: dict, want: dict) -> dict:
+    """The card's Monte-Carlo statistics against the JAX package's: the
+    yield and each energy weight within `MC_SIGMAS` standard errors of the
+    difference of two binomial estimates, the depth percentiles within
+    `MC_DEPTH_RTOL`."""
+    n_in = MC_ELECTRONS
+
+    def sigma(p, q, n1, n2):
+        return float(np.sqrt(p * (1 - p) / n1 + q * (1 - q) / n2))
+
+    eta_sd = sigma(got["bse_yield"], want["bse_yield"], n_in, n_in)
+    eta_z = abs(got["bse_yield"] - want["bse_yield"]) / eta_sd
+    w_z = []
+    for p, q in zip(got["energy_weights"], want["energy_weights"]):
+        sd = sigma(p, q, got["n_bse"], want["n_bse"])
+        w_z.append(0.0 if p == q else abs(p - q) / max(sd, 1e-12))
+    depth_rel = {k: abs(got[k] - want[k]) / want[k]
+                 for k in ("depth_p10_nm", "depth_p50_nm", "depth_p90_nm")}
+    if not (eta_z <= MC_SIGMAS and max(w_z) <= MC_SIGMAS
+            and max(depth_rel.values()) <= MC_DEPTH_RTOL):
+        raise AssertionError(f"Monte Carlo vs JAX: eta {got['bse_yield']} vs "
+                             f"{want['bse_yield']} ({eta_z:.2f} sigma), weights {w_z}, "
+                             f"depths {depth_rel}")
+    return dict(eta_sigmas=eta_z, energy_weight_sigmas=w_z, depth_rel=depth_rel)
+
+
+def phase_master(workdir: str, ckpt: str, smi: str) -> dict:
+    """The dynamical master at ``cli.index master``'s defaults (201x201, 64
+    beams): 1,024 generic directions on the real path (fcc Ni), the 2N
+    embedding (zincblende GaAs) and the measured-depth quadrature (fcc),
+    each card against the port's CPU path and the JAX package's readings
+    (examples/dynamical_jax_reference.py), traced; ``eigh`` alone per chunk
+    against its bound; ``master`` (fcc, then zincblende) through the CLI,
+    the fcc master held to the port's CPU master; the Monte-Carlo
+    simulation at its defaults, traced and held to JAX's statistics;
+    ``master --mc``; then the chain ``simulate --master --fit-bands``
+    (source: the master's ``.mastermeta.json``), ``build`` of the 2-degree
+    grid and ``query --engine fused`` of 4,096, whose K2f and K1 launches
+    are the path's."""
+    from latice_tpu_torch import sim as psim
+    from latice_tpu_torch.data import parse_angle_file
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.sim.dynamical import lambert_master_directions
+
+    t_phase = time.perf_counter()
+    root = Path(workdir) / "master"
+    root.mkdir()
+    out = {}
+    d = master_directions()
+    zc, zw = master_quad_histogram()
+    beams = {name: psim.dynamical_beams(master_structure(psim, name), n_beams=MASTER_BEAMS)
+             for name in MASTER_CASES}
+    psim.channeling_intensities(d[:8], beams["fcc"], chunk=8)  # cuSOLVER's set-up
+
+    # 1. 1,024 generic directions per path, one chunk each, timed: the card
+    # against the port's CPU path and JAX's readings. The device's share of
+    # a chunk's wall comes from a traced chunk of MASTER_TRACED directions
+    # (cuSOLVER launches ~75 kernels per matrix; a trace of a full chunk
+    # holds 150,000 records), over the same chunk's untraced wall.
+    cases = {}
+    for name in ("fcc", "zincblende", "fcc_quad"):
+        b = beams[name.removesuffix("_quad")]
+        kw = dict(depth_centers_nm=zc, depth_weights=zw) if name.endswith("_quad") else {}
+        t0 = time.perf_counter()
+        card = psim.channeling_intensities(d, b, chunk=MASTER_CHUNK, **kw)
+        chunk_wall_ms = (time.perf_counter() - t0) * 1e3
+
+        def small():
+            return psim.channeling_intensities(d[:MASTER_TRACED], b, chunk=MASTER_TRACED, **kw)
+
+        small()
+        t0 = time.perf_counter()
+        small()
+        small_wall_ms = (time.perf_counter() - t0) * 1e3
+        trace, _ = _traced_call(small)
+        trace.update(directions=MASTER_TRACED, untraced_wall_ms=small_wall_ms,
+                     idle_share=1.0 - trace["device_ms"] / small_wall_ms,
+                     launches_per_matrix=trace["launches"] / MASTER_TRACED)
+        cpu = psim.channeling_intensities(d, b, chunk=MASTER_CHUNK, device="cpu", **kw)
+        want = JAX_MASTER[name]
+        rel_cpu = np.abs(card - cpu) / np.abs(cpu)
+        shown = np.asarray(want["shown"])
+        rel_jax = np.abs(card[:MASTER_SHOWN] - shown) / np.abs(shown)
+        got = master_readings(card)
+        spread = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("mean", "median", "p01", "p99")}
+        if (len(b), b.u0) != (want["n_beams"], want["u0"]):
+            raise AssertionError(f"master {name}: beams {len(b)}, u0 {b.u0}; JAX {want}")
+        if not (rel_cpu.max() <= MASTER_RTOL and rel_jax.max() <= MASTER_RTOL
+                and max(spread.values()) <= MASTER_RTOL):
+            raise AssertionError(f"master {name}: card vs CPU {rel_cpu.max()}, vs JAX "
+                                 f"{rel_jax.max()}, spread {spread}")
+        cases[name] = dict(n_beams=len(b), chunk_wall_ms=chunk_wall_ms, traced=trace,
+                           card_vs_cpu=dict(median=float(np.median(rel_cpu)),
+                                            p99=float(np.percentile(rel_cpu, 99)),
+                                            max=float(rel_cpu.max())),
+                           card_vs_jax_shown_max=float(rel_jax.max()), card_vs_jax_spread=spread)
+    out["directions"] = cases
+    _progress("master", t_phase, "directions")
+
+    # 2. eigh alone on one chunk of 2,048, real and embedded; cuSOLVER's
+    # loop over matrices against MAGMA's on the real one.
+    dc = lambert_master_directions(MASTER_SIZE).reshape(-1, 3)[:MASTER_CHUNK]
+    eigh = {name: _eigh_chunk(b, dc) for name, b in beams.items()}
+    try:
+        torch.backends.cuda.preferred_linalg_library("magma")
+        eigh["fcc_magma"] = _eigh_chunk(beams["fcc"], dc)
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+    out["eigh_per_chunk"] = eigh
+    _progress("master", t_phase, "eigh")
+
+    # 3. `master` through the CLI; the fcc master against the port's CPU
+    # master (normalized as the CLI does), pixels inside the equator.
+    steps = {}
+    for name, (structure, element, lattice) in MASTER_CASES.items():
+        steps[name] = _index_cli(["master", "--structure", structure, "--element", element,
+                                  "--lattice", str(lattice), "--out", str(root / f"{name}.npy")])
+        meta = json.loads(Path(root / f"{name}.npy.mastermeta.json").read_text())
+        if (steps[name]["summary"]["n_beams"] != JAX_MASTER[name]["n_beams"]
+                or meta["centrosymmetric"] != (name == "fcc")):
+            raise AssertionError(f"master {name}: {steps[name]['summary']}, {meta}")
+        _progress("master", t_phase, f"master {name}")
+    fcc_card = np.load(root / "fcc.npy")
+    t0 = time.perf_counter()
+    fcc_cpu = psim.dynamical_master_pattern(master_structure(psim, "fcc"), beams=beams["fcc"],
+                                            size=MASTER_SIZE, device="cpu")
+    cpu_master_s = time.perf_counter() - t0
+    ij = (np.arange(MASTER_SIZE) - (MASTER_SIZE - 1) / 2) / ((MASTER_SIZE - 1) / 2)
+    disc = (ij[None, :] ** 2 + ij[:, None] ** 2) <= 1.0
+    err = np.abs(fcc_card - fcc_cpu)[disc]
+    master_hold = dict(median=float(np.median(err)), p99=float(np.percentile(err, 99)),
+                       max=float(err.max()), above_rtol=int((err > MASTER_RTOL).sum()),
+                       pixels=int(disc.sum()), cpu_master_s=cpu_master_s,
+                       measured_as="|card - CPU| of the min-max normalized masters")
+    if not (master_hold["median"] <= MASTER_MEDIAN_RTOL and master_hold["p99"] <= MASTER_P99_RTOL):
+        raise AssertionError(f"fcc master card vs CPU: {master_hold}")
+    out["master_cli"] = dict(steps=steps, fcc_vs_cpu=master_hold)
+    _progress("master", t_phase, "fcc master vs CPU")
+
+    # 4. Monte Carlo at its defaults, traced (the walk's launches and the
+    # device's idle share), held to JAX's statistics; then `master --mc`.
+    fcc = master_structure(psim, "fcc")
+
+    def simulate():
+        return psim.simulate_bse_monte_carlo(
+            fcc, kv=20.0, tilt_deg=MC_TILT_DEG, n_electrons=MC_ELECTRONS,
+            energy_bins=MC_ENERGY_BINS, depth_bins=MC_DEPTH_BINS)
+
+    t0 = time.perf_counter()
+    mc = simulate()
+    mc_wall_ms = (time.perf_counter() - t0) * 1e3
+    mc_trace, _ = _traced_call(simulate)
+    mc_trace.update(untraced_wall_ms=mc_wall_ms,
+                    idle_share=1.0 - mc_trace["device_ms"] / mc_wall_ms)
+    mc_got = mc_readings(mc)
+    mc_hold = _hold_mc(mc_got, JAX_MASTER["mc_seed0"])
+    print(f"master: `master --mc` keeps {MC_ENERGY_BINS_RUN} exit-energy bins of the default "
+          f"{MC_ENERGY_BINS} (each kept bin is one more 201x201 Bloch solve)", flush=True)
+    steps["mc"] = _index_cli(["master", "--mc", "--mc-electrons", str(MC_ELECTRONS),
+                              "--mc-energy-bins", str(MC_ENERGY_BINS_RUN),
+                              "--out", str(root / "fcc_mc.npy")])
+    mc_meta = json.loads(Path(root / "fcc_mc.npy.mastermeta.json").read_text())
+    if not (steps["mc"]["summary"]["mc_bse_yield"] == round(mc.bse_yield, 4)
+            and mc_meta["mc"] and len(mc_meta["mc_energy_weights"]) == MC_ENERGY_BINS_RUN):
+        raise AssertionError(f"master --mc: {steps['mc']['summary']}, {mc_meta}")
+    mc_img = np.load(root / "fcc_mc.npy")
+    if not (np.all(np.isfinite(mc_img)) and mc_img.min() == 0.0 and mc_img.max() == 1.0):
+        raise AssertionError("master --mc: the master is not finite and normalized")
+    # The weighted master from this run's simulation (8 bins), card against
+    # the port's CPU path, at MC_HOLD_SIZE.
+    kw = dict(size=MC_HOLD_SIZE, chunk=MC_HOLD_SIZE**2)
+    mc_card_s, mc_card = _events_s(lambda: psim.mc_weighted_master_pattern(fcc, mc, **kw))
+    mc_cpu = psim.mc_weighted_master_pattern(fcc, mc, device="cpu", **kw)
+    mc_err = float(np.abs(mc_card - mc_cpu).max())
+    if not mc_err <= MASTER_RTOL:
+        raise AssertionError(f"MC-weighted master card vs CPU: {mc_err}")
+    out["monte_carlo"] = dict(walk=mc_trace, readings=mc_got, jax_seed0=JAX_MASTER["mc_seed0"],
+                              hold=mc_hold, mc_energy_bins_run=MC_ENERGY_BINS_RUN,
+                              mc_master_corr_to_plain=float(
+                                  np.corrcoef(mc_img[disc], fcc_card[disc])[0, 1]),
+                              weighted_master_card_vs_cpu=mc_err,
+                              weighted_master_card_s=mc_card_s)
+    _progress("master", t_phase, "monte_carlo")
+
+    # 5. The chain: simulate --master --fit-bands (the master's sidecar),
+    # build of the grid, query --engine fused of 4,096.
+    grid = Path(workdir) / "dictionary" / "grid.txt"
+    if not grid.exists():  # --master-only runs no dictionary phase
+        grid = root / "grid.txt"
+        steps["sample"] = _index_cli(["sample", "--group", DICT_GROUP, "--resolution",
+                                      str(DICT_RESOLUTION), "--out", str(grid)])
+    dict_npy = str(root / "master_dict.npy")
+    steps["simulate"] = _index_cli(["simulate", "--angles", str(grid), "--master",
+                                    str(root / "fcc.npy"), "--uint8", "--out", dict_npy])
+    sim_sum = steps["simulate"]["summary"]
+    meta = json.loads(Path(dict_npy + ".simmeta.json").read_text())
+    if not (sim_sum["n_patterns"] == GRID_ROWS and meta["kind"] == "master_fit"
+            and meta["fit_source"] == "mastermeta"):
+        raise AssertionError(f"simulate --master of the dynamical master: {sim_sum}, "
+                             f"{meta['kind']}, {meta.get('fit_source')}")
+    query_npy = str(root / "query.npy")
+    np.save(query_npy, np.load(dict_npy)[:MASTER_QUERY])
+    db, oriented = str(root / "db.npz"), str(root / "orientations.npy")
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    steps["build"] = _index_cli(["build", "--patterns", dict_npy, "--angles", str(grid),
+                                 "--db", db] + common)
+    steps["query"] = _index_cli(["query", "--patterns", query_npy, "--db", db, "--out", oriented,
+                                 "--engine", "fused"] + common)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    build_batches, query_batches = -(-GRID_ROWS // BATCH), MASTER_QUERY // BATCH
+    want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
+                     "cosine_topk_fused": query_batches}
+    if launches != want_launches:
+        raise AssertionError(f"master chain launches {launches}, want {want_launches}")
+    q_err = _disorientation_deg(np.load(oriented), parse_angle_file(str(grid))[:MASTER_QUERY])
+    if not np.all(np.isfinite(q_err)):
+        raise AssertionError("query of the dynamical-master dictionary: non-finite orientations")
+    out["chain"] = dict(launches=launches, fit_ncc=sim_sum["fit_ncc"],
+                        n_fitted_bands=sim_sum["n_fitted_bands"],
+                        query_median_deg=float(np.median(q_err)))
+    emit("master", card=smi, **out,
+         timed_as="chunk_wall_ms, untraced_wall_ms, wall_s: host clock; traced: profiler "
+                  "sums and records of one call; idle_share: 1 - traced device / untraced "
+                  "wall; eigh ms: CUDA events around one call")
     return launches
 
 
@@ -3361,6 +3809,143 @@ def phase_train(workdir: str, smi: str) -> tuple[dict, torch.nn.Module]:
          epoch2_patterns_per_s=n_rows / last["epoch_time_s"],
          timed_as="epoch 2's wall clock, its 2 eval steps included", card=smi)
     return launches, model
+
+
+def _one_step_grads(model, x: torch.Tensor, eps: torch.Tensor, loss_fn) -> tuple[dict, int, int]:
+    """One step's gradients of ``model`` on batch ``x`` with noise ``eps``
+    (no update), the peak device memory of the step, and the K2f launches
+    it made."""
+    from latice_tpu_torch.ops import instance_norm_leaky_relu
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instance_norm_leaky_relu.launches = 0
+    out = model(x, eps=eps)
+    loss_fn(*out, x, None)["loss"].backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return grads, torch.cuda.max_memory_allocated(), instance_norm_leaky_relu.launches
+
+
+def phase_train_robust(workdir: str, smi: str) -> dict:
+    """``cli.train trainer=robust data_module=streamed`` at full width
+    (inplanes 32, latent 16, batch 64, 16-mixed; the conf's augmentation
+    with the denoising objective) for 2 epochs over a seeded ``.up2`` scan
+    of `ROBUST_PATTERNS`, streamed batch by batch; the counters, zeroed just
+    before, must show 19 K2f + 19 K2b launches per train step and 19 + 0
+    per eval step. Then the augmentation's application on the card against
+    the CPU on the same draws, and one step's gradients with ``remat=stage``
+    against ``remat=none`` from the same weights, batch and noise, with the
+    peak memory of each and the recompute's K2f launches."""
+    from latice_tpu_torch.cli.train import train
+    from latice_tpu_torch.config import load_config
+    from latice_tpu_torch.data import AugmentConfig
+    from latice_tpu_torch.data.augment import apply_augment, draw_augment
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.ops import instance_norm_leaky_relu, instance_norm_leaky_relu_backward
+    from latice_tpu_torch.train import VAELoss
+
+    root = Path(workdir) / "train_robust"
+    root.mkdir()
+    patterns = _synthetic_patterns(ROBUST_PATTERNS, seed=5)
+    scan = str(root / "scan.up2")
+    _write_up2(scan, np.round(patterns * 65535.0), *ROBUST_GRID)
+    overrides = [
+        "trainer=robust", "data_module=streamed", f"data_module.path={scan}",
+        "trainer.max_epochs=2", f"trainer.checkpoint_dir={root / 'checkpoints'}",
+        f"trainer.logger.save_dir={root / 'logs'}", "trainer.log_every_n_steps=1",
+    ]
+    config = load_config(Path(__file__).resolve().parent / "conf", "train.yaml", overrides)
+    tcfg, model_cfg = config["trainer"], config["lightning_module"]["model"]
+    used = dict(precision=tcfg["precision"], batch_size=config["data_module"]["batch_size"],
+                inplanes=model_cfg["inplanes"], latent_dim=model_cfg["latent_dim"],
+                augment={k: v for k, v in tcfg["augment"].items() if k != "_target_"},
+                denoising=tcfg["denoising"], data_module=config["data_module"]["_target_"])
+    if (used["precision"], used["batch_size"], used["inplanes"], used["latent_dim"],
+            used["denoising"]) != ("16-mixed", TRAIN_BATCH, INPLANES, LATENT, True):
+        raise AssertionError(f"trainer=robust is not the full-width denoising run: {used}")
+
+    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer, model = train(config, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    n_train, n_val = trainer.steps_run["train"], trainer.steps_run["val"]
+    n_val_rows = int(ROBUST_PATTERNS * config["data_module"]["val_data_ratio"])
+    want_steps = (2 * -(-(ROBUST_PATTERNS - n_val_rows) // TRAIN_BATCH),
+                  2 * -(-n_val_rows // TRAIN_BATCH))
+    if (n_train, n_val) != want_steps:
+        raise AssertionError(f"ran {n_train} train and {n_val} eval steps, want {want_steps}")
+    want = {"instance_norm_leaky_relu": 19 * (n_train + n_val),
+            "instance_norm_leaky_relu_backward": 19 * n_train}
+    if launches != want:
+        raise AssertionError(f"train_robust launches {launches}, want {want}")
+    with open(root / "logs" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    step_losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
+    if len(step_losses) != n_train or not all(np.isfinite(step_losses)):
+        raise AssertionError(f"step losses {step_losses}")
+    if not np.mean(step_losses[-5:]) < np.mean(step_losses[:5]):
+        raise AssertionError(f"loss did not fall: {step_losses[:5]} ... {step_losses[-5:]}")
+    for epoch in trainer.history:
+        if not all(np.isfinite(v) for v in epoch.values()):
+            raise AssertionError(f"non-finite epoch metrics {epoch}")
+    epoch2_s = trainer.history[-1]["epoch_time_s"]
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # The augmentation's application, card against CPU on the same draws.
+    cfg = AugmentConfig(**used["augment"])
+    x = torch.from_numpy(patterns[:TRAIN_BATCH, :, :, None]).cuda()
+    draws = draw_augment(cfg, torch.Generator(device="cuda").manual_seed(7), x)
+    card = apply_augment(cfg, x, draws)
+    cpu = apply_augment(cfg, x.cpu(), type(draws)(*(t.cpu() for t in draws)))
+    aug_err = (card.cpu() - cpu).abs().max().item()
+    if not aug_err <= AUGMENT_ATOL:
+        raise AssertionError(f"augmentation card vs CPU: {aug_err}")
+
+    # remat=stage against remat=none: one step's gradients, peak memory and
+    # K2f launches (the stage recompute runs 18 of the 19 norms again).
+    gen = torch.Generator().manual_seed(8)
+    batch = torch.from_numpy(patterns[:TRAIN_BATCH, None]).cuda()
+    eps = torch.randn((TRAIN_BATCH, LATENT), generator=gen).cuda()
+    loss_fn = VAELoss(kl_lambda=config["lightning_module"]["kl_lambda"])
+    remat = {}
+    for mode in ("none", "none", "stage"):
+        m = VariationalAutoEncoderRawData(INPLANES, LATENT, remat=mode)
+        m.init_weights(torch.Generator().manual_seed(9)).cuda().set_precision("16-mixed").train()
+        key = mode if mode not in remat else "none_again"
+        remat[key] = _one_step_grads(m, batch, eps, loss_fn)
+        del m
+    leaf_err = {}
+    for name, g in remat["none"][0].items():
+        scale = g.abs().max().item() or 1.0
+        leaf_err[name] = ((remat["stage"][0][name] - g).abs().max().item() / scale,
+                          (remat["none_again"][0][name] - g).abs().max().item() / scale)
+    worst = max(leaf_err, key=lambda k: leaf_err[k][0] - 2 * leaf_err[k][1])
+    stage_err, repeat_err = leaf_err[worst]
+    if not stage_err <= 2 * repeat_err + REMAT_RTOL:
+        raise AssertionError(f"remat=stage gradient of {worst}: {stage_err} of its largest, "
+                             f"none repeated {repeat_err}")
+    recompute = remat["stage"][2] - remat["none"][2]
+    if recompute != 18:
+        raise AssertionError(f"remat=stage ran {recompute} extra K2f launches, want 18")
+    emit("train_robust", config=used, wall_s=wall_s, train_steps=n_train, eval_steps=n_val,
+         launches=launches, launches_per_train_step=dict(
+             instance_norm_leaky_relu=19, instance_norm_leaky_relu_backward=19),
+         first_step_loss=step_losses[0], last_step_loss=step_losses[-1],
+         epoch2_patterns_per_s=(ROBUST_PATTERNS - n_val_rows) / epoch2_s,
+         timed_as="epoch 2's wall clock, its eval steps included",
+         augment_card_vs_cpu=aug_err,
+         remat=dict(worst_leaf=worst, stage_vs_none=stage_err, none_repeated=repeat_err,
+                    max_memory_mb={k: v[1] / 2**20 for k, v in remat.items()},
+                    k2f_launches_per_step={k: v[2] for k, v in remat.items()}),
+         card=smi)
+    return launches
 
 
 _NORMED_BIAS = ("encoder.", "decoder.")
@@ -3569,7 +4154,8 @@ def main() -> int:
         print(json.dumps({"kernels": [check_stage0(gen)]}), flush=True)
         print(smi, flush=True)
         return 0
-    only = {"--sphere-only": phase_sphere, "--strain-only": phase_strain}
+    only = {"--sphere-only": phase_sphere, "--strain-only": phase_strain,
+            "--master-only": phase_master}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # one plane's phase alone; no verdict line
         from latice_tpu_torch.models import VariationalAutoEncoderRawData
 
@@ -3607,7 +4193,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         strain_launches = phase_strain(workdir, ckpt, smi)
         torch.cuda.empty_cache()
+        master_launches = phase_master(workdir, ckpt, smi)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
+        robust_launches = phase_train_robust(workdir, smi)
     phase_train_parity()
     phase_train_profile(model)
     # Each path's counts were zeroed just before it ran and read just after;
@@ -3623,7 +4212,9 @@ def main() -> int:
         "bands": bands_launches,
         "sphere": sphere_launches,
         "strain": strain_launches,
+        "master": master_launches,
         "train": train_launches,
+        "train_robust": robust_launches,
     }
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}

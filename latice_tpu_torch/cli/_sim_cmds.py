@@ -1,8 +1,8 @@
 """``python -m latice_tpu_torch.cli.index sample/simulate/learn-master``:
 the simulation plane, the port of ``latice_tpu/cli/_sim_cmds.py``.
 ``simulate --master [--fit-bands]`` renders from a master pattern on the
-device and ``learn-master`` learns one from indexed patterns; ``master``
-(the dynamical Bloch-wave master) waits for a later slice."""
+device, ``learn-master`` learns one from indexed patterns, and ``master``
+computes the dynamical Bloch-wave master (``--mc``: Monte-Carlo weighted)."""
 
 from __future__ import annotations
 
@@ -243,13 +243,132 @@ def cmd_learn_master(args) -> None:
     }))
 
 
+def _master_structure(args):
+    """The `sim.dynamical` structure the ``master`` flags name."""
+    from latice_tpu_torch.sim import (
+        cubic_structure,
+        hexagonal_structure,
+        wurtzite_structure,
+        zincblende_structure,
+    )
+
+    def species(tok):
+        tok = tok.strip()
+        return int(tok) if tok.isdigit() else tok
+
+    parts = [species(t) for t in args.element.split(",")]
+    two_species = args.structure in ("zincblende", "wurtzite")
+    if two_species and len(parts) != 2:
+        raise SystemExit(
+            f"--structure {args.structure} needs --element CATION,ANION "
+            f"(e.g. 'ga,as'); got {args.element!r}"
+        )
+    if not two_species and len(parts) != 1:
+        raise SystemExit(
+            f"--structure {args.structure} takes a single --element; got {args.element!r}"
+        )
+    if args.structure == "hcp":
+        c = args.lattice_c if args.lattice_c else 1.587 * args.lattice
+        return hexagonal_structure(parts[0], a=args.lattice, c=c, debye_waller=args.debye_waller)
+    if args.structure == "zincblende":
+        return zincblende_structure(
+            parts[0], parts[1], a=args.lattice, debye_waller=args.debye_waller
+        )
+    if args.structure == "wurtzite":
+        c = args.lattice_c if args.lattice_c else 1.626 * args.lattice
+        return wurtzite_structure(
+            parts[0], parts[1], a=args.lattice, c=c, u=args.wurtzite_u,
+            debye_waller=args.debye_waller,
+        )
+    return cubic_structure(
+        args.structure, parts[0], a=args.lattice, debye_waller=args.debye_waller
+    )
+
+
 def cmd_master(args) -> None:
-    raise later_slice("master (the dynamical Bloch-wave master, sim/dynamical.py)", "slice D")
+    """Compute a dynamical (Bloch-wave) master pattern on the device.
+
+    The output feeds ``simulate --master`` (sim.master's equal-area
+    convention), so ``sample`` → ``master`` → ``simulate --master`` →
+    ``build`` → ``query`` makes dynamical-profile dictionaries with no
+    external simulation package (`sim.dynamical` has the model). With
+    ``--mc`` a Monte-Carlo backscatter simulation replaces the exponential
+    depth profile (`sim.montecarlo`). Writes the same ``.npy``,
+    ``.mastermeta.json`` and summary line as the JAX CLI."""
+    from latice_tpu_torch.sim import dynamical_beams, dynamical_master_pattern
+
+    if args.devices and args.devices > 1:
+        raise later_slice(f"--devices {args.devices}", "slice C")
+    device = resolve_device(args.device)
+    structure = _master_structure(args)
+    beams = dynamical_beams(
+        structure, kv=args.kv, n_beams=args.beams, max_hkl=args.max_hkl, min_d=args.min_d
+    )
+    mc_meta = {}
+    t0 = time.time()
+    if args.mc:
+        from latice_tpu_torch.sim import mc_weighted_master_pattern, simulate_bse_monte_carlo
+
+        mc = simulate_bse_monte_carlo(
+            structure, kv=args.kv, tilt_deg=args.tilt, n_electrons=args.mc_electrons,
+            energy_bins=args.mc_energy_bins, depth_bins=args.mc_depth_bins, device=device,
+        )
+        logger.info(f"MC: eta={mc.bse_yield:.3f}, depth p90 "
+                    f"{float(np.percentile(mc.max_depth_nm, 90)):.0f} nm")
+        img = mc_weighted_master_pattern(
+            structure, mc, size=args.size, n_beams=args.beams,
+            absorption_ratio=args.absorption, max_hkl=args.max_hkl, min_d=args.min_d,
+            device=device,
+        )
+        mc_meta = {
+            "mc": True,
+            "mc_electrons": args.mc_electrons,
+            "mc_tilt_deg": args.tilt,
+            "mc_bse_yield": round(mc.bse_yield, 4),
+            "mc_energy_weights": [round(float(w), 4) for w in mc.energy_weights],
+            "mc_energy_edges_kev": [round(float(e), 3) for e in mc.energy_edges_kev],
+        }
+    else:
+        img = dynamical_master_pattern(
+            structure, kv=args.kv, size=args.size, depth_nm=args.depth_nm,
+            absorption_ratio=args.absorption, beams=beams, device=device,
+        )
+    dt = time.time() - t0
+    out_path = args.out if args.out.endswith(".npy") else args.out + ".npy"
+    np.save(out_path, img)
+    meta = {
+        "kind": "dynamical_master",
+        "structure": args.structure,
+        "centrosymmetric": bool(beams.is_centrosymmetric),
+        "element": args.element,
+        "lattice": args.lattice,
+        "lattice_c": args.lattice_c,
+        "kv": args.kv,
+        "size": args.size,
+        "n_beams": len(beams),
+        "depth_nm": args.depth_nm,
+        "absorption_ratio": args.absorption,
+        "max_hkl": args.max_hkl,
+        "min_d": args.min_d,
+        "convention": "sim.master equal-area north hemisphere",
+        **mc_meta,
+    }
+    with open(out_path + ".mastermeta.json", "w") as f:
+        json.dump(meta, f)
+    summary = {
+        "size": args.size,
+        "n_beams": len(beams),
+        "mean_inner_potential": round(beams.u0, 6),
+        "seconds": round(dt, 2),
+        "out": out_path,
+    }
+    if args.mc:
+        summary["mc_bse_yield"] = mc_meta["mc_bse_yield"]
+    print(json.dumps(summary))
 
 
 def register(sub, common) -> None:
-    """Attach the sample, simulate and learn-master parsers, and ``master``,
-    which waits for a later slice."""
+    """Attach the sample, simulate, master and learn-master parsers."""
     s = sub.add_parser("sample", help="generate a dictionary orientation grid (anglefile)")
     s.add_argument(
         "--group", default="432",
@@ -318,10 +437,69 @@ def register(sub, common) -> None:
     m.add_argument("--device", default=None, help="torch device (default: cuda)")
     m.set_defaults(fn=cmd_simulate)
 
-    dm = sub.add_parser(
-        "master", help="compute a dynamical (Bloch-wave) master pattern (waits for slice D)"
+    dm = sub.add_parser("master", help="compute a dynamical (Bloch-wave) master pattern")
+    dm.add_argument("--out", default="master.npy")
+    dm.add_argument(
+        "--structure", default="fcc",
+        choices=("fcc", "bcc", "sc", "hcp", "zincblende", "wurtzite"),
+        help="zincblende/wurtzite are non-centrosymmetric (complex-Hermitian Bloch path) "
+        "and take --element CATION,ANION",
     )
-    dm.set_defaults(fn=cmd_master, takes_any_arguments=True)
+    dm.add_argument(
+        "--element", default="ni",
+        help="element symbol or atomic number; for zincblende/wurtzite a 'cation,anion' "
+        "pair, e.g. 'ga,as' (default: %(default)s)",
+    )
+    dm.add_argument("--lattice", type=float, default=3.52,
+                    help="lattice parameter a, Angstrom (default: nickel)")
+    dm.add_argument(
+        "--lattice-c", type=float, default=None,
+        help="hcp/wurtzite c parameter, Angstrom (default: 1.587*a hcp, 1.626*a wurtzite)",
+    )
+    dm.add_argument("--wurtzite-u", type=float, default=0.377,
+                    help="wurtzite internal anion parameter u (ideal 3/8)")
+    dm.add_argument("--kv", type=float, default=20.0, help="beam kV")
+    dm.add_argument("--size", type=int, default=201,
+                    help="master image edge, pixels (default: %(default)s)")
+    dm.add_argument(
+        "--beams", type=int, default=64,
+        help="Bloch beam budget (whole reflection families only; the realized count is "
+        "reported)",
+    )
+    dm.add_argument("--depth-nm", type=float, default=50.0,
+                    help="backscatter generation depth scale z0, nm")
+    dm.add_argument("--absorption", type=float, default=0.1,
+                    help="imaginary/real potential ratio kappa (0.05-0.15 typical)")
+    dm.add_argument("--debye-waller", type=float, default=0.35,
+                    help="isotropic Debye-Waller B, Angstrom^2")
+    dm.add_argument("--max-hkl", type=int, default=5)
+    dm.add_argument("--min-d", type=float, default=0.4,
+                    help="reflection sweep d-spacing floor, Angstrom")
+    dm.add_argument(
+        "--mc", action="store_true",
+        help="replace the exponential depth profile with a Monte-Carlo backscatter "
+        "simulation (sim.montecarlo): one Bloch master per exit-energy bin with the bin's "
+        "measured generation-depth distribution, summed by electron weight. --depth-nm is "
+        "then ignored.",
+    )
+    dm.add_argument("--mc-electrons", type=int, default=200_000,
+                    help="with --mc: incident electrons traced (default: %(default)s)")
+    dm.add_argument(
+        "--mc-energy-bins", type=int, default=8,
+        help="with --mc: exit-energy bins (each kept bin costs one Bloch master solve; bins "
+        "under 2%% weight fold into neighbors)",
+    )
+    dm.add_argument("--mc-depth-bins", type=int, default=40,
+                    help="with --mc: generation-depth histogram bins")
+    dm.add_argument("--tilt", type=float, default=70.0,
+                    help="with --mc: sample tilt from the beam, degrees (EBSD: 70)")
+    dm.add_argument(
+        "--devices", type=int, default=0,
+        help="shard master generation over this many devices (more than one waits for "
+        "slice C)",
+    )
+    dm.add_argument("--device", default=None, help="torch device (default: cuda)")
+    dm.set_defaults(fn=cmd_master)
 
     lm = sub.add_parser(
         "learn-master",

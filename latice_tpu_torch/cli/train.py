@@ -51,7 +51,7 @@ def train(config: dict, device: str | None = None):
     os.makedirs(save_dir, exist_ok=True)
     (save_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
 
-    from latice_tpu_torch.data import DPDataModule
+    from latice_tpu_torch.data import DPDataModule, StreamedDPDataModule
     from latice_tpu_torch.train.module import VAEModule
     from latice_tpu_torch.train.trainer import Trainer
     from latice_tpu_torch.utils.loggers import make_default_logger
@@ -82,7 +82,9 @@ def train(config: dict, device: str | None = None):
     trainer = Trainer(logger=exp_logger, seed=seed, device=device, **trainer_cfg)
 
     logger.info(f"Instantiating datamodule <{config['data_module']['_target_']}>")
-    datamodule = maybe_instantiate(config["data_module"], DPDataModule)
+    datamodule = maybe_instantiate(config["data_module"])
+    if not isinstance(datamodule, (DPDataModule, StreamedDPDataModule)):
+        raise TypeError(f"data_module must be a data module, got {type(datamodule).__name__}")
 
     logger.info(f"Instantiating module <{config['lightning_module']['_target_']}>")
     module = maybe_instantiate(config["lightning_module"], VAEModule)

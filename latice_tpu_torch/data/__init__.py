@@ -1,7 +1,9 @@
 """Host-side pattern preparation, the HDF5 and EDAX UP scan readers,
 device-side preprocessing, NLPAR denoising, Hough/Radon band detection, the
-training data module, prefetch and result export."""
+training data modules (in memory and streamed), the training augmentation,
+prefetch and result export."""
 
+from latice_tpu_torch.data.augment import AugmentConfig, make_augment_fn
 from latice_tpu_torch.data.datamodule import (
     DPDataModule,
     batch_iterator,
@@ -32,6 +34,7 @@ from latice_tpu_torch.data.preprocess import (
     remove_dynamic_background,
     remove_static_background,
 )
+from latice_tpu_torch.data.streaming import StreamedDPDataModule
 from latice_tpu_torch.data.up import (
     UP_EXTENSIONS,
     UpHeader,
@@ -50,11 +53,13 @@ from latice_tpu_torch.data.transforms import (
 __all__ = [
     "HDF5_EXTENSIONS",
     "UP_EXTENSIONS",
+    "AugmentConfig",
     "BandDetection",
     "BandDetector",
     "DPDataModule",
     "DPdataset",
     "PreprocessConfig",
+    "StreamedDPDataModule",
     "UpHeader",
     "VendorMap",
     "batch_iterator",
@@ -72,6 +77,7 @@ __all__ = [
     "iter_up_batches",
     "load_patterns",
     "load_up_patterns",
+    "make_augment_fn",
     "make_preprocess_fn",
     "nlpar_denoise",
     "open_up_patterns",

@@ -19,6 +19,14 @@ Each InstanceNorm + LeakyReLU is `ops.InstanceNormLeakyReLUFunction`: the
 fused CUDA kernels forward and backward on the card, their plain torch
 twins on the CPU.
 
+``remat`` trades recomputation for the activations the backward keeps, as
+the JAX model's does: ``"block"`` checkpoints each conv block, ``"stage"``
+each conv-conv-pool stage of the encoder and each upsample-conv-conv stage
+of the decoder but its last (`torch.utils.checkpoint`, non-reentrant, which
+replays the forward under the autocast state it ran in). The backward then
+runs each checkpointed InstanceNorm forward a second time. State-dict names
+do not change.
+
 Precision follows ``latice_tpu.train.module.VAEModule.with_precision``:
 ``"32"`` computes in float32, its convolutions in full float32 (TF32 off
 inside the model's forward, `device.no_tf32`); ``"16-mixed"`` runs the
@@ -32,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from latice_tpu_torch.device import no_tf32
 from latice_tpu_torch.ops.fused_norm import InstanceNormLeakyReLUFunction
@@ -83,6 +92,41 @@ class ConvTransposeBlock(nn.Sequential):
         )
 
 
+REMAT_MODES = ("none", "block", "stage")
+
+
+def _check_remat(remat: str) -> str:
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+    return remat
+
+
+def _run_layers(layers: list[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    for layer in layers:
+        x = layer(x)
+    return x
+
+
+def _remat_forward(layers: list[nn.Module], x: torch.Tensor, remat: str, n_staged: int):
+    """Run ``layers`` (stages of three) with ``remat``: ``"block"``
+    checkpoints every conv block, ``"stage"`` each of the first
+    ``n_staged`` stages, ``"none"`` nothing."""
+    if remat == "stage":
+        for i in range(0, len(layers), 3):
+            stage = layers[i : i + 3]
+            if i // 3 < n_staged:
+                x = checkpoint(_run_layers, stage, x, use_reentrant=False)
+            else:
+                x = _run_layers(stage, x)
+        return x
+    for layer in layers:
+        if remat == "block" and isinstance(layer, (ConvBlock, ConvTransposeBlock)):
+            x = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x = layer(x)
+    return x
+
+
 def _encoder_widths(inplanes: int, n_stages: int) -> list[int]:
     return [inplanes, 2 * inplanes] + [4 * inplanes] * (n_stages - 2)
 
@@ -99,21 +143,29 @@ class _Stack(nn.Sequential):
 
 
 class Encoder(_Stack):
-    """``n_stages`` conv-conv-pool stages, 1 channel in, 4P channels out."""
+    """``n_stages`` conv-conv-pool stages, 1 channel in, 4P channels out;
+    ``remat`` as in the module docstring."""
 
-    def __init__(self, inplanes: int = 32, n_stages: int = 5) -> None:
+    def __init__(self, inplanes: int = 32, n_stages: int = 5, remat: str = "none") -> None:
         layers: list[nn.Module] = []
         c_in = 1
         for width in _encoder_widths(inplanes, n_stages):
             layers += [ConvBlock(c_in, width), ConvBlock(width, width), nn.MaxPool2d(2, 2)]
             c_in = width
         super().__init__(*layers)
+        self.remat = _check_remat(remat)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = list(self._modules.values())
+        return _remat_forward(layers, x, self.remat, n_staged=len(layers) // 3)
 
 
 class Decoder(nn.Sequential):
-    """Upsampling decoder, 4P channels in, one logit channel out."""
+    """Upsampling decoder, 4P channels in, one logit channel out; ``remat``
+    as in the module docstring (the last stage, one block and the logit
+    conv, is never checkpointed whole, as in the JAX decoder)."""
 
-    def __init__(self, inplanes: int = 32, n_stages: int = 5) -> None:
+    def __init__(self, inplanes: int = 32, n_stages: int = 5, remat: str = "none") -> None:
         p = inplanes
         stages = [(4 * p, 4 * p)] * (n_stages - 3) + [(4 * p, 2 * p), (2 * p, p)]
         layers: list[nn.Module] = []
@@ -131,6 +183,11 @@ class Decoder(nn.Sequential):
             nn.Conv2d(p, 1, 3, 1, 1),
         ]
         super().__init__(*layers)
+        self.remat = _check_remat(remat)
+        self.n_stages = n_stages
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _remat_forward(list(self._modules.values()), x, self.remat, self.n_stages - 1)
 
 
 class VAEOutput(NamedTuple):
@@ -146,7 +203,9 @@ class VariationalAutoEncoderRawData(nn.Module):
     """Convolutional VAE over raw EBSD patterns (NCHW, one channel).
 
     ``bottleneck_hw`` is the spatial size after the encoder, the image size
-    over ``2 ** n_stages`` (4 for 128x128 patterns and 5 stages).
+    over ``2 ** n_stages`` (4 for 128x128 patterns and 5 stages). ``remat``
+    (``"none"``, ``"block"`` or ``"stage"``) checkpoints the encoder and
+    decoder for the backward, as the JAX model's ``remat`` does.
     """
 
     def __init__(
@@ -155,6 +214,7 @@ class VariationalAutoEncoderRawData(nn.Module):
         latent_dim: int = 16,
         n_stages: int = 5,
         bottleneck_hw: int = 4,
+        remat: str = "none",
     ) -> None:
         super().__init__()
         if n_stages < 3:
@@ -165,11 +225,12 @@ class VariationalAutoEncoderRawData(nn.Module):
         self.bottleneck_hw = bottleneck_hw
         self.compute_dtype = torch.float32  # see set_precision
         flat = 4 * inplanes * bottleneck_hw * bottleneck_hw
-        self.encoder = Encoder(inplanes, n_stages)
+        self.remat = _check_remat(remat)
+        self.encoder = Encoder(inplanes, n_stages, remat)
         self.mu = nn.Sequential(nn.Linear(flat, latent_dim))
         self.logvar = nn.Sequential(nn.Linear(flat, latent_dim))
         self.linear2 = nn.Sequential(nn.Linear(latent_dim, flat))
-        self.decoder = Decoder(inplanes, n_stages)
+        self.decoder = Decoder(inplanes, n_stages, remat)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VariationalAutoEncoderRawData":

@@ -9,7 +9,10 @@ Noise is keyed, not streamed: the reparameterization noise of train step
 ``s`` comes from a ``torch.Generator`` on the batch's device seeded from
 ``(seed, s)``, the counterpart of ``fold_in(rng, step)`` in the JAX step.
 A resumed run therefore replays the noise of an uninterrupted one. Eval
-noise is keyed by an integer the caller derives per (epoch, batch).
+noise is keyed by an integer the caller derives per (epoch, batch). The
+augmentation's draws (`data.augment`) come from a stream of their own keyed
+by ``(seed, s)`` too, as the JAX step splits an augmentation key off the
+step's key.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ Metrics = dict[str, torch.Tensor]
 
 _TRAIN_STREAM = 1
 _EVAL_STREAM = 2
+_AUGMENT_STREAM = 3
 
 
 def keyed_generator(device: torch.device, *key: int) -> torch.Generator:
@@ -66,13 +70,14 @@ def make_train_step(
     finite leaves the parameters and the optimizer state untouched and
     reports ``skipped`` = 1.
 
-    ``augment`` and ``denoising`` raise until ``data/augment.py`` is ported.
+    ``augment`` is an optional ``(generator, batch) -> batch`` perturbation
+    over NHWC batches (`data.augment.make_augment_fn`), applied to each
+    step's batch with draws keyed from ``(seed, step)``, so augmented runs
+    replay exactly. With ``denoising`` the model reconstructs the original
+    batch from the augmented input (the denoising-VAE objective); without
+    it, the augmented input. ``denoising`` without ``augment`` changes
+    nothing, as in the JAX step.
     """
-    if augment is not None or denoising:
-        raise ValueError(
-            "augment/denoising: the training augmentation (data/augment.py) "
-            "comes with a later slice of the port"
-        )
 
     def train_step(
         model: torch.nn.Module,
@@ -85,12 +90,22 @@ def make_train_step(
         model.train()
         optimizer.zero_grad(set_to_none=True)
         gen = None if eps is not None else keyed_generator(batch.device, seed, _TRAIN_STREAM, step)
+        model_in, target = batch, batch
+        if augment is not None:
+            with record_function("train:augment"):
+                aug_gen = keyed_generator(batch.device, seed, _AUGMENT_STREAM, step)
+                # The augmentation works on NHWC, as in the JAX package; with
+                # one channel the permuted view holds the same bytes.
+                model_in = augment(aug_gen, batch.permute(0, 2, 3, 1))
+                model_in = model_in.permute(0, 3, 1, 2).contiguous()
+            if not denoising:
+                target = model_in
         # The labels name the parts of a step in a torch.profiler trace;
         # backward's work is under the autograd engine's own events.
         with record_function("train:forward"):
-            out = model(batch, generator=gen, eps=eps)
+            out = model(model_in, generator=gen, eps=eps)
         with record_function("train:loss"):
-            losses = loss_fn(*out, batch, mask)
+            losses = loss_fn(*out, target, mask)
         # An f32 model's forward keeps TF32 off (its _autocast); the conv
         # backward reads the flag again, so the f32 step keeps it off here too.
         f32 = getattr(model, "compute_dtype", None) == torch.float32

@@ -66,7 +66,13 @@ class Trainer:
             the reconstruction figure render nothing until ``utils/progress``
             and ``utils/viz`` are ported. The eval step still returns
             ``x_hat``.
-        augment, denoising: raise until ``data/augment.py`` is ported.
+        augment: optional training-time perturbation, a ``(generator,
+            batch) -> batch`` callable over NHWC batches or a
+            `data.AugmentConfig`, applied in the train step (`data.augment`).
+            Validation stays unaugmented, so ``Epoch_val_*`` stay comparable
+            across runs.
+        denoising: with ``augment``, train the denoising-VAE objective
+            (reconstruct the clean batch from the augmented input).
         device: where to train; ``cuda`` unless the caller asks for another.
     """
 
@@ -92,11 +98,17 @@ class Trainer:
                 "mesh: data-parallel training comes with a later slice of the port "
                 "(slice C); train on one device"
             )
-        if augment is not None or denoising:
-            raise ValueError(
-                "augment/denoising: the training augmentation (data/augment.py) "
-                "comes with a later slice of the port"
-            )
+        if augment is not None and not callable(augment):
+            from latice_tpu_torch.data.augment import AugmentConfig, make_augment_fn
+
+            if not isinstance(augment, AugmentConfig):
+                raise TypeError(
+                    "augment must be a callable or a data.AugmentConfig, "
+                    f"got {type(augment).__name__}"
+                )
+            augment = make_augment_fn(augment)
+        self.augment = augment
+        self.denoising = denoising
         self.device = resolve_device(device)
         self.max_epochs = max_epochs
         self.precision = precision
@@ -198,7 +210,9 @@ class Trainer:
             except FileNotFoundError:
                 logger.info("No checkpoint to resume from; starting fresh")
 
-        train_step = make_train_step(module.loss_fn, seed=self.seed)
+        train_step = make_train_step(
+            module.loss_fn, augment=self.augment, denoising=self.denoising, seed=self.seed
+        )
         eval_step = make_eval_step(module.loss_fn, return_recon=self.recon_figure, seed=self.seed)
         self.model, self.optimizer = model, optimizer
 

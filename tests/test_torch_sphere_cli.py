@@ -13,7 +13,7 @@
   ``--fit-bands`` the same ``kind: master_fit`` sidecar (bands equal,
   weights within 1e-6), which ``build`` and ``query --refine`` then read.
 * learn-master: the learned master within 1e-6 and the same coverage.
-* ``master`` (the dynamical master) still waits for a later slice.
+* ``master`` (the dynamical master), once refused, runs as JAX's does.
 """
 
 import json
@@ -198,6 +198,15 @@ def test_learn_master_matches_jax(files, tmp_path, monkeypatch, capsys):
                                atol=1e-6, rtol=0)
 
 
-def test_dynamical_master_waits_for_a_later_slice(monkeypatch, capsys):
-    with pytest.raises(SystemExit, match="later slice"):
-        _run("port", ["master", "--out", "m.npy", "--structure", "fcc"], monkeypatch, capsys)
+def test_dynamical_master_waits_for_a_later_slice(tmp_path, monkeypatch, capsys):
+    """``master``, once refused here, runs: its master feeds ``simulate
+    --master`` as JAX's does (tests/test_torch_master_cli.py holds the
+    command itself)."""
+    out = {}
+    for side in ("port", "jax"):
+        path = str(tmp_path / f"{side}.npy")
+        out[side] = _run(side, ["master", "--out", path, "--structure", "fcc", "--size", "17",
+                                "--beams", "15", "--max-hkl", "2"], monkeypatch, capsys)
+        assert out[side]["out"] == path and out[side]["n_beams"] == 15
+    np.testing.assert_allclose(np.load(tmp_path / "port.npy"), np.load(tmp_path / "jax.npy"),
+                               rtol=0, atol=1e-4)

@@ -206,7 +206,18 @@ def test_mixed_precision_forward_dtypes(setup):
         model.set_precision("8-bit")
 
 
-def test_unported_step_options_raise():
-    for kw in (dict(augment=lambda k, b: b), dict(denoising=True)):
-        with pytest.raises(ValueError, match="later slice"):
-            make_train_step(VAELoss(), **kw)
+def test_unported_step_options_raise(setup):
+    """``augment`` and ``denoising``, once refused here, are taken: an
+    identity augmentation, with or without the denoising objective, and
+    ``denoising`` alone leave the step as it was (tests/test_torch_augment.py
+    holds them against the JAX step)."""
+    _, params, x = setup
+    eps = torch.zeros(BATCH, LATENT)
+    losses = []
+    for kw in ({}, dict(augment=lambda g, b: b), dict(augment=lambda g, b: b, denoising=True),
+               dict(denoising=True)):
+        model = _port_model(params)
+        step = make_train_step(VAELoss(kl_lambda=KL), **kw)
+        losses.append(float(step(model, make_optimizer(model.parameters()), _nchw(x), None, 0,
+                                 eps)["loss"]))
+    assert losses[1:] == losses[:1] * 3

@@ -125,9 +125,18 @@ def test_checkpoint_manager_prunes_by_monitor(tmp_path):
 
 
 def test_trainer_unported_options_raise():
-    for kw in (dict(mesh=object()), dict(augment=lambda k, b: b), dict(denoising=True)):
-        with pytest.raises(ValueError, match="later slice"):
-            Trainer(device="cpu", **kw)
+    """``mesh`` still waits for slice C; ``augment`` (a callable or a
+    `data.AugmentConfig`) and ``denoising``, once refused here, are taken."""
+    from latice_tpu_torch.data import AugmentConfig
+
+    with pytest.raises(ValueError, match="later slice"):
+        Trainer(device="cpu", mesh=object())
+    identity = lambda g, b: b  # noqa: E731
+    assert Trainer(device="cpu", augment=identity).augment is identity
+    assert Trainer(device="cpu", denoising=True).denoising
+    assert callable(Trainer(device="cpu", augment=AugmentConfig(noise_std=0.1)).augment)
+    with pytest.raises(TypeError, match="AugmentConfig"):
+        Trainer(device="cpu", augment="noise")
 
 
 @pytest.mark.parametrize("overrides", [
@@ -160,8 +169,14 @@ def test_instantiate_maps_targets_to_the_port():
     opt = module.configure_optimizer()
     assert type(opt).__module__ == "latice_tpu_torch.train.state"
     assert get_learning_rate(opt) == pytest.approx(1e-4) and opt.defaults["amsgrad"]
+    from latice_tpu_torch.data import AugmentConfig, StreamedDPDataModule
+
+    aug = instantiate({"_target_": "latice_tpu.data.AugmentConfig", "noise_std": 0.05})
+    assert isinstance(aug, AugmentConfig) and aug.noise_std == 0.05
+    assert port_target("latice_tpu.data.StreamedDPDataModule") == (
+        f"{StreamedDPDataModule.__module__.rsplit('.', 1)[0]}.StreamedDPDataModule")
     with pytest.raises(ImportError, match="port has no"):
-        instantiate({"_target_": "latice_tpu.data.AugmentConfig"})
+        instantiate({"_target_": "latice_tpu.parallel.make_mesh"})
     assert port_target("latice_tpu.train.trainer.Trainer") == "latice_tpu_torch.train.trainer.Trainer"
 
 
