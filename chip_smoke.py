@@ -5,8 +5,8 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 15, 16, 17, 18 and 19, on the serve phase's files, before 7,
-and 20 after 7):
+10, 11, 14, 15, 16, 17, 18, 19 and 21, on the serve phase's files, before
+7, and 20 after 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -163,15 +163,35 @@ and 20 after 7):
     against the CPU on the same draws (1e-6); one step's gradients with
     ``remat=stage`` against ``remat=none`` (18 more forward launches for
     the recompute), with the peak memory of each.
+21. analyze: the orientation-map analysis plane. The chain: ``query
+    --engine fused --ang scan.ang --scan-grid 64 64`` of the dictionary
+    phase's scan (10 InstanceNorm and 1 top-k launch per batch), then
+    ``analyze --orientations scan.ang`` with ANALYZE_FLAGS (grain
+    statistics, CSL, Schmid, Taylor, Young's modulus, GND, components,
+    texture index, cleanup). A seeded 1024x1024 map of 4,096 grains with
+    planted Σ3 twins and Cube and Goss grains through the same command,
+    traced (wall, device busy, idle share, peak memory) and held to its
+    truth: its grains equal the noise-free map's, every planted twin edge
+    is Σ3, and the Σ3, Cube and Goss shares are at least the planted ones
+    and exceed them by no more than the maps with nothing planted give;
+    each stage alone (events, device busy, host, launches, peak memory,
+    bound); its top-left 128x128 crop through the command on the card and
+    on the CPU, every output held (labels equal but at an angle within
+    0.05 degrees of a limit, angle fields through cos(θ/2) or 0.05 degrees,
+    factors and densities at 1e-4 relative), and its readings held to the
+    JAX package's (examples/analyze_jax_reference.py); and ``analyze
+    --parent ks`` of a 512x512 forward-simulated martensite map of 16
+    parents, every planted parent recovered within 0.5 degrees.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
 and a sweep of its launch plan, and prints no verdict line;
 ``--stage0-only`` runs phases 1 and 2 and the stage-0 kernel's checks and
-times, and prints no verdict line; ``--sphere-only``, ``--strain-only``
-and ``--master-only`` run phases 1, 2 and 17, 18 or 19 (with a seeded
-checkpoint of their own), and print no verdict line.
+times, and prints no verdict line; ``--sphere-only``, ``--strain-only``,
+``--master-only`` and ``--analyze-only`` run phases 1, 2 and 17, 18, 19
+or 21 (with a seeded checkpoint of their own; ``--analyze-only`` builds
+the dictionary and scan it needs), and print no verdict line.
 Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
 and the port's f32 models turn it off around their own forward and
 backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
@@ -579,6 +599,299 @@ JAX_MASTER = {
         "depth_p90_nm": 182.76637268066406,
     },
 }
+
+
+# analyze: the orientation-map analysis plane. A seeded 1024x1024 Voronoi
+# map of 4,096 grains, each pixel turned by 0.3-0.5 degrees (RMS, drawn per
+# grain); a share of adjacent grain pairs planted as Σ3 twins and a share of
+# grains at the Cube and at the Goss component. Every boundary is drawn at
+# least ANALYZE_MIN_RANDOM_DEG as the maps reduce it (over sample-side
+# images, as the JAX package does), and every random one that far by its
+# crystal-side disorientation and ANALYZE_SIGMA3_CLEAR_DEG from Σ3 (beyond
+# its 8.66-degree Brandon limit, noise included), so labels are decided by
+# the plants, not by an edge at a limit. The `analyze` flags are
+# the chain's; the parent map is 512x512, 16 KS parent squares of 12
+# children each (distinct variants); the card is held to its CPU path and to
+# the JAX package's readings (examples/analyze_jax_reference.py) on the
+# top-left 128x128 crop.
+ANALYZE_SIDE, ANALYZE_GRAINS, ANALYZE_SEED = 1024, 4096, 70
+ANALYZE_NOISE_DEG = (0.3, 0.5)
+ANALYZE_TWIN_SHARE = 0.2  # of the grains, in planted Σ3 pairs
+ANALYZE_COMPONENT_SHARE = 0.05  # of the grains at Cube, and as many at Goss
+ANALYZE_MIN_RANDOM_DEG, ANALYZE_SIGMA3_CLEAR_DEG = 8.0, 10.5
+ANALYZE_CROP = 128
+ANALYZE_FLAGS = ["--grain-stats", "--csl", "--schmid", "0", "0", "1", "--taylor", "--youngs",
+                 "ni", "--gnd", "0.25", "--components", "all", "--texture-index", "--clean", "4"]
+ANALYZE_PARENT_SIDE, ANALYZE_PARENTS, ANALYZE_CHILDREN = 512, 16, 12
+ANALYZE_PARENT_SEED, ANALYZE_PARENT_NOISE_DEG = 71, 0.1
+ANALYZE_PARENT_HOLD_DEG = 0.5  # tests/crystal/test_reconstruction.py's bound
+ANALYZE_PARENT_STRAY_SHARE = 0.05  # child grains that may join a neighbouring parent
+# Card against CPU and JAX: an angle within 0.05 degrees of a threshold,
+# Brandon limit or component radius may fall on either side (one f32 ulp of
+# a dot near 1 moves an angle by up to 0.04 degrees).
+ANALYZE_NEAR_DEG = 0.05
+ANALYZE_RTOL = 1e-4
+JAX_ANALYZE = {  # examples/analyze_jax_reference.py on the CPU (JAX 0.9.0)
+    "input_sha": "5a628ee9a09275ac",
+    "readings": {
+        "n_grains": 67,
+        "cleaned_px": 2,
+        "grains_sha": "b266c8029933b9ab",
+        "boundaries_sha": "4aeb9d346c8ee971",
+        "sizes_sha": "08eeac1b1b2ad2d0",
+        "mean_kam_deg": 0.5226346254348755,
+        "mean_gos_deg": 0.3692922592163086,
+        "mean_orientation_first":
+            [[154.57041931152344, 67.52385711669922, 114.4515151977539], [-143.5961456298828,
+            161.94813537597656, 62.918678283691406], [-167.30667114257812, 121.58329772949219,
+            -56.13736343383789], [-0.011110961437225342, 44.994781494140625, 0.001624495955184102],
+            [-102.40628814697266, 32.559532165527344, 11.677436828613281], [-85.30545043945312,
+            130.53656005859375, 86.69692993164062], [161.25271606445312, 70.31146240234375,
+            152.34617614746094], [-82.38780212402344, 69.72297668457031, 16.742822647094727]],
+        "csl_counts":
+            {-2: 30521, -1: 1838, 0: 57, 1: 23, 3: 29, 4: 52, 5: 14, 6: 27, 7: 84, 8: 2, 9: 16, 10:
+            12, 13: 17, 14: 11, 16: 24, 18: 10, 20: 31},
+        "component_counts": {-1: 11791, 0: 279, 1: 249, 2: 994, 3: 895, 5: 1099, 6: 271, 7: 806},
+        "mean_schmid": 0.4440588093784754,
+        "mean_taylor": 3.180317943729106,
+        "mean_youngs_gpa": 222.71746201219108,
+        "mean_gnd_per_m2": 52773837688035.25,
+        "gnd_valid": 14246,
+        "texture_index": 1.4994,
+    },
+    "seconds": {"map": 8.4, "analyze": 39.1},
+}
+
+
+def _grain_pairs(owner: np.ndarray) -> np.ndarray:
+    """Unique adjacent (smaller, larger) grain-id pairs of an id map."""
+    pairs = np.concatenate([np.stack([owner[:, :-1].ravel(), owner[:, 1:].ravel()], 1),
+                            np.stack([owner[:-1].ravel(), owner[1:].ravel()], 1)])
+    pairs = np.sort(pairs[pairs[:, 0] != pairs[:, 1]], axis=1)
+    return np.unique(pairs, axis=0)
+
+
+def _pair_deviation_deg(qa: np.ndarray, qb: np.ndarray, orbit: np.ndarray) -> np.ndarray:
+    """Deviation (degrees, f64) of each misorientation qa⁻¹ ⊗ qb from a CSL
+    orbit; the identity's orbit gives the disorientation."""
+    from latice_tpu_torch.crystal.csl import _qmul_np
+
+    d = _qmul_np(qa * np.asarray([1.0, -1.0, -1.0, -1.0]), qb)
+    return 2 * np.degrees(np.arccos(np.clip(np.abs(d @ orbit.T).max(axis=1), 0.0, 1.0)))
+
+
+def _sample_side_deg(qa: np.ndarray, qb: np.ndarray) -> np.ndarray:
+    """``min_s angle(qa, s ⊗ qb)`` in degrees (f64), the cubic reduction
+    that `crystal.misorientation_maps` (and so grains and KAM) applies, as
+    the JAX package's does: it takes the sample-side images of ``qb``, so
+    two grains far apart by their crystal-side disorientation can still
+    read a few degrees there."""
+    from latice_tpu_torch.crystal import symmetry_quats
+    from latice_tpu_torch.crystal.csl import _qmul_np
+
+    imgs = _qmul_np(symmetry_quats("432").double().numpy()[None], qb[:, None, :])
+    dots = np.abs((qa[:, None, :] * imgs).sum(-1)).max(axis=1)
+    return 2 * np.degrees(np.arccos(np.clip(dots, 0.0, 1.0)))
+
+
+def _euler_map(q: np.ndarray, owner: np.ndarray, noise) -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+
+    import warnings
+
+    rot = Rotation.from_quat(np.roll(q[owner.ravel()], -1, axis=-1))  # scipy: scalar last
+    if noise is not None:
+        rot = rot * noise
+    with warnings.catch_warnings():  # the noise-free Cube grains are gimbal-locked
+        warnings.simplefilter("ignore", UserWarning)
+        return rot.as_euler("zxz", degrees=True).reshape(*owner.shape, 3)
+
+
+def analyze_truth(side: int = ANALYZE_SIDE, n_grains: int = ANALYZE_GRAINS,
+                  seed: int = ANALYZE_SEED) -> dict:
+    """The phase's seeded map, as zxz Euler degrees ``(side, side, 3)``:
+    ``euler`` (planted, with noise), ``clean`` (planted, no noise),
+    ``no_twins`` (every twin partner at its own random draw) and
+    ``no_components`` (every component grain at its own random draw), the
+    last two with the same noise; and ``owner`` (grain id per pixel),
+    ``twins`` (planted pairs), ``cube`` and ``goss`` (grain ids)."""
+    from scipy.spatial import cKDTree
+    from scipy.spatial.transform import Rotation
+
+    from latice_tpu_torch.crystal import TEXTURE_COMPONENTS, csl_orbit, csl_rotation
+    from latice_tpu_torch.crystal.csl import _qmul_np
+
+    rng = np.random.default_rng(seed)
+    seeds = rng.uniform(0, side, (n_grains, 2))
+    yy, xx = np.mgrid[0:side, 0:side]
+    owner = cKDTree(seeds).query(np.stack([yy.ravel(), xx.ravel()], 1))[1].reshape(side, side)
+    pairs = _grain_pairs(owner)
+    order = rng.permutation(n_grains)
+    n_comp = int(ANALYZE_COMPONENT_SHARE * n_grains)
+    cube, goss = order[:n_comp], order[n_comp:2 * n_comp]
+    used = np.zeros(n_grains, bool)
+    used[order[:2 * n_comp]] = True
+    twins = []
+    for a, b in pairs[rng.permutation(len(pairs))]:
+        if len(twins) >= ANALYZE_TWIN_SHARE * n_grains / 2:
+            break
+        if not (used[a] or used[b]):
+            twins.append((a, b))
+            used[a] = used[b] = True
+    twins = np.asarray(twins)
+    comp = np.zeros(n_grains, np.int64)  # 1 cube, 2 goss
+    comp[cube], comp[goss] = 1, 2
+    partner = np.full(n_grains, -1)  # the other member of a grain's twin pair
+    partner[twins[:, 0]], partner[twins[:, 1]] = twins[:, 1], twins[:, 0]
+
+    def draw(n):  # Haar-uniform unit quaternions, scalar-first
+        q = rng.normal(size=(n, 4))
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    own = draw(n_grains)  # each grain's random draw: the maps without plants
+    comp_q = {c: np.roll(Rotation.from_euler("zxz", TEXTURE_COMPONENTS[n], degrees=True)
+                         .as_quat(), 1) for c, n in ((1, "cube"), (2, "goss"))}
+    s3 = csl_rotation("3")
+    orbit1, orbit3 = csl_orbit(np.asarray([1.0, 0.0, 0.0, 0.0])), csl_orbit(s3)
+
+    def planted(q_own, twins_on=True, comps_on=True):
+        q = q_own.copy()
+        if comps_on:
+            for c, cq in comp_q.items():
+                q[comp == c] = cq
+        if twins_on:
+            q[twins[:, 1]] = _qmul_np(q[twins[:, 0]], s3)
+        return q
+
+    i, j = pairs[:, 0], pairs[:, 1]
+    twin_pair = partner[i] == j
+    same_comp = (comp[i] > 0) & (comp[i] == comp[j])
+    for _ in range(50):
+        # Every boundary clear of the grain threshold as the maps reduce it,
+        # and every random one clear of 0 and Σ3 as the CSL table does.
+        q = planted(own)
+        bad = ~same_comp & (_sample_side_deg(q[i], q[j]) < ANALYZE_MIN_RANDOM_DEG)
+        for q, skip in ((q, twin_pair | same_comp), (planted(own, twins_on=False), same_comp)):
+            d1 = _pair_deviation_deg(q[i], q[j], orbit1)
+            d3 = _pair_deviation_deg(q[i], q[j], orbit3)
+            bad |= ~skip & ((d1 < ANALYZE_MIN_RANDOM_DEG) | (d3 < ANALYZE_SIGMA3_CLEAR_DEG))
+        if not bad.any():
+            break
+        # Redraw one grain of each bad pair: an unplanted one, else both
+        # draws of a twin pair (the planted partner follows the first).
+        for a, b in pairs[bad]:
+            free = [g for g in (a, b) if comp[g] == 0 and partner[g] < 0]
+            twin = [g for g in (a, b) if partner[g] >= 0]
+            if not (free or twin):
+                raise AssertionError(f"analyze_truth: components {a} and {b} touch too close")
+            for g in free[:1] or (twin[0], partner[twin[0]]):
+                own[g] = draw(1)[0]
+    else:
+        raise AssertionError("analyze_truth: random boundaries never cleared")
+    sigma = rng.uniform(*ANALYZE_NOISE_DEG, n_grains)[owner.ravel()]
+    noise = Rotation.from_rotvec(rng.normal(size=(side * side, 3))
+                                 * np.radians(sigma / np.sqrt(3.0))[:, None])
+    return dict(euler=_euler_map(planted(own), owner, noise),
+                clean=_euler_map(planted(own), owner, None),
+                no_twins=_euler_map(planted(own, twins_on=False), owner, noise),
+                no_components=_euler_map(planted(own, comps_on=False), owner, noise),
+                owner=owner, twins=twins, cube=cube, goss=goss)
+
+
+def analyze_parent_truth(side: int = ANALYZE_PARENT_SIDE, n_parents: int = ANALYZE_PARENTS,
+                         n_children: int = ANALYZE_CHILDREN,
+                         seed: int = ANALYZE_PARENT_SEED) -> dict:
+    """A forward-simulated martensite map, as
+    tests/crystal/test_reconstruction.py builds one: the map is a square
+    grid of ``n_parents`` parent squares, each split into a Voronoi of
+    ``n_children`` children of distinct KS variants, ``g_c = s_c ⊗ T ⊗ s_p
+    ⊗ g_p`` (s_p picks the variant, a random s_c the representative), each
+    pixel turned by ANALYZE_PARENT_NOISE_DEG (RMS). Parents (and children's
+    representatives) are redrawn until every child boundary is at least
+    ANALYZE_MIN_RANDOM_DEG as the maps reduce it, and every cross-parent one
+    as the crystal-side disorientation too. Returns ``euler`` ``(side, side, 3)``,
+    ``parent`` (parent id per pixel) and ``parent_q`` ``(n_parents, 4)``."""
+    from scipy.spatial import cKDTree
+    from scipy.spatial.transform import Rotation
+
+    from latice_tpu_torch.crystal import csl_orbit, or_rotation, symmetry_quats
+    from latice_tpu_torch.crystal.csl import _qmul_np
+
+    rng = np.random.default_rng(seed)
+    per_side = int(round(np.sqrt(n_parents)))
+    cell = side // per_side
+    yy, xx = np.mgrid[0:side, 0:side]
+    parent = (yy // cell) * per_side + xx // cell
+    child = np.empty((side, side), np.int64)
+    for p in range(n_parents):
+        sel = parent == p
+        corner = np.asarray([p // per_side, p % per_side]) * cell
+        seeds = corner + rng.uniform(0, cell, (n_children, 2))
+        child[sel] = p * n_children + cKDTree(seeds).query(np.stack([yy[sel], xx[sel]], 1))[1]
+    child_parent = np.repeat(np.arange(n_parents), n_children)
+    sym = symmetry_quats("432").double().numpy()
+    t = or_rotation("ks")
+    variant = np.concatenate([rng.permutation(24)[:n_children] for _ in range(n_parents)])
+    s_c = sym[rng.integers(0, 24, n_parents * n_children)]
+    pairs = _grain_pairs(child)
+    cross = child_parent[pairs[:, 0]] != child_parent[pairs[:, 1]]
+    orbit1 = csl_orbit(np.asarray([1.0, 0.0, 0.0, 0.0]))
+    parent_q = rng.normal(size=(n_parents, 4))
+    parent_q /= np.linalg.norm(parent_q, axis=1, keepdims=True)
+    for _ in range(50):
+        q = _qmul_np(s_c, _qmul_np(t, _qmul_np(sym[variant], parent_q[child_parent])))
+        qa, qb = q[pairs[:, 0]], q[pairs[:, 1]]
+        near = _sample_side_deg(qa, qb) < ANALYZE_MIN_RANDOM_DEG
+        bad = near | (cross & (_pair_deviation_deg(qa, qb, orbit1) < ANALYZE_MIN_RANDOM_DEG))
+        if not bad.any():
+            break
+        # A cross-parent pair redraws a parent, a pair inside one parent the
+        # representative s_c of one child (the maps' reduction depends on it).
+        for p in np.unique(child_parent[pairs[bad & cross, 0]]):
+            q_new = rng.normal(size=4)
+            parent_q[p] = q_new / np.linalg.norm(q_new)
+        for a in pairs[bad & ~cross, 0]:
+            s_c[a] = sym[rng.integers(0, 24)]
+    else:
+        raise AssertionError("analyze_parent_truth: cross-parent boundaries never cleared")
+    noise = Rotation.from_rotvec(rng.normal(scale=np.radians(ANALYZE_PARENT_NOISE_DEG)
+                                            / np.sqrt(3.0), size=(side * side, 3)))
+    return dict(euler=_euler_map(q, child, noise), parent=parent, parent_q=parent_q)
+
+
+def _sha(arr: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+
+
+def analyze_readings(summary: dict, prefix: str) -> dict:
+    """What the card and the JAX package compare on the crop: counts and
+    label digests, histograms of the CSL and component codes, the first
+    grains' mean orientations, and the means of each field."""
+    def load(tag):
+        return np.load(f"{prefix}_{tag}.npy")
+
+    with np.load(f"{prefix}_grain_stats.npz") as f:
+        stats = {k: f[k] for k in f.files}
+    csl = np.concatenate([load("csl_east").ravel(), load("csl_south").ravel()])
+    gnd = load("gnd")
+    return dict(
+        n_grains=summary["n_grains"], cleaned_px=summary["cleaned_px"],
+        grains_sha=_sha(load("grains").astype(np.int32)),
+        boundaries_sha=_sha(load("boundaries")),
+        sizes_sha=_sha(stats["sizes_px"].astype(np.int64)),
+        mean_kam_deg=float(load("kam").mean()), mean_gos_deg=float(stats["gos_deg"].mean()),
+        mean_orientation_first=stats["mean_orientation"][:8].astype(float).tolist(),
+        csl_counts={int(k): int(v) for k, v in zip(*np.unique(csl, return_counts=True))},
+        component_counts={int(k): int(v) for k, v in
+                          zip(*np.unique(load("components"), return_counts=True))},
+        mean_schmid=float(load("schmid").astype(np.float64).mean()),
+        mean_taylor=float(load("taylor").mean()),
+        mean_youngs_gpa=float(load("youngs").mean()),
+        mean_gnd_per_m2=float(np.nanmean(gnd)), gnd_valid=int(np.isfinite(gnd).sum()),
+        texture_index=summary["texture_index"],
+    )
 
 
 def _direction_waves(seed: int, n_waves: int = 60):
@@ -2030,9 +2343,11 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
     return launches
 
 
-def _disorientation_deg(a: np.ndarray, b: np.ndarray, group: str = "432") -> np.ndarray:
+def _disorientation_deg(a: np.ndarray, b: np.ndarray, group: str = "432",
+                        compose: str = "crystal") -> np.ndarray:
     """Disorientation, degrees, in ``group`` (cubic unless given) between
-    rows of zxz Euler degrees or quaternions, in f64 on the host."""
+    rows of zxz Euler degrees or quaternions, in f64 on the host, over the
+    crystal-side (q ⊗ s) or sample-side (s ⊗ q) images."""
     from latice_tpu_torch.crystal import (
         ROTATION_GROUPS,
         from_euler_zxz_deg,
@@ -2042,7 +2357,7 @@ def _disorientation_deg(a: np.ndarray, b: np.ndarray, group: str = "432") -> np.
     qa, qb = (torch.from_numpy(np.asarray(x, np.float64)) for x in (a, b))
     qa, qb = (from_euler_zxz_deg(q) if q.shape[-1] == 3 else q for q in (qa, qb))
     sym = torch.from_numpy(np.asarray(ROTATION_GROUPS[group], np.float64))
-    return np.rad2deg(symmetry_reduced_misorientation(qa, qb, sym=sym).numpy())
+    return np.rad2deg(symmetry_reduced_misorientation(qa, qb, sym=sym, compose=compose).numpy())
 
 
 def _traced(fn) -> dict:
@@ -3708,6 +4023,406 @@ def phase_master(workdir: str, ckpt: str, smi: str) -> dict:
     return launches
 
 
+def _analysis_stage(fn, n_bytes: float | None = None,
+                    n_ops: float | None = None) -> tuple[dict, object]:
+    """One call of ``fn`` under the profiler, between CUDA events recorded
+    inside the trace (its teardown is not timed): events ms, the device's
+    busy ms and launches (the runtime API's launch calls), the host's wall
+    ms and its ms beside the device's, the device's idle share, the peak of
+    memory allocated above what was allocated before, and the bound of the
+    work the stage gives the card (None for a stage that runs on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(t for _, t, _ in _device_kernels(prof))
+    out = dict(events_ms=start.elapsed_time(end), device_ms=device_ms, wall_ms=wall_ms,
+               host_ms=wall_ms - device_ms, idle_share=1.0 - device_ms / wall_ms,
+               launches=sum(1 for e in prof.events() if e.name in _LAUNCH_CALLS),
+               peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    if n_ops is None:
+        out.update(bound_ms=None, bound_by="host")
+    else:
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
+    return out, result
+
+
+def _analysis_bounds(side: int) -> tuple[dict, dict]:
+    """(bytes, FP32 operations) of each device stage at a side x side map:
+    every input read once, every output written once; operations counted
+    per edge or pixel and per symmetry operator or orbit row (a Hamilton
+    product 28, a four-term dot 8, an angle 10, a power 2 as exp and log at
+    the FP32 rate: the data sheet gives no special-function rate)."""
+    from latice_tpu_torch.crystal import (
+        CSL_CUBIC,
+        TEXTURE_COMPONENTS,
+        component_orbit,
+        csl_orbit,
+        csl_rotation,
+    )
+
+    n, e, s = side * side, 2 * side * (side - 1), 24
+    k_csl = max(len(csl_orbit(csl_rotation(x))) for x in CSL_CUBIC)
+    k_comp = max(len(component_orbit(v)) for v in TEXTURE_COMPONENTS.values())
+    t_csl, t_comp, points = (len(CSL_CUBIC) + 1) * k_csl, len(TEXTURE_COMPONENTS) * k_comp, 16384
+    return dict(
+        fields=(n * 12 + 2 * n * 4, e * s * (28 + 28 + 10)),
+        grain_statistics=(n * 12 + n * 16, n * s * (28 + 28 + 10)),
+        cleanup=(n * 12 + 2 * n * 4, e * s * (28 + 28 + 10)),
+        csl=(n * 12 + 2 * n * 2, e * (28 + t_csl * 10)),
+        schmid=(n * 12 + n * 8, n * (40 + 18 + 12 * 14)),
+        components=(n * 12 + n * 6, n * (40 + t_comp * 10)),
+        texture_index=(n * 12 + n * 16 + points * 20, points * s * n * (8 + 2 + 2)),
+        gnd=(n * 12 + n * 2 * 3 * 8, e * s * (28 + 28) + e * 30),
+    ), dict(csl_columns=t_csl, component_columns=t_comp)
+
+
+def _near_edges(crop: np.ndarray, sigmas) -> tuple[np.ndarray, np.ndarray]:
+    """Masks of the crop's edges (east, south) and pixels whose angle lies
+    within ANALYZE_NEAR_DEG of the boundary threshold, a Brandon limit, the
+    component radius or a tie between two components, on the card."""
+    from latice_tpu_torch.crystal import (
+        TEXTURE_COMPONENTS,
+        brandon_tolerance_deg,
+        component_orbit,
+        csl_orbit,
+        csl_rotation,
+    )
+    from latice_tpu_torch.crystal.components import _component_deviations
+    from latice_tpu_torch.crystal.csl import _deviation_fields
+
+    def packed(orbits):
+        k = max(len(o) for o in orbits)
+        out, valid = np.zeros((len(orbits), k, 4), np.float32), np.zeros((len(orbits), k), bool)
+        for i, o in enumerate(orbits):
+            out[i, :len(o)], valid[i, :len(o)] = o, True
+        return torch.as_tensor(out, device="cuda"), torch.as_tensor(valid, device="cuda")
+
+    e = torch.as_tensor(crop.astype(np.float32), device="cuda")
+    limits = np.asarray([5.0] + [brandon_tolerance_deg(x) for x in sigmas])
+    orbits = [csl_orbit(np.asarray([1.0, 0.0, 0.0, 0.0]))] + [csl_orbit(csl_rotation(x))
+                                                              for x in sigmas]
+    near = []
+    for dev in _deviation_fields(e, *packed(orbits)):
+        near.append((np.abs(dev.cpu().numpy() - limits) < ANALYZE_NEAR_DEG).any(-1))
+    east = np.zeros(crop.shape[:2], bool)
+    south = np.zeros(crop.shape[:2], bool)
+    east[:, :-1], south[:-1] = near
+    comp = _component_deviations(e.reshape(-1, 3), *packed(
+        [component_orbit(v) for v in TEXTURE_COMPONENTS.values()])).cpu().numpy()
+    top2 = np.sort(comp, axis=1)[:, :2]
+    px = ((np.abs(comp - 15.0) < ANALYZE_NEAR_DEG).any(1)
+          | ((top2[:, 1] - top2[:, 0] < ANALYZE_NEAR_DEG) & (top2[:, 0] <= 15.0)))
+    return np.concatenate([east.ravel(), south.ravel()]), px.reshape(crop.shape[:2])
+
+
+def _hold_analysis(card: str, cpu: str, near_edges: np.ndarray, near_px: np.ndarray) -> dict:
+    """The card's `analyze` files against the CPU's at the phase's
+    tolerances; what differs is reported."""
+    def load(prefix, tag):
+        return np.load(f"{prefix}_{tag}.npy")
+
+    out = {}
+    for tag in ("grains", "boundaries", "cleaned", "taylor", "youngs"):
+        if not np.array_equal(load(card, tag), load(cpu, tag)):
+            raise AssertionError(f"analyze crop: {tag} card != CPU")
+    kam = float(np.abs(load(card, "kam") - load(cpu, "kam")).max())
+    csl = np.concatenate([np.concatenate([load(p, "csl_east").ravel(), load(p, "csl_south").ravel()])
+                          [None] for p in (card, cpu)])
+    csl_off = int(((csl[0] != csl[1]) & ~near_edges).sum())
+    comp_off = int(((load(card, "components") != load(cpu, "components")) & ~near_px).sum())
+    schmid = float(np.abs(load(card, "schmid") / load(cpu, "schmid") - 1).max())
+    gnd_c, gnd_p = load(card, "gnd"), load(cpu, "gnd")
+    gnd_valid_equal = bool(np.array_equal(np.isfinite(gnd_c), np.isfinite(gnd_p)))
+    scale = float(np.nanmedian(gnd_p))
+    gnd = float(np.nanmax(np.abs(gnd_c - gnd_p) / (np.abs(gnd_p) + scale)))
+    with np.load(f"{card}_grain_stats.npz") as a, np.load(f"{cpu}_grain_stats.npz") as b:
+        sizes_equal = bool(np.array_equal(a["sizes_px"], b["sizes_px"]))
+        mean_deg = float(_disorientation_deg(a["mean_orientation"], b["mean_orientation"]).max())
+        gos = float(np.abs(np.cos(np.radians(a["gos_deg"].astype(np.float64)) / 2)
+                           - np.cos(np.radians(b["gos_deg"].astype(np.float64)) / 2)).max())
+    out = dict(kam_max_deg=kam, csl_off_near=csl_off, csl_near_edges=int(near_edges.sum()),
+               components_off_near=comp_off, components_near_px=int(near_px.sum()),
+               schmid_max_rel=schmid, gnd_max_rel=gnd, gnd_valid_equal=gnd_valid_equal,
+               stats_sizes_equal=sizes_equal, stats_mean_max_deg=mean_deg, gos_cos_max=gos)
+    if not (kam <= ANALYZE_NEAR_DEG and csl_off == 0 and comp_off == 0
+            and schmid <= ANALYZE_RTOL and gnd <= ANALYZE_RTOL and gnd_valid_equal
+            and sizes_equal and mean_deg < 1e-3 and gos <= 1e-6):
+        raise AssertionError(f"analyze crop, card vs CPU: {out}")
+    return out
+
+
+def _hold_analyze_readings(got: dict, want: dict, near_edges: int, near_px: int) -> dict:
+    """The card's crop readings against the JAX package's (JAX_ANALYZE)."""
+    equal = ("n_grains", "cleaned_px", "grains_sha", "boundaries_sha", "sizes_sha", "gnd_valid")
+    off = {k: (got[k], want[k]) for k in equal if got[k] != want[k]}
+    for k in ("mean_kam_deg", "mean_gos_deg"):
+        if abs(got[k] - want[k]) > ANALYZE_NEAR_DEG:
+            off[k] = (got[k], want[k])
+    for k in ("mean_schmid", "mean_taylor", "mean_youngs_gpa", "mean_gnd_per_m2"):
+        if abs(got[k] / want[k] - 1) > ANALYZE_RTOL:
+            off[k] = (got[k], want[k])
+    if abs(got["texture_index"] - want["texture_index"]) > ANALYZE_RTOL * want["texture_index"] + 1e-4:
+        off["texture_index"] = (got["texture_index"], want["texture_index"])
+    mean_deg = float(_disorientation_deg(got["mean_orientation_first"],
+                                         want["mean_orientation_first"]).max())
+    if not mean_deg < 1e-3:
+        off["mean_orientation_first"] = mean_deg
+
+    def count_diff(a, b):
+        a, b = ({int(k): v for k, v in x.items()} for x in (a, b))
+        return sum(abs(a.get(k, 0) - b.get(k, 0)) for k in set(a) | set(b))
+
+    csl_diff = count_diff(got["csl_counts"], want["csl_counts"])
+    comp_diff = count_diff(got["component_counts"], want["component_counts"])
+    if csl_diff > 2 * near_edges:
+        off["csl_counts"] = (csl_diff, near_edges)
+    if comp_diff > 2 * near_px:
+        off["component_counts"] = (comp_diff, near_px)
+    if off:
+        raise AssertionError(f"analyze crop vs JAX_ANALYZE: {off}")
+    return dict(csl_count_diff=csl_diff, component_count_diff=comp_diff,
+                mean_orientation_max_deg=mean_deg)
+
+
+def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
+    """The orientation-map analysis plane. The chain users run: ``query
+    --engine fused --ang --scan-grid 64 64`` of the dictionary phase's scan
+    (its K2f and K1 launches are the path's), then ``analyze`` of that
+    ``.ang`` with ANALYZE_FLAGS. Then a seeded 1024x1024 map of 4,096
+    grains with planted Σ3 twins and Cube and Goss grains through
+    ``analyze`` (traced: wall, device busy, idle share), held to its
+    truth: its grains are the noise-free map's, every planted twin edge is
+    Σ3 and the Σ3 and Cube and Goss shares exceed the planted ones by no
+    more than the maps with nothing planted give; each stage alone, with
+    its bound, launches and peak memory; the top-left 128x128 crop, card
+    against the port's CPU path and against the JAX package's readings
+    (JAX_ANALYZE); and ``analyze --parent ks`` of a 512x512 martensite map,
+    whose planted parents must come back."""
+    from latice_tpu_torch import crystal as cr
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.sim import simulate_patterns
+
+    root = Path(workdir) / "analyze"
+    root.mkdir()
+    out = {}
+    t_phase = time.perf_counter()
+    common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+              "--batch-size", str(BATCH)]
+
+    # 1. The chain: query of the dictionary phase's scan, analyze of its .ang.
+    steps = {}
+    dictionary = Path(workdir) / "dictionary"
+    db, scan_npy = dictionary / "dict_db.npz", dictionary / "scan_u8.npy"
+    if not db.exists():  # --analyze-only runs no dictionary phase: its files, made here
+        db, scan_npy = root / "dict_db.npz", root / "scan_u8.npy"
+        grid, dict_npy = str(root / "grid.txt"), str(root / "dict.npy")
+        steps["sample"] = _index_cli(["sample", "--group", DICT_GROUP, "--resolution",
+                                      str(DICT_RESOLUTION), "--out", grid])
+        steps["simulate"] = _index_cli(["simulate", "--angles", grid, "--out", dict_npy,
+                                        "--uint8"])
+        steps["build"] = _index_cli(["build", "--patterns", dict_npy, "--angles", grid, "--db",
+                                     str(db)] + common)
+        rng = np.random.default_rng(20)  # the dictionary phase's scan, drawn as it draws it
+        clean = simulate_patterns(_grain_scan(rng))
+        noisy = clean + rng.standard_normal(clean.shape, dtype=np.float32) * SCAN_NOISE
+        np.save(scan_npy, np.round(np.clip(noisy, 0.0, 1.0) * 255.0).astype(np.uint8))
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    ang = str(root / "scan.ang")
+    steps["query"] = _index_cli(["query", "--patterns", str(scan_npy), "--db", str(db), "--out",
+                                 str(root / "scan.npy"), "--engine", "fused", "--ang", ang,
+                                 "--scan-grid", str(SCAN_SIDE), str(SCAN_SIDE)] + common)
+    steps["analyze"] = _index_cli(["analyze", "--orientations", ang, "--out-prefix",
+                                   str(root / "chain")] + ANALYZE_FLAGS)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    query_batches = SCAN_SIDE**2 // BATCH
+    want_launches = {"instance_norm_leaky_relu": 10 * query_batches,
+                     "cosine_topk_fused": query_batches}
+    chain = steps["analyze"]["summary"]
+    keys = ("grain_stats", "csl_fractions", "mean_schmid", "mean_taylor", "mean_youngs_gpa",
+            "gnd_valid_fraction", "component_fractions", "texture_index", "cleaned_px")
+    if not (launches == want_launches and all(k in chain for k in keys)
+            and np.load(root / "chain_grains.npy").shape == (SCAN_SIDE, SCAN_SIDE)
+            and np.isfinite(chain["texture_index"]) and chain["n_grains"] >= 1):
+        raise AssertionError(f"analyze chain: launches {launches} (want {want_launches}), "
+                             f"summary {chain}")
+    out["chain"] = dict(steps=steps, launches=launches)
+    _progress("analyze", t_phase, "chain")
+
+    # 2. The full-size map through the CLI, traced, and held to its truth.
+    t0 = time.perf_counter()
+    truth = analyze_truth()
+    out["truth_s"] = time.perf_counter() - t0
+    side = ANALYZE_SIDE
+    euler = truth["euler"].astype(np.float32)
+    big, prefix = str(root / "map.npy"), str(root / "map")
+    np.save(big, euler.reshape(-1, 3))
+    torch.cuda.reset_peak_memory_stats()
+    cli_trace, cli = _traced_call(lambda: _index_cli(
+        ["analyze", "--orientations", big, "--grid", str(side), str(side), "--out-prefix",
+         prefix] + ANALYZE_FLAGS))
+    summary = cli["summary"]
+    out["cli"] = dict(**cli_trace, peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                      summary={k: v for k, v in summary.items() if k != "outputs"})
+    _progress("analyze", t_phase, "cli")
+    grains = np.load(f"{prefix}_grains.npy")
+    # The noise-free map through the same cleanup (fragments of under 4 px,
+    # left where a Voronoi cell touches itself only diagonally, dissolve
+    # into a neighbour) and segmentation.
+    clean, clean_filled, _ = cr.clean_orientation_map(truth["clean"], min_grain_px=4)
+    clean_grains, _ = cr.label_grains(cr.misorientation_maps(clean))
+    # The plants are held on the pixels the cleanup left as they were, and
+    # on the edges between two such pixels.
+    valid = (np.load(f"{prefix}_cleaned.npy").reshape(euler.shape) == euler).all(-1)
+    valid_edges = np.concatenate([np.pad(valid[:, :-1] & valid[:, 1:], ((0, 0), (0, 1))),
+                                  np.pad(valid[:-1] & valid[1:], ((0, 1), (0, 0)))]).reshape(-1)
+    owner = truth["owner"]
+    twin_key = set((truth["twins"].min(1) * ANALYZE_GRAINS + truth["twins"].max(1)).tolist())
+
+    def edge_keys(a, b):
+        return np.minimum(a, b) * ANALYZE_GRAINS + np.maximum(a, b)
+
+    twin_edges = np.concatenate([
+        np.pad(np.isin(edge_keys(owner[:, :-1], owner[:, 1:]), list(twin_key)), ((0, 0), (0, 1))),
+        np.pad(np.isin(edge_keys(owner[:-1], owner[1:]), list(twin_key)), ((0, 1), (0, 0)))
+    ]).reshape(-1) & valid_edges
+
+    def csl_of(east, south):
+        return np.concatenate([east.ravel(), south.ravel()])
+
+    csl = csl_of(np.load(f"{prefix}_csl_east.npy"), np.load(f"{prefix}_csl_south.npy"))
+    none = cr.classify_csl_boundaries(truth["no_twins"])
+    csl_none = csl_of(none.east, none.south)
+    s3 = summary["csl_sigmas"].index("3")
+    boundary = (csl != -2) & valid_edges
+    f3 = float(((csl == s3) & valid_edges).sum() / boundary.sum())
+    planted3 = float(twin_edges.sum() / boundary.sum())
+    f3_none = float(((csl_none == s3) & valid_edges).sum() / ((csl_none != -2) & valid_edges).sum())
+    comps = np.load(f"{prefix}_components.npy")
+    names = summary["component_names"]
+    none_comp = cr.texture_component_fractions(truth["no_components"])
+    shares = {}
+    for name in ("cube", "goss"):  # in valid pixels
+        k = names.index(name)
+        shares[name] = dict(planted=int((np.isin(owner, truth[name]) & valid).sum()),
+                            got=int(((comps == k) & valid).sum()),
+                            nothing_planted=int(((none_comp.labels == k) & valid).sum()))
+        if not (shares[name]["planted"] <= shares[name]["got"]
+                <= shares[name]["planted"] + shares[name]["nothing_planted"]):
+            raise AssertionError(f"analyze {name} pixels: {shares[name]}")
+    held = dict(n_grains=summary["n_grains"], clean_n_grains=int(clean_grains.max()) + 1,
+                grains_equal_noise_free=bool(np.array_equal(grains, clean_grains)),
+                twin_edges=int(twin_edges.sum()),
+                twin_edges_sigma3=int((csl[twin_edges] == s3).sum()), sigma3=f3,
+                sigma3_planted=planted3, sigma3_no_twins=f3_none, components=shares,
+                cleaned_px=summary["cleaned_px"], clean_cleaned_px=int(clean_filled.sum()),
+                unchanged_px=int(valid.sum()))
+    if not (held["grains_equal_noise_free"] and held["twin_edges_sigma3"] == held["twin_edges"]
+            and planted3 <= f3 <= planted3 + f3_none
+            and held["cleaned_px"] == held["clean_cleaned_px"]):
+        raise AssertionError(f"analyze full-size map against its truth: {held}")
+    out["truth"] = held
+    _progress("analyze", t_phase, "truth")
+
+    # 3. Each stage alone on the full-size map.
+    bounds, columns = _analysis_bounds(side)
+    stages = {}
+
+    def run(name, fn, device=True):
+        stages[name], result = _analysis_stage(fn, *(bounds.get(name, (None, None))
+                                                     if device else (None, None)))
+        return result
+
+    maps = run("fields", lambda: cr.misorientation_maps(euler))
+    labels, _ = run("labelling", lambda: cr.label_grains(maps), device=False)
+    run("kam", lambda: (cr.kernel_average_misorientation(maps), cr.grain_boundary_mask(maps)),
+        device=False)
+    run("grain_statistics", lambda: cr.grain_statistics(euler, labels))
+    run("cleanup", lambda: cr.clean_orientation_map(euler, min_grain_px=4))
+    run("csl", lambda: cr.classify_csl_boundaries(euler))
+    run("schmid", lambda: cr.schmid_factors(euler, (0.0, 0.0, 1.0)))
+    run("taylor", lambda: cr.taylor_factors(euler, (0.0, 0.0, 1.0)), device=False)
+    run("components", lambda: cr.texture_component_fractions(euler))
+    run("texture_index", lambda: cr.texture_index(cr.make_odf(euler)))
+    run("gnd", lambda: cr.gnd_density(euler, 1.0, 0.25))
+    run("youngs", lambda: cr.directional_youngs_modulus(euler, stiffness="ni"), device=False)
+    out["stages"] = dict(side=side, **columns, by_stage=stages)
+    _progress("analyze", t_phase, "stages")
+
+    # 4. The crop: card against the port's CPU path and the JAX readings.
+    crop = euler[:ANALYZE_CROP, :ANALYZE_CROP]
+    crop_npy = str(root / "crop.npy")
+    np.save(crop_npy, crop.reshape(-1, 3))
+    argv = ["analyze", "--orientations", crop_npy, "--grid", str(ANALYZE_CROP),
+            str(ANALYZE_CROP)] + ANALYZE_FLAGS
+    card = _index_cli(argv + ["--out-prefix", str(root / "crop_card")])
+    cpu = _index_cli(argv + ["--out-prefix", str(root / "crop_cpu"), "--device", "cpu"])
+    near_edges, near_px = _near_edges(crop, card["summary"]["csl_sigmas"])
+    vs_cpu = _hold_analysis(str(root / "crop_card"), str(root / "crop_cpu"), near_edges, near_px)
+    ti = (card["summary"]["texture_index"], cpu["summary"]["texture_index"])
+    if abs(ti[0] - ti[1]) > ANALYZE_RTOL * ti[1] + 1e-4:
+        raise AssertionError(f"analyze crop texture index card {ti[0]}, CPU {ti[1]}")
+    readings = analyze_readings(card["summary"], str(root / "crop_card"))
+    if JAX_ANALYZE is None:
+        raise AssertionError("JAX_ANALYZE is empty: run examples/analyze_jax_reference.py")
+    vs_jax = _hold_analyze_readings(readings, JAX_ANALYZE["readings"], int(near_edges.sum()),
+                                    int(near_px.sum()))
+    out["crop"] = dict(side=ANALYZE_CROP, input_sha=_sha(crop), jax_input_sha=JAX_ANALYZE[
+        "input_sha"], card_s=card["wall_s"], cpu_s=cpu["wall_s"], vs_cpu=vs_cpu, vs_jax=vs_jax,
+        texture_index=ti, readings=readings)
+    _progress("analyze", t_phase, "crop")
+
+    # 5. Parent reconstruction of a forward-simulated martensite map.
+    parent = analyze_parent_truth()
+    p_npy = str(root / "parent.npy")
+    np.save(p_npy, parent["euler"].astype(np.float32).reshape(-1, 3))
+    rec = _index_cli(["analyze", "--orientations", p_npy, "--grid", str(ANALYZE_PARENT_SIDE),
+                      str(ANALYZE_PARENT_SIDE), "--parent", "ks", "--out-prefix",
+                      str(root / "parent")])
+    got = np.load(root / "parent_parent_grains.npy")
+    orient = np.load(root / "parent_parent_orientations.npy").reshape(-1, 3)
+    children = np.load(root / "parent_grains.npy")
+    truth_id = parent["parent"]
+    # Each planted parent: the label most of its pixels carry, which must
+    # be its own, and that label's orientation. A child whose candidate fan
+    # meets a neighbouring parent's within the tolerance may join it (the
+    # JAX package's reconstruction does the same on this map): counted,
+    # and held to ANALYZE_PARENT_STRAY_SHARE of the child grains.
+    majority = [np.bincount(got[truth_id == p]).argmax() for p in range(ANALYZE_PARENTS)]
+    at = [np.argmax(((truth_id == p) & (got == m)).ravel()) for p, m in enumerate(majority)]
+    truth_euler = cr.to_euler_zxz_deg(torch.from_numpy(parent["parent_q"])).numpy()
+    err = _disorientation_deg(orient[at], truth_euler, compose="sample")
+    _, first = np.unique(children, return_index=True)  # a pixel of each child grain
+    n_children = len(first)
+    stray = int((got.ravel()[first] != np.asarray(majority)[truth_id.ravel()[first]]).sum())
+    recovered = dict(n_parents=rec["summary"]["n_parents"], n_child_grains=n_children,
+                     distinct=len(set(majority)) == ANALYZE_PARENTS, max_err_deg=float(err.max()),
+                     stray_children=stray, mean_fit_deg=rec["summary"]["mean_parent_fit_deg"],
+                     wall_s=rec["wall_s"])
+    if not (recovered["distinct"] and err.max() < ANALYZE_PARENT_HOLD_DEG
+            and stray <= ANALYZE_PARENT_STRAY_SHARE * n_children):
+        raise AssertionError(f"analyze --parent ks: {recovered}")
+    out["parent"] = recovered
+    emit("analyze", card=smi, **out,
+         timed_as="events_ms: CUDA events around one call; device_ms: profiler sums; "
+                  "launches: runtime launch calls (stages), device activities (cli); wall_ms, "
+                  "host_ms (= wall - device), "
+                  "wall_s: host clock; idle_share: 1 - device busy / wall; peak_mb: "
+                  "max_memory_allocated above the stage's start")
+    return launches
+
+
 def _synthetic_patterns(n: int, seed: int) -> np.ndarray:
     """``n`` seeded 128x128 float32 patterns in [0, 1]: three bright bands
     (Kikuchi-like lines) each, over a smooth background."""
@@ -4155,7 +4870,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     only = {"--sphere-only": phase_sphere, "--strain-only": phase_strain,
-            "--master-only": phase_master}
+            "--master-only": phase_master, "--analyze-only": phase_analyze}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # one plane's phase alone; no verdict line
         from latice_tpu_torch.models import VariationalAutoEncoderRawData
 
@@ -4195,6 +4910,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         master_launches = phase_master(workdir, ckpt, smi)
         torch.cuda.empty_cache()
+        analyze_launches = phase_analyze(workdir, ckpt, smi)
+        torch.cuda.empty_cache()
         train_launches, model = phase_train(workdir, smi)
         robust_launches = phase_train_robust(workdir, smi)
     phase_train_parity()
@@ -4213,6 +4930,7 @@ def main() -> int:
         "sphere": sphere_launches,
         "strain": strain_launches,
         "master": master_launches,
+        "analyze": analyze_launches,
         "train": train_launches,
         "train_robust": robust_launches,
     }

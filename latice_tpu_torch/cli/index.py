@@ -50,6 +50,13 @@ indexing, on the GPU by default.
     python -m latice_tpu_torch.cli.index strain --patterns scan.up2 \\
         --ref 0 --stiffness ni --out strain.npz
 
+    # the analysis plane on an indexed map: grains, KAM, grain statistics,
+    # CSL boundaries, texture, Schmid/Taylor/Young's maps, GND density and
+    # parent grains; .ang/.ctf files carry their grid and phases
+    python -m latice_tpu_torch.cli.index analyze --orientations scan.ang \\
+        --grain-stats --csl --schmid 0 0 1 --taylor --youngs ni \\
+        --gnd 0.25 --components all --texture-index --clean 4
+
 Every command that reads patterns takes a ``.npy`` stack, an HDF5 scan
 (``--h5-dataset``, or the detected pattern stack) or an EDAX ``.up1``/``.up2``
 file, whose header gives ``--scan-grid`` when the flag is absent; ``query``
@@ -57,8 +64,7 @@ streams such scans in ``--h5-chunk`` slabs. ``--checkpoint`` is a
 reference-layout ``.pt`` state dict (a JAX checkpoint converts with
 `models.flax_params_to_state_dict` and ``torch.save``); without one the
 weights are random, drawn from a fixed seed. The model runs at ``16-mixed``
-(bf16 autocast). ``master`` (the dynamical master) and the remaining
-commands of the JAX package's ``index.py`` wait for later slices.
+(bf16 autocast).
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ import logging
 def main(argv=None) -> None:
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run the command."""
     from latice_tpu_torch.cli import (
+        _analyze_cmds,
         _band_cmds,
         _db_cmds,
         _di_cmds,
@@ -95,10 +102,8 @@ def main(argv=None) -> None:
     _band_cmds.register(sub, common)
     _sphere_cmds.register(sub, common)
     _strain_cmds.register(sub, common)
-    # A command that waits for a later slice takes any arguments and refuses.
-    args, extra = parser.parse_known_args(argv)
-    if extra and not getattr(args, "takes_any_arguments", False):
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    _analyze_cmds.register(sub, common)
+    args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     args.fn(args)
 

@@ -25,6 +25,7 @@ __all__ = [
     "quat_inv",
     "quat_angle",
     "quat_canonical",
+    "from_axis_angle",
     "from_euler_zxz_deg",
     "to_euler_zxz_deg",
     "quat_to_matrix",
@@ -32,6 +33,8 @@ __all__ = [
     "misorientation_angle",
     "misorientation_deg",
     "quat_mean",
+    "quat_from_scipy",
+    "quat_to_scipy",
 ]
 
 _RAD = math.pi / 180.0
@@ -73,6 +76,12 @@ def quat_angle(q: torch.Tensor) -> torch.Tensor:
 def quat_canonical(q: torch.Tensor) -> torch.Tensor:
     """The representative with non-negative scalar part (q ≅ -q)."""
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def from_axis_angle(axis: torch.Tensor, angle_rad: torch.Tensor) -> torch.Tensor:
+    """Quaternion for a rotation of ``angle_rad`` about unit vector ``axis``."""
+    half = angle_rad[..., None] / 2.0
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
 
 
 def _axis_quat(angle_rad: torch.Tensor, axis_index: int) -> torch.Tensor:
@@ -163,17 +172,24 @@ def misorientation_deg(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 def quat_mean(
     quats: torch.Tensor,
     weights: torch.Tensor | None = None,
+    method: str = "power",
     iterations: int = 30,
 ) -> torch.Tensor:
     """Weighted chordal-L2 mean rotation, as ``scipy.Rotation.mean()``.
 
     The mean is the leading eigenvector of ``M = Σ_i w_i q_i q_iᵀ`` over the
-    second-to-last axis of ``quats`` ``(..., N, 4)``, found by power
-    iteration started from the sign-aligned weighted sum. All-zero weights
-    start from the identity and give an arbitrary but finite result.
+    second-to-last axis of ``quats`` ``(..., N, 4)``. ``method="power"``
+    (the default) finds it by power iteration started from the
+    sign-aligned weighted sum; all-zero weights start from the identity and
+    give an arbitrary but finite result. ``"eigh"`` takes the last
+    eigenvector of ``torch.linalg.eigh``.
     """
     q = quats if weights is None else quats * weights[..., None]
     m = torch.einsum("...ni,...nj->...ij", q, quats)
+    if method == "eigh":
+        # eigh returns ascending eigenvalues; the mean is the last eigenvector.
+        _, vecs = torch.linalg.eigh(m)
+        return quat_canonical(quat_normalize(vecs[..., :, -1]))
 
     v0 = quat_canonical(quats)
     if weights is not None:
@@ -186,3 +202,13 @@ def quat_mean(
     for _ in range(iterations):
         v = quat_normalize(torch.einsum("...ij,...j->...i", m, v))
     return quat_canonical(v)
+
+
+def quat_from_scipy(q_xyzw: torch.Tensor) -> torch.Tensor:
+    """Scalar-last (scipy) quaternions to scalar-first."""
+    return torch.cat([q_xyzw[..., 3:4], q_xyzw[..., 0:3]], dim=-1)
+
+
+def quat_to_scipy(q_wxyz: torch.Tensor) -> torch.Tensor:
+    """Scalar-first quaternions to scalar-last (scipy)."""
+    return torch.cat([q_wxyz[..., 1:4], q_wxyz[..., 0:1]], dim=-1)

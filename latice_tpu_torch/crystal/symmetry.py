@@ -18,13 +18,24 @@ __all__ = [
     "CUBIC_SYMMETRY",
     "QUAT_SYM_WXYZ",
     "ROTATION_GROUPS",
+    "apply_symmetry_to_axes",
+    "cubic_symmetry_quats",
     "symmetry_quats",
     "stack_symmetry_tables",
     "nearest_symmetry_equivalent",
     "symmetry_reduced_misorientation",
+    "PI_OVER_180",
+    "K_180_OVER_PI",
+    "SQRT2_INV",
+    "SQRT3_INV",
+    "USE_INVERSION",
 ]
 
-_S2 = 1 / sqrt(2)
+PI_OVER_180 = pi / 180
+K_180_OVER_PI = 180 / pi
+SQRT2_INV = 1 / sqrt(2)
+SQRT3_INV = 1 / sqrt(3)
+USE_INVERSION = True
 
 # The 24 rotations of the cubic system in the reference's on-disk layout,
 # scipy scalar-LAST (x, y, z, w).
@@ -41,22 +52,27 @@ CUBIC_SYMMETRY: list[list[float]] = [
     [0.5, 0.5, -0.5, -0.5],
     [0.5, -0.5, -0.5, 0.5],
     [0.5, 0.5, 0.5, -0.5],
-    [_S2, _S2, 0, 0],
-    [_S2, 0, _S2, 0],
-    [_S2, 0, 0, _S2],
-    [_S2, -_S2, 0, 0],
-    [_S2, 0, -_S2, 0],
-    [_S2, 0, 0, -_S2],
-    [0, _S2, _S2, 0],
-    [0, -_S2, _S2, 0],
-    [0, 0, _S2, _S2],
-    [0, 0, -_S2, _S2],
-    [0, _S2, 0, _S2],
-    [0, -_S2, 0, _S2],
+    [SQRT2_INV, SQRT2_INV, 0, 0],
+    [SQRT2_INV, 0, SQRT2_INV, 0],
+    [SQRT2_INV, 0, 0, SQRT2_INV],
+    [SQRT2_INV, -SQRT2_INV, 0, 0],
+    [SQRT2_INV, 0, -SQRT2_INV, 0],
+    [SQRT2_INV, 0, 0, -SQRT2_INV],
+    [0, SQRT2_INV, SQRT2_INV, 0],
+    [0, -SQRT2_INV, SQRT2_INV, 0],
+    [0, 0, SQRT2_INV, SQRT2_INV],
+    [0, 0, -SQRT2_INV, SQRT2_INV],
+    [0, SQRT2_INV, 0, SQRT2_INV],
+    [0, -SQRT2_INV, 0, SQRT2_INV],
 ]
 
 _SYM_XYZW = np.asarray(CUBIC_SYMMETRY, dtype=np.float64)
 QUAT_SYM_WXYZ: np.ndarray = np.concatenate([_SYM_XYZW[:, 3:4], _SYM_XYZW[:, 0:3]], axis=1)
+
+
+def cubic_symmetry_quats(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """The 24 cubic symmetry operators as scalar-first unit quaternions."""
+    return torch.as_tensor(QUAT_SYM_WXYZ, dtype=dtype, device=device)
 
 
 def _aa(axis, angle: float) -> np.ndarray:
@@ -189,3 +205,22 @@ def nearest_symmetry_equivalent(
     images = images.expand(*delta.shape, 4)
     idx = torch.argmin(delta, dim=-1, keepdim=True)
     return torch.gather(images, -2, idx[..., None].expand(*idx.shape, 4)).squeeze(-2)
+
+
+def apply_symmetry_to_axes(axes: np.ndarray, group: str = "432") -> np.ndarray:
+    """Expand direction vectors by a point group's operators (host numpy).
+
+    ``axes`` is ``(3,)`` or ``(N, 3)``; the result is ``(S, 3)`` or
+    ``(N, S, 3)`` for a group of order S. The cubic group keeps the
+    reference's own table and order, which the IPF color key's first-match
+    rule depends on.
+    """
+    from scipy.spatial.transform import Rotation as R
+
+    if group == "432":
+        quats_xyzw = np.asarray(CUBIC_SYMMETRY)
+    else:
+        wxyz = np.asarray(ROTATION_GROUPS[group])
+        quats_xyzw = np.concatenate([wxyz[:, 1:4], wxyz[:, 0:1]], axis=1)
+    mats = R.from_quat(quats_xyzw).as_matrix()
+    return np.einsum("sij,...j->...si", mats, np.asarray(axes, dtype=np.float64))

@@ -1,5 +1,7 @@
-"""Utilities of the port: experiment loggers."""
+"""Utilities of the port: experiment loggers, the IPF color key, pole
+figures and figures (host numpy; matplotlib only where a figure is drawn)."""
 
+from latice_tpu_torch.utils.colorkey import ColorKeyGenerator
 from latice_tpu_torch.utils.loggers import (
     CSVLogger,
     MultiLogger,
@@ -7,5 +9,28 @@ from latice_tpu_torch.utils.loggers import (
     WandbLogger,
     make_default_logger,
 )
+from latice_tpu_torch.utils.polefigure import compute_pole_figure, plot_odf_sections, plot_pole_figure
+from latice_tpu_torch.utils.viz import (
+    figure_to_array,
+    get_color_key,
+    log_fig,
+    plot_detection,
+    plot_latent,
+)
 
-__all__ = ["CSVLogger", "MultiLogger", "TensorBoardLogger", "WandbLogger", "make_default_logger"]
+__all__ = [
+    "compute_pole_figure",
+    "plot_odf_sections",
+    "plot_pole_figure",
+    "CSVLogger",
+    "ColorKeyGenerator",
+    "MultiLogger",
+    "TensorBoardLogger",
+    "WandbLogger",
+    "figure_to_array",
+    "get_color_key",
+    "log_fig",
+    "make_default_logger",
+    "plot_detection",
+    "plot_latent",
+]

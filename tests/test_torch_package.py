@@ -126,6 +126,23 @@ def test_entry_points_default_to_cuda():
         cubic_reflectors,
     )
 
+    from latice_tpu_torch import crystal
+
+    euler = np.zeros((2, 2, 3))
+    for call in (
+        lambda: crystal.misorientation_maps(euler),
+        lambda: crystal.grain_statistics(euler, np.zeros((2, 2), np.int64)),
+        lambda: crystal.random_disorientation_angles(n=4),
+        lambda: crystal.classify_csl_boundaries(euler),
+        lambda: crystal.schmid_factors(euler),
+        lambda: crystal.texture_component_fractions(euler),
+        lambda: crystal.make_odf(euler),
+        lambda: crystal.gnd_density(euler),
+        lambda: crystal.reconstruct_parents(euler[0], np.zeros((0, 2), np.int64)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
     geom = DetectorGeometry(shape=(16, 16))
     for call in (
         lambda: BandDetector(height=16, width=16, n_theta=8, n_rho=8),
@@ -145,6 +162,7 @@ def test_entry_points_default_to_cuda():
         ["quality", "--patterns", "/nonexistent/p.npy"],
         ["hough", "--patterns", "/nonexistent/p.npy"],
         ["calibrate", "--patterns", "/nonexistent/p.npy", "--orientations", "o.npy"],
+        ["analyze", "--orientations", "/nonexistent/o.npy", "--grid", "2", "2"],
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             index_main(argv)
