@@ -5,8 +5,8 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 15, 16, 17, 18, 19 and 21, on the serve phase's files, before
-7, and 20 after 7):
+10, 11, 14, 22, 15, 16, 17, 18, 19 and 21, on the serve phase's files,
+before 7, and 20 after 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds every kernel of ``latice_tpu_torch/ops/csrc`` afresh.
@@ -21,9 +21,9 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
 4. serve: the full-width server as ``python -m latice_tpu_torch.cli.serve``
    builds it (`cli.serve.build_service`: inplanes 32, latent 16, 5 stages,
    16-mixed, a 100,000-entry dictionary, batch 256, fused engine) answers
-   /healthz, /index and /encode over HTTP; the kernels' launch counters,
-   zeroed just before, must show 10 InstanceNorm launches and 1 top-k
-   launch per batch.
+   /healthz (``"platform": "gpu"``), /index and /encode over HTTP; the
+   kernels' launch counters, zeroed just before, must show 10 InstanceNorm
+   launches and 1 top-k launch per batch.
 5. parity: 64 patterns through the card's service and through the same
    service built on the CPU (the plain twins), both 16-mixed; then the f32
    model on the card against an f32 CPU pipeline built from the same files.
@@ -34,13 +34,24 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
    704 seeded synthetic patterns; the counters, zeroed just before, must
    show 19 forward and 19 backward InstanceNorm launches per train step and
    19 forward, 0 backward per eval step; ``last.pt`` must load and encode
-   as the trained model does.
+   as the trained model does. The decoder is the fused one (each upsample
+   folded into the next transposed convolution, the default); the progress
+   bar draws each epoch (its last state printed on stderr, one line per
+   epoch), and the reconstruction figure is logged or, without
+   matplotlib, skipped with the trainer's warning, as the logger shows.
 8. train_parity: one f32 train step at full width on the card (kernels)
    and on the CPU (plain twins) from the same weights and noise; each
    gradient leaf of the card must be as close to a float64 reference as
    the CPU's is, and the same step with a wrong norm backward must not.
+   Then the fused decoder against the materialized one on the card, f32
+   with TF32 off, same weights and input: output and every gradient
+   within 5e-5 (tests/models/test_fused_upsample.py's bound).
 9. train_profile: torch.profiler over 3 steady train steps of the
-   trainer's own epoch loop.
+   trainer's own epoch loop, with the fused decoder and with
+   ``LATICE_TPU_FUSED_UPSAMPLE=0`` from the same weights, in turns (fused,
+   materialized, materialized, fused); then the wall per step of each
+   without the profiler, 10 pairs of 10 steps, the first of each pair
+   alternating.
 10. stage0_path: an ``IndexPipeline`` with no model and a ``feature_fn``
     that runs the encoder's stage 0 through K3 (``fused_stage0_apply``)
     and the rest of the encoder and the mu head under bf16 autocast, over
@@ -182,6 +193,16 @@ exits nonzero without its last line (phases 12 and 13 run after 6, then
     JAX package's (examples/analyze_jax_reference.py); and ``analyze
     --parent ks`` of a 512x512 forward-simulated martensite map of 16
     parents, every planted parent recovered within 0.5 degrees.
+22. tools: the host runtime and the utilities, under a minute. The
+    native engine (``engine="native"``, g++-built) over the serve phase's
+    100,000 rows, 256 queries host-timed, its indices equal to the exact
+    engine's on the card but at near ties; ``write_ang`` and ``write_ctf``
+    of 262,144 points through the native formatter and the Python loop,
+    byte-equal, each timed; one ``IndexPipeline`` call of 512 patterns
+    under ``utils.trace``, read back by ``utils.summarize_trace`` (its
+    kernel and copy total within 2% of the profiler's own sum, the
+    InstanceNorm and top-k kernels named among its ops); ``get_platform()``
+    is ``"gpu"`` and ``PhaseTimer(sync=True)`` times one encode.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -201,9 +222,13 @@ represents exactly.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import importlib.util
 import io
 import json
+import logging
+import os
 import shutil
 import subprocess
 import sys
@@ -253,6 +278,8 @@ AUGMENT_ATOL = 1e-6  # the augmentation's application, card against CPU on the s
 # the difference of two remat=none steps plus REMAT_RTOL, both over the
 # leaf's largest |gradient| (a wrong recompute is off by O(1)).
 REMAT_RTOL = 1e-3
+EXPORT_ROWS = 262_144  # a 512x512 map through write_ang and write_ctf
+FUSED_ATOL = 5e-5  # fused against materialized decoder, f32: tests/models/test_fused_upsample.py
 K2_ATOL = 1e-4  # reduction order differs from the plain twin's
 K2_BF16_ATOL = 1e-2  # bf16 outputs: 1e-2 plus one bf16 ulp of the value (K2_BF16_RTOL),
 K2_BF16_RTOL = 2.0**-7  # since kernel and twin may round an f32 value near a tie apart
@@ -1656,7 +1683,7 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
     counters = (instance_norm_leaky_relu, cosine_topk_fused)
     try:
         health = _request(f"{url}/healthz")
-        if health["count"] != DICT_ROWS or health["platform"] != "cuda":
+        if health["count"] != DICT_ROWS or health["platform"] != "gpu":
             raise AssertionError(f"bad /healthz: {health}")
         for fn in counters:
             fn.launches = 0
@@ -2089,6 +2116,163 @@ def phase_engines(ckpt: str, npz: str) -> dict:
                   "from a trace of 5 calls; host_ms CUDA events over 20 calls from an idle "
                   "stream (host-paced)")
     return totals
+
+
+def _dense_result(n: int, seed: int):
+    """A seeded `DenseIndexResult` of ``n`` points: 10% failures (half of
+    them NaN angles), two phases, scores best first."""
+    from latice_tpu_torch.index import DenseIndexResult
+
+    rng = np.random.default_rng(seed)
+    success = rng.uniform(size=n) > 0.1
+    best = rng.uniform(0, 360, (n, 3))
+    best[~success & (rng.uniform(size=n) > 0.5)] = np.nan
+    return DenseIndexResult(
+        mean_orientation=np.where(success[:, None], best, np.nan), best_orientation=best,
+        success=success, n_similar=rng.integers(0, TOP_N + 1, n),
+        indices=rng.integers(0, DICT_ROWS, (n, 5)),
+        scores=np.sort(rng.uniform(0.4, 1.0, (n, 5)), axis=1)[:, ::-1],
+        phase=rng.integers(0, 2, n))
+
+
+def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
+    """The host runtime and the utilities around the main path.
+
+    1. The native engine: ``TorchLatentVectorDatabase(engine="native")``
+       over the serve phase's 100,000 x 16 dictionary, 256 near-duplicate
+       queries, host-timed; its indices equal ``engine="device"``'s (exact,
+       on the card) except rows with two of their first k+1 scores within
+       `NEAR_TIE`.
+    2. Export: `write_ang` and `write_ctf` of `EXPORT_ROWS` points through
+       the native formatter and through the Python loop, byte-equal, each
+       timed.
+    3. The trace reader: one `IndexPipeline` call of 512 patterns (the
+       serve CLI's service, fused engine) under `utils.trace`; the
+       summary's kernel and copy total within 2% of `_device_kernels`' sum
+       for the same capture, K2f and K1 named among its ops with their
+       launch counts. The launches of that call are this path's.
+    4. `get_platform()` is ``"gpu"``; `PhaseTimer(sync=True)` around one
+       encode of 256 patterns, against CUDA events.
+    """
+    from unittest import mock
+
+    from latice_tpu_torch import native
+    from latice_tpu_torch.data import write_ang, write_ctf
+    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.utils import PhaseTimer, get_platform, summarize_trace, trace
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # 1. The native engine over the serve phase's dictionary.
+    if not native.available():
+        raise AssertionError("the native library did not build (g++)")
+    dbs = {engine: TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT, engine=engine), device="cuda")
+        for engine in ("native", "device")}
+    vecs = dbs["native"]._vectors
+    rng = np.random.default_rng(13)
+    q = (vecs[rng.choice(len(vecs), BATCH, replace=False)]
+         + 0.05 * rng.normal(size=(BATCH, LATENT))).astype(np.float32)
+    got = dbs["native"].query_similar_batch(q, TOP_N)
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dbs["native"].query_similar_batch(q, TOP_N)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    want = dbs["device"].query_similar_batch(q, TOP_N)
+    head = dbs["device"].query_similar_batch(q, TOP_N + 1)[0]
+    near = (head[:, :-1] - head[:, 1:] <= NEAR_TIE).any(axis=1)
+    differ = (got[1] != want[1]).any(axis=1)
+    if (differ & ~near).any():
+        raise AssertionError(f"native engine: {int((differ & ~near).sum())} rows differ from "
+                             "exact without a near tie")
+    score_err = float(np.abs(got[0] - want[0]).max())
+    out["native_engine"] = dict(
+        rows=len(vecs), queries=BATCH, k=TOP_N, host_ms_per_256=float(np.median(host_ms)),
+        host_ms_runs=host_ms, rows_differing=int(differ.sum()), near_tie_rows=int(near.sum()),
+        score_max_abs_err=score_err, library=native.build().name, cpu_threads=os.cpu_count())
+    del dbs
+
+    # 2. Export: native rows against the Python loop.
+    result = _dense_result(EXPORT_ROWS, seed=14)
+    grid = (EXPORT_ROWS // 512, 512)
+    export = {}
+    for writer, fmt in ((write_ang, "format_ang_rows_native"), (write_ctf, "format_ctf_rows_native")):
+        suffix = writer.__name__[-3:]
+        paths = {k: f"{workdir}/tools_{k}.{suffix}" for k in ("native", "python")}
+        t0 = time.perf_counter()
+        writer(paths["native"], result, grid=grid)
+        native_s = time.perf_counter() - t0
+        with mock.patch.object(native, fmt, side_effect=ImportError("the Python loop")):
+            t0 = time.perf_counter()
+            writer(paths["python"], result, grid=grid)
+            python_s = time.perf_counter() - t0
+        body = {k: Path(v).read_bytes() for k, v in paths.items()}
+        if body["native"] != body["python"]:
+            raise AssertionError(f"{suffix}: native and Python rows differ")
+        export[suffix] = dict(native_s=native_s, python_s=python_s, bytes=len(body["native"]),
+                              byte_equal=True)
+    out["export"] = dict(rows=EXPORT_ROWS, **export)
+
+    # 3. The trace reader on one traced IndexPipeline call.
+    service = _cli_service(ckpt, npz, "cuda", BATCH)
+    x = np.random.default_rng(15).integers(0, 256, (2 * BATCH, 128, 128), dtype=np.uint8)
+    service.pipeline(x)
+    torch.cuda.synchronize()
+    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    for fn in counters:
+        fn.launches = 0
+    trace_dir = Path(workdir) / "tools_trace"
+    with trace(trace_dir, "index") as prof:
+        service.pipeline(x)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    profiler_ms = sum(t for _, t, _ in _device_kernels(prof))
+    summary = summarize_trace(str(trace_dir), category=("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels_only = summarize_trace(str(trace_dir))
+    rel = abs(summary.total_ms - profiler_ms) / profiler_ms
+    named = {}
+    for fn, marks in ((instance_norm_leaky_relu, ("instance_norm_lrelu",)),
+                      (cosine_topk_fused, ("topk_partial", "topk_merge"))):
+        ops = [(rank, op) for rank, op in enumerate(kernels_only.ops) if any(
+            m in op.name for m in marks)]
+        if not ops:
+            raise AssertionError(f"the trace summary names no kernel of {fn.__name__}")
+        named[fn.__name__] = dict(ranks=[r for r, _ in ops], calls=[op.count for _, op in ops],
+                                  ms=sum(op.total_ms for _, op in ops))
+    if not rel <= 0.02:
+        raise AssertionError(f"trace summary {summary.total_ms} ms vs profiler {profiler_ms} ms")
+    if named["instance_norm_leaky_relu"]["calls"] != [launches["instance_norm_leaky_relu"]]:
+        raise AssertionError(f"K2f calls in the trace {named} vs launches {launches}")
+    out["trace"] = dict(patterns=len(x), summary_ms=summary.total_ms, kernels_ms=kernels_only.total_ms,
+                        profiler_ms=profiler_ms, rel_diff=rel, ops=len(kernels_only.ops),
+                        named=named, top=[dict(kernel=op.name[:80], ms=op.total_ms, calls=op.count)
+                                          for op in kernels_only.ops[:5]])
+
+    # 4. Devices and timers.
+    platform = get_platform()
+    if platform != "gpu":
+        raise AssertionError(f"get_platform() = {platform!r} on the card")
+    timer = PhaseTimer(sync=True)
+    xb = torch.from_numpy(x[:BATCH, None].astype(np.float32) / 255.0).cuda()
+    model = service.pipeline.model
+    with torch.inference_mode():
+        model.encode(xb)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timer.phase("encode"):
+            start.record()
+            model.encode(xb)
+            end.record()
+    report = timer.report()
+    event_s = start.elapsed_time(end) / 1e3
+    if not report["encode/total_s"] >= event_s:
+        raise AssertionError(f"PhaseTimer {report} ended before the device's {event_s} s")
+    out["devices"] = dict(platform=platform, phase_timer=report, encode_events_s=event_s)
+    del service
+    torch.cuda.empty_cache()
+    emit("tools", **out, launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def _rel_dist(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -4476,13 +4660,23 @@ def phase_train(workdir: str, smi: str) -> tuple[dict, torch.nn.Module]:
         raise AssertionError(f"conf defaults are not the full-width run: {used}")
 
     counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward)
+    bar_stream, figure_log = io.StringIO(), _Captured("latice_tpu_torch.train.trainer")
+    rich_installed = importlib.util.find_spec("rich") is not None
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    trainer, model = train(config, device="cuda")
+    # rich draws nothing on a stream that is not a terminal; hidden, the
+    # bar draws its plain line, which the phase reads back.
+    with contextlib.redirect_stderr(bar_stream), figure_log, _hidden("rich"):
+        trainer, model = train(config, device="cuda")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    if not model.decoder.fuse_upsample:
+        raise AssertionError("the trained decoder is not the fused one (the default)")
+    bar = dict(_bar_lines(bar_stream.getvalue(), trainer.steps_run, 2),
+               rich_installed=rich_installed)
+    figure = _figure_outcome(root / "logs", figure_log.messages, 2)
 
     n_train, n_val = trainer.steps_run["train"], trainer.steps_run["val"]
     if (n_train, n_val) != (20, 4):
@@ -4522,8 +4716,79 @@ def phase_train(workdir: str, smi: str) -> tuple[dict, torch.nn.Module]:
          history=trainer.history, checkpoints=kept, checkpoint_encode_max_abs_err=ckpt_err,
          epoch2_train_steps_per_s=(n_train // 2) / last["epoch_time_s"],
          epoch2_patterns_per_s=n_rows / last["epoch_time_s"],
-         timed_as="epoch 2's wall clock, its 2 eval steps included", card=smi)
+         timed_as="epoch 2's wall clock, its 2 eval steps included",
+         decoder="fused", progress_bar=bar, reconstruction_figure=figure, card=smi)
     return launches, model
+
+
+class _Captured(logging.Handler):
+    """The messages one logger emits inside the block."""
+
+    def __init__(self, name: str) -> None:
+        super().__init__(logging.INFO)
+        self.target, self.messages = logging.getLogger(name), []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.target.level
+        self.target.setLevel(logging.INFO)
+        self.target.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.target.removeHandler(self)
+        self.target.setLevel(self.level)
+
+
+@contextlib.contextmanager
+def _hidden(package: str):
+    """``package`` cannot be imported inside the block."""
+    saved = {n: m for n, m in sys.modules.items()
+             if n == package or n.startswith(package + ".")}
+    hidden = set(saved) | {package}
+    sys.modules.update(dict.fromkeys(hidden))
+    try:
+        yield
+    finally:
+        for n in hidden:
+            del sys.modules[n]
+        sys.modules.update(saved)
+
+
+def _bar_lines(text: str, steps_run: dict, epochs: int) -> dict:
+    """The trainer's plain progress bar, read from its stderr: each epoch's
+    last state, printed on stderr as one line per epoch. Held: every epoch
+    drew its train and val steps."""
+    states = [t.strip() for t in text.split("\r") if t.strip()]
+    train_steps = steps_run["train"] // epochs
+    lines = []
+    for epoch in range(epochs):
+        train = [t for t in states if t.startswith(f"epoch {epoch} train: ")]
+        val = [t for t in states if t.startswith(f"epoch {epoch} val: ")]
+        if not (train and val and train[-1].startswith(
+                f"epoch {epoch} train: {train_steps}/{train_steps} ")):
+            raise AssertionError(f"progress bar of epoch {epoch}: {train[-1:]} {val[-1:]}")
+        lines.append(f"{train[-1]} | {val[-1][len(f'epoch {epoch} '):]}")
+    for line in lines:
+        print(line, file=sys.stderr, flush=True)
+    return dict(lines=lines, bytes=len(text))
+
+
+def _figure_outcome(log_dir: Path, messages: list[str], epochs: int) -> str:
+    """What became of the reconstruction figure, as the logger shows it: the
+    images the CSV logger wrote, or the trainer's warning when matplotlib is
+    absent. Anything else fails."""
+    images = sorted(p.name for p in (log_dir / "images").glob("reconstruction_eval_check_*"))
+    failed = [m for m in messages if m.startswith("Reconstruction figure logging failed")]
+    if len(images) == epochs and not failed:
+        return f"logged: {', '.join(images)}"
+    if (not images and len(failed) == epochs
+            and importlib.util.find_spec("matplotlib") is None
+            and all("matplotlib" in m for m in failed)):
+        return "skipped: matplotlib absent"
+    raise AssertionError(f"reconstruction figure: images {images}, warnings {failed}")
 
 
 def _one_step_grads(model, x: torch.Tensor, eps: torch.Tensor, loss_fn) -> tuple[dict, int, int]:
@@ -4769,6 +5034,7 @@ def phase_train_parity() -> None:
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     dead = [k for k in g_gpu if k.startswith("encoder.") and k.endswith(".weight")
             and not bool(g_gpu[k].abs().max() > 0)]
+    fused = _fused_vs_materialized(state)
     emit("train_parity", patterns=n, loss_cpu=l_cpu, loss_cuda=l_gpu, loss_rel_err=loss_rel,
          grad_ratio=GRAD_RATIO, grad_floor=GRAD_FLOOR,
          max_share_of_limit=share[worst], worst_leaf=worst,
@@ -4781,7 +5047,8 @@ def phase_train_parity() -> None:
          leaves={k: dict(scale=g_ref[k].abs().max().item(), card=card[k], cpu=cpu[k],
                          wrong_k2b=wrong[k]) for k in held},
          conv_flags_seen=sorted(seen), encoder_weights_with_grad=sum(1 for k in g_gpu if k.startswith("encoder.")
-                                       and k.endswith(".weight")) - len(dead))
+                                       and k.endswith(".weight")) - len(dead),
+         fused_vs_materialized_decoder=fused)
     if not loss_rel <= 1e-5:
         raise AssertionError(f"train step loss: card {l_gpu}, CPU {l_cpu}")
     if not share[worst] <= 1.0:
@@ -4790,6 +5057,44 @@ def phase_train_parity() -> None:
         raise AssertionError("a norm backward without its mean terms passes the gradient check")
     if dead:
         raise AssertionError(f"encoder conv weights without a gradient on the card: {dead}")
+    if not fused["output_max_abs_err"] <= FUSED_ATOL:
+        raise AssertionError(f"fused decoder output from the materialized one: {fused}")
+    if not fused["grad_max_abs_err"] <= FUSED_ATOL:
+        raise AssertionError(f"fused decoder gradients from the materialized ones: {fused}")
+
+
+def _fused_vs_materialized(state: dict) -> dict:
+    """The fused decoder (the default) against the materialized one on the
+    card, from the same weights and input, in float32 with TF32 off: the
+    output's and every parameter's gradient's (of ``mean(x_hat ** 2)``)
+    largest distance, each held to `FUSED_ATOL`, the bound of
+    tests/models/test_fused_upsample.py, by the caller."""
+    from latice_tpu_torch.device import no_tf32
+    from latice_tpu_torch.models.vae import Decoder
+
+    dec_state = {k[len("decoder."):]: v for k, v in state.items() if k.startswith("decoder.")}
+    h = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(TRAIN_BATCH, 4 * INPLANES, 4, 4)).astype(np.float32)).cuda()
+    runs = {}
+    for fuse in (True, False):
+        dec = Decoder(INPLANES, fuse_upsample=fuse)
+        if dec.fuse_upsample != fuse:
+            raise AssertionError("LATICE_TPU_FUSED_UPSAMPLE is set around train_parity")
+        dec.load_state_dict(dec_state)
+        dec.cuda()
+        with no_tf32():
+            y = dec(h)
+            (y**2).mean().backward()
+        runs[fuse] = (y.detach(), {n: p.grad for n, p in dec.named_parameters()})
+    (y_f, g_f), (y_m, g_m) = runs[True], runs[False]
+    out_err = (y_f - y_m).abs().max().item()
+    grad_err = {n: (g_f[n] - g_m[n]).abs().max().item() for n in g_m}
+    worst = max(grad_err, key=grad_err.get)
+    return dict(batch=TRAIN_BATCH, dtype="float32", tf32=False, atol=FUSED_ATOL,
+                output_max_abs_err=out_err, output_scale=y_m.abs().max().item(),
+                grad_max_abs_err=grad_err[worst], worst_leaf=worst,
+                grad_scale=max(g.abs().max().item() for g in g_m.values()),
+                leaves=len(grad_err))
 
 
 def _phase_of(evt) -> str:
@@ -4805,9 +5110,62 @@ def _phase_of(evt) -> str:
 
 
 def phase_train_profile(model) -> None:
-    """Where the device time of 3 steady train steps goes (B=64, 16-mixed):
-    the trainer's own epoch loop (prefetch, step, metric reads) over 3
-    batches, after 3 warm-up batches."""
+    """Where the device time of 3 steady train steps goes (B=64, 16-mixed),
+    with the fused decoder (the default, ``model``'s) and with the
+    materialized one (``LATICE_TPU_FUSED_UPSAMPLE=0``) from the same
+    weights, in turns (fused, materialized, materialized, fused): one
+    `_train_profile` line each."""
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+
+    os.environ["LATICE_TPU_FUSED_UPSAMPLE"] = "0"
+    try:
+        plain = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    finally:
+        del os.environ["LATICE_TPU_FUSED_UPSAMPLE"]
+    if plain.decoder.fuse_upsample or not model.decoder.fuse_upsample:
+        raise AssertionError("the two decoders are not fused and materialized")
+    plain.load_state_dict(model.state_dict())
+    models = {"fused": model, "materialized": plain.cuda()}
+    for decoder in ("fused", "materialized", "materialized", "fused"):
+        _train_profile(models[decoder], decoder)
+    _train_wall(models)
+
+
+def _train_wall(models: dict, pairs: int = 10, steps: int = 10) -> None:
+    """Wall ms per step of the trainer's epoch loop with each decoder and
+    no profiler: `pairs` pairs of `steps` steps (B=64, 16-mixed), the two
+    decoders taking turns at going first. Reported: each decoder's median
+    and quartiles, and the pairs the fused decoder won."""
+    from latice_tpu_torch.train import Trainer, VAELoss, make_optimizer, make_train_step
+
+    trainer = Trainer(precision="16-mixed", device="cuda")
+    patterns = _synthetic_patterns(steps * TRAIN_BATCH, seed=10)[..., None]
+    batches = [(patterns[i : i + TRAIN_BATCH], None) for i in range(0, len(patterns), TRAIN_BATCH)]
+    runs = {}
+    for name, model in models.items():
+        model.set_precision("16-mixed")
+        runs[name] = (model, make_optimizer(model.parameters()),
+                      make_train_step(VAELoss(kl_lambda=5e-6)))
+        trainer.train_epoch(*runs[name], batches[:3], TRAIN_BATCH, 0)
+    ms = {name: [] for name in models}
+    order = list(models)
+    for i in range(pairs):
+        for name in order if i % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_epoch(*runs[name], batches, TRAIN_BATCH, 0)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    emit("train_step_wall", pairs=pairs, steps=steps, batch=TRAIN_BATCH, ms_per_step=ms,
+         median={k: float(np.median(v)) for k, v in ms.items()},
+         quartiles={k: [float(q) for q in np.percentile(v, [25, 75])] for k, v in ms.items()},
+         fused_won=sum(f < m for f, m in zip(ms["fused"], ms["materialized"])),
+         timed_as="host clock around Trainer.train_epoch of 10 batches, synchronized")
+
+
+def _train_profile(model, decoder: str) -> None:
+    """The trainer's own epoch loop (prefetch, step, metric reads) over 3
+    batches, after 3 warm-up batches, traced."""
     from torch.profiler import ProfilerActivity, profile
 
     from latice_tpu_torch.train import Trainer, VAELoss, make_optimizer, make_train_step
@@ -4842,8 +5200,14 @@ def phase_train_profile(model) -> None:
     busy = sum(by_name.values())
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     host_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
-    emit("train_profile", steps=3, batch=TRAIN_BATCH, wall_ms=wall_ms,
-         ms_per_step=wall_ms / 3, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+    per_step = {k: v / 3 for k, v in by_part.items()}
+    emit("train_profile", decoder=decoder, steps=3, batch=TRAIN_BATCH, wall_ms=wall_ms,
+         ms_per_step=wall_ms / 3, device_busy_ms=busy, device_busy_ms_per_step=busy / 3,
+         idle_share=1.0 - busy / wall_ms,
+         upsample_ms_per_step=by_name.get("upsample", 0.0) / 3,
+         convolution_forward_ms_per_step=per_step.get("convolution (forward)", 0.0),
+         convolution_backward_ms_per_step=per_step.get("convolution (backward)", 0.0),
+         device_launches_per_step=sum(c for _, _, c in kernels) / 3,
          device_ms_by_kernel=by_name, device_ms_by_part=by_part,
          top=[dict(kernel=n[:100], ms=t, calls=c) for n, t, c in top],
          host_top=[dict(op=e.key[:80], self_cpu_ms=e.self_cpu_time_total / 1e3, calls=e.count)
@@ -4900,6 +5264,7 @@ def main() -> int:
         cli_launches = phase_index_cli(workdir, ckpt)
         preprocess_launches = phase_preprocess(workdir, ckpt)
         torch.cuda.empty_cache()
+        tools_launches = phase_tools(workdir, ckpt, npz)
         dictionary_launches = phase_dictionary(workdir, ckpt, smi)
         torch.cuda.empty_cache()
         bands_launches = phase_bands(workdir, ckpt, smi)
@@ -4925,6 +5290,7 @@ def main() -> int:
         "stage0_path": stage0_launches,
         "index_cli": {k: v for k, v in cli_launches.items() if k != "stage0_fused"},
         "preprocess": preprocess_launches,
+        "tools": tools_launches,
         "dictionary": dictionary_launches,
         "bands": bands_launches,
         "sphere": sphere_launches,

@@ -45,6 +45,7 @@ from latice_tpu_torch.data.up import (
 )
 from latice_tpu_torch.data.transforms import (
     center_crop,
+    create_default_transform,
     default_transform,
     prepare_patterns,
     to_grayscale,
@@ -66,6 +67,7 @@ __all__ = [
     "bin_patterns",
     "butterfly_kernel",
     "center_crop",
+    "create_default_transform",
     "default_transform",
     "equalize_histogram",
     "estimate_noise_sigma",

@@ -2,8 +2,9 @@
 
 The port of ``latice_tpu.data.dataset`` (reference latice/data_module.py:
 36-133): the whole stack is transformed once at load time and served as
-NHWC float32 slices. The angle file is parsed in Python only; the JAX
-package's native C++ parser is not bridged here.
+NHWC float32 slices. Angle files go through the native C++ parser
+(`latice_tpu_torch.native`) where g++ can build it, and through the Python
+parser otherwise; both give the same array.
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ def parse_angle_file(path: str | Path) -> np.ndarray:
         if rows.shape[1] < 3:
             raise ValueError(f"expected >=3 columns in .ang file, got {rows.shape[1]}")
         return np.degrees(rows[:, :3]).astype(np.float64)
+    from latice_tpu_torch import native
+
+    # The first-party C++ parser when g++ builds it (the same contract: a
+    # missing or malformed file raises there too); else Python.
+    if native.available():
+        return native.parse_angle_file_native(path)
     try:
         with open(path) as f:
             lines = f.readlines()[2:]

@@ -3,8 +3,9 @@
 The port's own copy of ``latice_tpu.data.export`` (numpy only): TSL/OIM
 ``.ang`` and Oxford Channel Text ``.ctf`` writers for a `DenseIndexResult`,
 and readers for both. The files are those the JAX package writes, byte for
-byte; rows are formatted in Python (the JAX package's native formatter is
-not bridged, its Python path writes the same bytes).
+byte; rows are formatted by the native C++ formatter
+(`latice_tpu_torch.native`) where g++ can build it, else by the Python
+loop, which writes the same bytes.
 
 Angle convention: the stored zxz Euler triplets are written verbatim
 (radians in ``.ang``, degrees in ``.ctf``). Unindexed points follow each
@@ -160,7 +161,17 @@ def write_ang(
 
 
 def _ang_rows(euler_rad, x, y, iq, ci, phase1, n_similar) -> str:
-    """Data rows of `write_ang`."""
+    """Data rows of `write_ang`: the native formatter, or the Python loop
+    without a toolchain or where a row outgrows the native buffer."""
+    try:
+        from latice_tpu_torch import native
+
+        return native.format_ang_rows_native(euler_rad, x, y, iq, ci, phase1, n_similar)
+    except (ImportError, ValueError):
+        return _ang_rows_python(euler_rad, x, y, iq, ci, phase1, n_similar)
+
+
+def _ang_rows_python(euler_rad, x, y, iq, ci, phase1, n_similar) -> str:
     return "".join(
         f"  {euler_rad[i, 0]:.5f}  {euler_rad[i, 1]:.5f}"
         f"  {euler_rad[i, 2]:.5f}  {x[i]:.5f}  {y[i]:.5f}"
@@ -252,7 +263,16 @@ def write_ctf(
 
 
 def _ctf_rows(phase, x, y, bands, err, euler_deg, mad) -> str:
-    """Data rows of `write_ctf`."""
+    """Data rows of `write_ctf`, native or Python as `_ang_rows`."""
+    try:
+        from latice_tpu_torch import native
+
+        return native.format_ctf_rows_native(phase, x, y, bands, err, euler_deg, mad)
+    except (ImportError, ValueError):
+        return _ctf_rows_python(phase, x, y, bands, err, euler_deg, mad)
+
+
+def _ctf_rows_python(phase, x, y, bands, err, euler_deg, mad) -> str:
     return "".join(
         f"{int(phase[i])}\t{x[i]:.4f}\t{y[i]:.4f}\t{int(bands[i])}"
         f"\t{int(err[i])}\t{euler_deg[i, 0]:.4f}\t{euler_deg[i, 1]:.4f}"

@@ -14,7 +14,13 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["to_grayscale", "center_crop", "default_transform", "prepare_patterns"]
+__all__ = [
+    "to_grayscale",
+    "center_crop",
+    "default_transform",
+    "create_default_transform",
+    "prepare_patterns",
+]
 
 _LUMA = np.asarray([0.299, 0.587, 0.114], dtype=np.float32)
 
@@ -94,3 +100,13 @@ def prepare_patterns(
     if x.shape[1:] != tuple(image_size):
         x = default_transform(x, image_size)[..., 0]
     return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def create_default_transform(image_size: tuple[int, int]):
+    """`default_transform` at ``image_size`` as a one-argument callable, the
+    reference's factory name (data_module.py:17-33)."""
+
+    def transform(patterns: np.ndarray) -> np.ndarray:
+        return default_transform(patterns, image_size)
+
+    return transform

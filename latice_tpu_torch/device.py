@@ -7,7 +7,7 @@ import contextlib
 
 import torch
 
-__all__ = ["full_f32_matmul", "no_tf32", "resolve_device"]
+__all__ = ["full_f32_matmul", "no_onednn", "no_tf32", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -44,6 +44,25 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def no_onednn():
+    """ATen's own CPU convolution kernels inside the block, not oneDNN's.
+
+    oneDNN's strided transposed convolution blocks its work over the batch,
+    so one row's output moves by float32 rounding with the rows beside it
+    (a masked pad row then changes the real rows' gradients); ATen's kernel
+    computes each row alone, as oneDNN's stride-1 kernels do.
+    ``torch.backends.mkldnn.enabled`` is False inside and restored on exit.
+    Process-wide, like `no_tf32`.
+    """
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
 
 
 @contextlib.contextmanager

@@ -3,7 +3,11 @@ indexer around it, pattern-space dictionary indexing, band-based (Hough)
 indexing and dictionary-free spherical-harmonic indexing."""
 
 from latice_tpu_torch.index.chroma_db import ChromaLatentVectorDatabase
-from latice_tpu_torch.index.consensus import ConsensusOutput, consensus_orientations
+from latice_tpu_torch.index.consensus import (
+    ConsensusOutput,
+    consensus_from_euler,
+    consensus_orientations,
+)
 from latice_tpu_torch.index.db import (
     LatentVectorDatabaseBase,
     LatentVectorDatabaseConfig,
@@ -78,6 +82,7 @@ __all__ = [
     "build_pattern_dictionary",
     "candidate_ambiguity",
     "concat_dense_results",
+    "consensus_from_euler",
     "consensus_orientations",
     "cosine_topk",
     "cosine_topk_approx",

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from latice_tpu_torch.crystal import (
+    from_euler_zxz_deg,
     misorientation_angle,
     nearest_symmetry_equivalent,
     quat_mean,
@@ -30,7 +31,7 @@ from latice_tpu_torch.crystal import (
     to_euler_zxz_deg,
 )
 
-__all__ = ["ConsensusOutput", "consensus_orientations"]
+__all__ = ["ConsensusOutput", "consensus_orientations", "consensus_from_euler"]
 
 _DEG = 180.0 / torch.pi
 
@@ -136,4 +137,22 @@ def consensus_orientations(
         chosen_iter=torch.where(success, first_ok, torch.zeros_like(first_ok)),
         misorientation_deg=mis_chosen_rad * _DEG,
         phase=phase,
+    )
+
+
+def consensus_from_euler(
+    cand_euler_deg: torch.Tensor,
+    orientation_threshold: float,
+    min_required_matches: int = 18,
+    max_iterations: int = 3,
+    angle_unit: str = "deg",
+) -> ConsensusOutput:
+    """`consensus_orientations` of ``(B, K, 3)`` zxz Euler degrees, on
+    their device."""
+    return consensus_orientations(
+        from_euler_zxz_deg(cand_euler_deg),
+        orientation_threshold,
+        min_required_matches=min_required_matches,
+        max_iterations=max_iterations,
+        angle_unit=angle_unit,
     )

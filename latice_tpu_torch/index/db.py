@@ -47,8 +47,7 @@ __all__ = [
     "parse_faiss_flat_blob",
 ]
 
-_ENGINES = ("device", "fused", "approx", "int8")
-_LATER_ENGINES = ("native",)
+_ENGINES = ("device", "fused", "approx", "int8", "native")
 
 
 def _l2_normalize_np(vectors: np.ndarray) -> np.ndarray:
@@ -142,9 +141,10 @@ class LatentVectorDatabaseConfig:
         engine: "device" (exact: matmul and top-k, `index.knn.cosine_topk`),
             "fused" (the CUDA top-k kernel on the card, its plain twin on
             the CPU), "approx" (`index.knn.cosine_topk_approx`, recall
-            target 0.95) or "int8" (`index.knn.cosine_topk_int8` over the
-            dictionary quantized once and cached). "native" raises until a
-            later slice of the port brings it.
+            target 0.95), "int8" (`index.knn.cosine_topk_int8` over the
+            dictionary quantized once and cached) or "native" (the host
+            C++ engine, `native.cosine_topk_native`; ``ImportError`` when
+            the library cannot be built).
         phase_symmetries: point-group names, one per phase id of a
             multi-phase dictionary (cubic "432" for every phase when None).
     """
@@ -174,11 +174,6 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         device: str | torch.device | None = None,
     ) -> None:
         self.config = config if config is not None else LatentVectorDatabaseConfig()
-        if self.config.engine in _LATER_ENGINES:
-            raise ValueError(
-                f"engine={self.config.engine!r} is not ported to latice_tpu_torch yet; "
-                "it waits for a later slice"
-            )
         if self.config.engine not in _ENGINES:
             raise ValueError(f"unknown engine {self.config.engine!r}")
         self.dimension = self.config.dimension
@@ -310,10 +305,16 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
 
     @torch.inference_mode()
     def _topk(self, queries: np.ndarray, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device top-k of host queries with the configured engine."""
+        """Top-k of host queries with the configured engine: on the device,
+        or on the host CPU for ``native``."""
+        engine = self.config.engine
+        if engine == "native":
+            from latice_tpu_torch.native import cosine_topk_native
+
+            scores, indices = cosine_topk_native(queries, self._vectors, k)
+            return torch.from_numpy(scores), torch.from_numpy(indices)
         vectors, _ = self._device_arrays()
         q = torch.as_tensor(queries, device=vectors.device).contiguous()
-        engine = self.config.engine
         if engine == "fused":
             return cosine_topk_fused(q, vectors, k)
         if engine == "approx":
@@ -332,6 +333,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         _, quats = self._device_arrays()
         k = min(top_n, self.get_count())
         scores, indices = self._topk(queries, k)
+        indices = indices.to(quats.device)
         indices_np = indices.cpu().numpy()
         cand_phases, sym_tables = self._phase_args(indices_np)
         cons = consensus_orientations(

@@ -14,6 +14,11 @@ so a reference ``vae-best.pt`` loads straight in:
 * decoder: Linear to the bottleneck, then per stage nearest-2x upsample
   (index ``3s``) and two ConvTranspose3x3 blocks (``3s+1``, ``3s+2``); the
   last stage is the upsample, one block and the logit conv, no sigmoid.
+  With ``fuse_upsample`` (the default, as in the JAX decoder; the
+  environment's ``LATICE_TPU_FUSED_UPSAMPLE=0`` turns it off) each
+  upsample folds into the next block's convolution, one stride-2
+  transposed convolution over a composed 4x4 kernel, and slot ``3s`` holds
+  a module without parameters, so the state-dict keys do not change.
 
 Each InstanceNorm + LeakyReLU is `ops.InstanceNormLeakyReLUFunction`: the
 fused CUDA kernels forward and backward on the card, their plain torch
@@ -36,13 +41,16 @@ encoder and decoder under bfloat16 autocast with float32 parameters, and
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from latice_tpu_torch.device import no_tf32
+from latice_tpu_torch.device import no_onednn, no_tf32
 from latice_tpu_torch.ops.fused_norm import InstanceNormLeakyReLUFunction
 
 __all__ = [
@@ -83,13 +91,40 @@ class ConvBlock(nn.Sequential):
         super().__init__(nn.Conv2d(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU())
 
 
-class ConvTransposeBlock(nn.Sequential):
-    """ConvTranspose3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02)."""
+class _FusedUpsampleConvTranspose2d(nn.ConvTranspose2d):
+    """Nearest-2x upsample + ConvTranspose3x3(stride 1, pad 1) as one
+    stride-2 transposed convolution (the JAX ``_FusedUpsampleConvTranspose``).
 
-    def __init__(self, in_channels: int, out_channels: int) -> None:
-        super().__init__(
-            nn.ConvTranspose2d(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU()
-        )
+    Nearest duplication is zero insertion followed by a 2x2 window of ones,
+    so the 3x3 kernel correlated with that window is one 4x4 kernel,
+    ``K4[e, f] = sum_{s,t in {0,1}} K[e-s, f-t]``, applied at stride 2: the
+    4x-size upsampled input is never made and the convolution does 2.25x
+    fewer multiplies. The kernel is composed in the parameter's dtype,
+    before autocast casts it. Parameters are the plain layer's. On the CPU
+    it runs ATen's kernel (`device.no_onednn`), which computes each row of
+    the batch alone.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wp = F.pad(self.weight, (0, 1, 0, 1))
+        w4 = wp + wp.roll(1, 2) + wp.roll(1, 3) + wp.roll(1, 2).roll(1, 3)
+        with no_onednn() if x.device.type == "cpu" else contextlib.nullcontext():
+            return F.conv_transpose2d(x, w4, self.bias, stride=2, padding=1)
+
+
+class _FoldedUpsample(nn.Identity):
+    """The slot of a nearest-2x upsample that the next block's convolution
+    has folded in; it keeps the decoder's module indices."""
+
+
+class ConvTransposeBlock(nn.Sequential):
+    """ConvTranspose3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02);
+    with ``pre_upsample``, a nearest-2x upsample folded into the
+    convolution first."""
+
+    def __init__(self, in_channels: int, out_channels: int, pre_upsample: bool = False) -> None:
+        conv = _FusedUpsampleConvTranspose2d if pre_upsample else nn.ConvTranspose2d
+        super().__init__(conv(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU())
 
 
 REMAT_MODES = ("none", "block", "stage")
@@ -163,28 +198,46 @@ class Encoder(_Stack):
 class Decoder(nn.Sequential):
     """Upsampling decoder, 4P channels in, one logit channel out; ``remat``
     as in the module docstring (the last stage, one block and the logit
-    conv, is never checkpointed whole, as in the JAX decoder)."""
+    conv, is never checkpointed whole, as in the JAX decoder).
 
-    def __init__(self, inplanes: int = 32, n_stages: int = 5, remat: str = "none") -> None:
+    ``fuse_upsample`` folds each upsample into the next block's convolution
+    (`_FusedUpsampleConvTranspose2d`); ``LATICE_TPU_FUSED_UPSAMPLE``, when
+    set, overrides it (``1`` fuses, anything else materializes), read when
+    the decoder is built. With ``remat="block"`` the checkpointed fused
+    block holds its upsample, as JAX's ``nn.remat(ConvTransposeBlock)``
+    with ``pre_upsample`` does.
+    """
+
+    def __init__(
+        self, inplanes: int = 32, n_stages: int = 5, remat: str = "none",
+        fuse_upsample: bool = True,
+    ) -> None:
+        env = os.environ.get("LATICE_TPU_FUSED_UPSAMPLE")
+        fuse = fuse_upsample if env is None else env == "1"
         p = inplanes
         stages = [(4 * p, 4 * p)] * (n_stages - 3) + [(4 * p, 2 * p), (2 * p, p)]
+
+        def upsample() -> nn.Module:
+            return _FoldedUpsample() if fuse else nn.Upsample(scale_factor=2, mode="nearest")
+
         layers: list[nn.Module] = []
         c_in = 4 * p
         for c1, c2 in stages:
             layers += [
-                nn.Upsample(scale_factor=2, mode="nearest"),
-                ConvTransposeBlock(c_in, c1),
+                upsample(),
+                ConvTransposeBlock(c_in, c1, pre_upsample=fuse),
                 ConvTransposeBlock(c1, c2),
             ]
             c_in = c2
         layers += [
-            nn.Upsample(scale_factor=2, mode="nearest"),
-            ConvTransposeBlock(c_in, p),
+            upsample(),
+            ConvTransposeBlock(c_in, p, pre_upsample=fuse),
             nn.Conv2d(p, 1, 3, 1, 1),
         ]
         super().__init__(*layers)
         self.remat = _check_remat(remat)
         self.n_stages = n_stages
+        self.fuse_upsample = fuse
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _remat_forward(list(self._modules.values()), x, self.remat, self.n_stages - 1)

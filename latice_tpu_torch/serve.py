@@ -73,6 +73,7 @@ from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.hrebsd import hrebsd_map, von_mises_strain
 from latice_tpu_torch.index import IndexPipeline, PatternDictionaryIndexer
 from latice_tpu_torch.index.pipeline import as_preprocess_fn
+from latice_tpu_torch.utils.device import get_platform
 
 logger = logging.getLogger(__name__)
 
@@ -501,7 +502,7 @@ class IndexService:
             "mode": mode,
             "count": int(count),
             "dimension": int(dimension),
-            "platform": self.device.type,
+            "platform": get_platform(),
             "engine": None if self.pipeline is None else self.pipeline.engine,
             "batch_size": 0 if self.pipeline is None else int(self.pipeline.batch_size),
             "multiphase": bool(multiphase),

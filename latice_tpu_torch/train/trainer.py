@@ -3,7 +3,9 @@
 Drives the train and eval steps over epochs with the reference's contract
 (SURVEY §3.1): seeded splits, per-step and epoch metrics under the
 reference names, top-k checkpoints on ``Epoch_val_loss``
-(conf/trainer/default.yaml) and ReduceLROnPlateau on the validation loss.
+(conf/trainer/default.yaml), ReduceLROnPlateau on the validation loss, a
+progress bar per epoch and the reconstruction figure of each validation
+epoch (lightning_module.py:331-343).
 
 Every batch, epoch tails included, is padded to the data module's
 ``batch_size`` with masked rows, as in the JAX trainer, so every step sees
@@ -31,6 +33,7 @@ from latice_tpu_torch.train.metrics import EpochAggregator
 from latice_tpu_torch.train.module import VAEModule
 from latice_tpu_torch.train.state import get_learning_rate, set_learning_rate
 from latice_tpu_torch.train.steps import keyed_generator, make_eval_step, make_train_step
+from latice_tpu_torch.utils.progress import make_progress_bar
 
 logger = logging.getLogger(__name__)
 
@@ -62,10 +65,11 @@ class Trainer:
             multi-device slice of the port.
         log_every_n_steps: step-metric logging cadence.
         seed: seed of the weights and of the noise streams.
-        enable_progress_bar, recon_figure: accepted; the progress bar and
-            the reconstruction figure render nothing until ``utils/progress``
-            and ``utils/viz`` are ported. The eval step still returns
-            ``x_hat``.
+        enable_progress_bar: a live train/val bar per epoch on stderr
+            (`utils.progress`: rich when it imports, else a plain line).
+        recon_figure: log the original-vs-reconstruction grid of the last
+            validation batch each epoch (``logger.log_image``; a missing
+            matplotlib is logged as a warning and training goes on).
         augment: optional training-time perturbation, a ``(generator,
             batch) -> batch`` callable over NHWC batches or a
             `data.AugmentConfig`, applied in the train step (`data.augment`).
@@ -139,6 +143,13 @@ class Trainer:
         except TypeError:
             return datamodule.train_batches()
 
+    @staticmethod
+    def _num_batches(datamodule: Any) -> int | None:
+        try:
+            return int(datamodule.num_train_batches())
+        except (AttributeError, TypeError):
+            return None
+
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
@@ -150,12 +161,15 @@ class Trainer:
         batches: Any,
         batch_size: int,
         global_step: int,
+        bar: Any = None,
     ) -> tuple[EpochAggregator, int]:
         """One epoch's training loop, as `fit` runs it: each ``(patterns,
         angles)`` of ``batches`` (NHWC patterns) is padded to ``batch_size``,
         prefetched to the device and stepped; the step's metrics are read
-        back, aggregated and logged. Returns the epoch's aggregator and the
-        global step after it."""
+        back, aggregated, logged and shown on ``bar`` (a
+        `utils.progress.make_progress_bar`, none by default). Returns the
+        epoch's aggregator and the global step after it."""
+        bar = bar if bar is not None else make_progress_bar(False, 0)
         agg = EpochAggregator("train_")
         # Real-row counts ride beside the prefetch stream, appended at
         # transfer time and consumed in order.
@@ -179,6 +193,7 @@ class Trainer:
             step_metrics["elbo"] = step_metrics["train_loss"]
             if global_step % self.log_every_n_steps == 0 and self.logger:
                 self.logger.log_metrics(step_metrics, global_step)
+            bar.step(step_metrics)
         return agg, global_step
 
     def fit(self, module: VAEModule, datamodule: Any, resume: bool = False) -> torch.nn.Module:
@@ -224,12 +239,17 @@ class Trainer:
 
         for epoch in range(self.start_epoch, self.max_epochs):
             epoch_start = time.time()
+            bar = make_progress_bar(
+                self.enable_progress_bar, epoch, self._num_batches(datamodule)
+            )
             train_agg, global_step = self.train_epoch(
                 model, optimizer, train_step, self._train_batches(datamodule, epoch),
-                batch_size, global_step,
+                batch_size, global_step, bar,
             )
 
             val_agg = EpochAggregator("val_")
+            last_val = None
+            bar.set_phase("val")
             for i, (batch, _) in enumerate(datamodule.val_batches()):
                 x, m, n = pad_batch(np.asarray(batch, np.float32), batch_size)
                 # Per-(epoch, batch) noise: one key for all epochs would make
@@ -238,9 +258,16 @@ class Trainer:
                     model, self._to_device(_nchw(x)), self._to_device(m),
                     key=epoch * 100_003 + i,
                 )
-                metrics = out[0] if self.recon_figure else out
+                metrics, x_hat = out if self.recon_figure else (out, None)
                 self.steps_run["val"] += 1
-                val_agg.update({k: float(v) for k, v in metrics.items()}, weight=n)
+                step_metrics = val_agg.update(
+                    {k: float(v) for k, v in metrics.items()}, weight=n
+                )
+                bar.step(step_metrics)
+                if x_hat is not None and n >= 4:
+                    # Kept on the device; only the last one is copied out.
+                    last_val = (x[:n], x_hat[:n])
+            bar.close()
 
             epoch_metrics = {**train_agg.epoch_metrics(), **val_agg.epoch_metrics()}
             epoch_metrics["learning_rate"] = get_learning_rate(optimizer)
@@ -251,6 +278,9 @@ class Trainer:
             logger.info(
                 f"epoch {epoch}: " + " ".join(f"{k}={v:.5g}" for k, v in epoch_metrics.items())
             )
+
+            if self.recon_figure and last_val is not None and self.logger:
+                self._log_reconstruction(last_val, epoch)
 
             if self.checkpoints is not None:
                 self.checkpoints.save(
@@ -297,3 +327,15 @@ class Trainer:
             outs.append(mu[:n].float().cpu().numpy())
         self.latent = np.concatenate(outs) if outs else np.zeros((0, 0), np.float32)
         return self.latent
+
+    def _log_reconstruction(self, last_val, epoch: int) -> None:
+        """Render the 2xN original-vs-reconstruction grid
+        (lightning_module.py:331-343 / utils.py:77-148)."""
+        try:
+            from latice_tpu_torch.utils.viz import figure_to_array, plot_detection
+
+            x, x_hat = last_val
+            fig = plot_detection(x, x_hat.float().cpu().numpy())
+            self.logger.log_image("reconstruction/eval_check", figure_to_array(fig), epoch)
+        except Exception as e:  # the figure must never stop training
+            logger.warning(f"Reconstruction figure logging failed: {e}")

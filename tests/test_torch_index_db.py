@@ -250,8 +250,24 @@ def test_result_top_n_orientations():
 
 
 def test_engines_of_later_slices_raise_and_device_defaults_to_cuda(tmp_path, data):
-    with pytest.raises(ValueError, match="later slice"):
-        TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
+    from latice_tpu_torch import native
+
+    # The host engine, once refused here, answers without any device (and
+    # raises ImportError only where g++ cannot build it).
+    cfg = LatentVectorDatabaseConfig(npz_path=str(tmp_path / "native.npz"), engine="native")
+    host = TorchLatentVectorDatabase(cfg)
+    host.add_vectors(data["vecs"], data["orients"])
+    if native.available():
+        exact = TorchLatentVectorDatabase(
+            LatentVectorDatabaseConfig(npz_path=str(tmp_path / "exact.npz")), device="cpu")
+        exact.add_vectors(data["vecs"], data["orients"])
+        got = host.query_similar_batch(data["queries"])
+        want = exact.query_similar_batch(data["queries"])
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    else:
+        with pytest.raises(ImportError, match="native library"):
+            host.query_similar_batch(data["queries"])
     for engine in ("approx", "int8"):  # ported: accepted
         cfg = LatentVectorDatabaseConfig(npz_path=str(tmp_path / f"{engine}.npz"), engine=engine)
         assert TorchLatentVectorDatabase(cfg).config.engine == engine

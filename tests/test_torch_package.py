@@ -198,8 +198,10 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still refuses: ``mesh`` (slice C) and the DB's
-    ``native`` engine (slice E). ``--sphere-master`` and ``/sphere``, and
+    """What the port still refuses: ``mesh`` (slice C). The DB's
+    ``native`` engine, once refused here, answers on the host (it raises
+    ``ImportError`` only where g++ cannot build it). ``--sphere-master``
+    and ``/sphere``, and
     ``strain``, ``--strain-ref`` and ``/strain``, once refused here, run:
     each flag alone builds a zero-training service whose plane answers, and
     ``/strain`` without a reference answers 400 with the JAX message."""
@@ -217,8 +219,18 @@ def test_unported_options_raise(tmp_path):
     vecs, orients = np.eye(4, dtype=np.float32), np.zeros((4, 3))
     with pytest.raises(ValueError, match="later slice"):
         IndexPipeline(model, vecs, orients, device="cpu", mesh=object())
-    with pytest.raises(ValueError, match="later slice"):
-        TorchLatentVectorDatabase(LatentVectorDatabaseConfig(engine="native"))
+    from latice_tpu_torch import native
+
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path=str(tmp_path / "n.npz"), dimension=4,
+                                   engine="native"))
+    db.add_vectors(vecs, orients)
+    if native.available():
+        scores, indices = db.query_similar(vecs[2], n_results=2)
+        assert indices[0] == 2 and scores[0] == pytest.approx(1.0)
+    else:
+        with pytest.raises(ImportError, match="native library"):
+            db.query_similar(vecs[2], n_results=2)
     ref = np.random.default_rng(1).random((128, 128)).astype(np.float32)
     np.save(tmp_path / "p.npy", np.stack([ref, np.roll(ref, 1, axis=1)]))
     with pytest.raises(SystemExit, match="out of range"):

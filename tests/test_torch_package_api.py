@@ -60,7 +60,8 @@ def test_utils_exports():
                  "plot_odf_sections", "get_color_key", "plot_detection", "plot_latent",
                  "figure_to_array", "log_fig"):
         assert name in tu.__all__ and name in ju.__all__
-    assert set(tu.__all__) <= set(ju.__all__)
+    assert tu.__all__ == ju.__all__
+    assert all(hasattr(tu, name) for name in tu.__all__)
 
 
 def test_quaternion_gaps_match_jax():
