@@ -5,7 +5,7 @@ every kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without its last line (phases 12 and 13 run after 6, then
-10, 11, 14, 22, 15, 16, 17, 18, 19 and 21, on the serve phase's files,
+10, 11, 14, 22, 23, 15, 16, 17, 18, 19 and 21, on the serve phase's files,
 before 7, and 20 after 7):
 
 1. env: torch and CUDA versions, the card's name and power limit.
@@ -203,6 +203,32 @@ before 7, and 20 after 7):
     kernel and copy total within 2% of the profiler's own sum, the
     InstanceNorm and top-k kernels named among its ops); ``get_platform()``
     is ``"gpu"`` and ``PhaseTimer(sync=True)`` times one encode.
+23. mesh: every multi-device path on a mesh that names the card four
+    times (``make_mesh(devices=["cuda:0"] * 4)``; with more cards attached
+    the search and the pipeline run again over ``make_mesh()``), each
+    against the same path on one device. The DP train step at full width,
+    f32 with TF32 off: at B=64 the loss (rtol 1e-5) and the first parameter
+    leaf after the update (1e-5), at B=8 every gradient leaf by phase 8's
+    rule against a float64 CPU step (B=64's gradients reported: an f32
+    full-width gradient is conditioned at ~1e-2, see phase 8); then
+    ``Trainer.fit`` for one epoch over 3*4+1 rows at batch 8 (the tail
+    padded). The counters must show 19 forward and 19 backward
+    InstanceNorm launches per replica and train step, 19 forward per
+    replica and eval step. ``IndexPipeline`` over the serve phase's files
+    with the exact and the fused engine on 512 patterns: the f32 model's
+    indices equal one device's but where two scores lie within twice the
+    row's latent distance; 10 InstanceNorm launches per shard and batch and
+    1 top-k launch per shard and batch on fused; timed at 16-mixed. The
+    sharded search alone at B=256 over 1,000,000 rows: exact, fused and
+    int8 bit for bit their unsharded selves, approx at recall@10 >= 0.9,
+    each timed beside one device. `DiffractionPatternIndexer` (latents
+    1e-5), the service (``/healthz`` ``mesh_devices`` 4; ``/index`` and
+    ``/encode``), pattern DI, `HoughIndexer` (band score at least one
+    device's minus 0.01), `SphericalIndexer` and its ambiguity (1e-5),
+    ``hrebsd_map`` (``a`` within 1e-6, 0 and 1 remap passes), the dynamical
+    master and the Monte Carlo (bit for bit); ``index build|query
+    --devices 4``, ``serve --shard-dictionary`` and ``master --devices 2``
+    on one card log the JAX CLI's warning and run on one device.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -212,7 +238,9 @@ and a sweep of its launch plan, and prints no verdict line;
 times, and prints no verdict line; ``--sphere-only``, ``--strain-only``,
 ``--master-only`` and ``--analyze-only`` run phases 1, 2 and 17, 18, 19
 or 21 (with a seeded checkpoint of their own; ``--analyze-only`` builds
-the dictionary and scan it needs), and print no verdict line.
+the dictionary and scan it needs), and print no verdict line;
+``--mesh-only`` runs phases 1, 2 and 23 on the serve phase's seeded files
+and prints the mesh path's launches and no verdict line.
 Nothing here sets TF32: cuDNN's flag stays at PyTorch's default (True),
 and the port's f32 models turn it off around their own forward and
 backward (``device.no_tf32``), which phases 5 and 8 check from hooks on
@@ -223,6 +251,7 @@ represents exactly.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import importlib.util
 import io
@@ -279,6 +308,21 @@ AUGMENT_ATOL = 1e-6  # the augmentation's application, card against CPU on the s
 # leaf's largest |gradient| (a wrong recompute is off by O(1)).
 REMAT_RTOL = 1e-3
 EXPORT_ROWS = 262_144  # a 512x512 map through write_ang and write_ctf
+# mesh: every multi-device path on a mesh naming the card MESH_SHARDS times.
+MESH_SHARDS = 4
+MESH_PATTERNS = 512  # pipeline, indexer: two batches of 256, 64 rows per shard
+MESH_FIT_PATTERNS, MESH_FIT_BATCH = 14, 8  # 3*4+1 training rows after the 0.1 split
+MESH_STEP_TIMED = 10  # DP and one-device steps timed, each
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-5  # DP step vs one device
+MESH_GRAD_BATCH = 8  # the DP gradients held against f64 (train_parity's rule), 2 rows a replica
+MESH_LATENT_ATOL, MESH_SCORE_ATOL = 1e-5, 1e-5  # f32 latents; DI and sphere scores
+MESH_HOUGH_SLACK = 0.01  # band score at least one device's minus this (dryrun_multichip)
+MESH_CLI_PATTERNS = 512
+MESH_DI_ROWS, MESH_DI_QUERIES, MESH_HOUGH_PATTERNS = 2048, 256, 256
+MESH_SPHERE_L, MESH_SPHERE_PATTERNS = 32, 256
+MESH_STRAIN_PATTERNS = 256
+MESH_MASTER_SIZE = 45  # 2,025 directions: one chunk of 2,048, 512 per shard
+MESH_MC_ELECTRONS, MESH_MC_CHUNK = 262_144, 65_536  # one walker chunk per shard
 FUSED_ATOL = 5e-5  # fused against materialized decoder, f32: tests/models/test_fused_upsample.py
 K2_ATOL = 1e-4  # reduction order differs from the plain twin's
 K2_BF16_ATOL = 1e-2  # bf16 outputs: 1e-2 plus one bf16 ulp of the value (K2_BF16_RTOL),
@@ -1657,20 +1701,10 @@ def _cli_service(ckpt: str, npz: str, device: str, batch: int, engine: str = "fu
 
 
 def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
-    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
-    from latice_tpu_torch.models import VariationalAutoEncoderRawData
     from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
     from latice_tpu_torch.serve import make_server
 
-    ckpt, npz = f"{workdir}/vae.pt", f"{workdir}/latent_index.npz"
-    model = VariationalAutoEncoderRawData(INPLANES, LATENT)
-    torch.save(model.init_weights(torch.Generator().manual_seed(0)).state_dict(), ckpt)
-    rng = np.random.default_rng(0)
-    vecs = rng.normal(size=(DICT_ROWS, LATENT)).astype(np.float32)
-    orients = rng.uniform([0, 20, 0], [340, 140, 340], size=(DICT_ROWS, 3))
-    db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT))
-    db.add_vectors(vecs, orients)
-    db.save()
+    ckpt, npz, rng = _serve_files(workdir)
 
     service = _cli_service(ckpt, npz, "cuda", BATCH)
     if service.pipeline.model.compute_dtype != torch.bfloat16:
@@ -2273,6 +2307,569 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
     torch.cuda.empty_cache()
     emit("tools", **out, launches=launches, phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def _serve_files(workdir: str) -> tuple[str, str, np.random.Generator]:
+    """The serve phase's seeded checkpoint and its 100,000-row dictionary,
+    and the generator that drew the dictionary (the serve phase draws its
+    requests from it next)."""
+    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+
+    ckpt, npz = f"{workdir}/vae.pt", f"{workdir}/latent_index.npz"
+    model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    torch.save(model.init_weights(torch.Generator().manual_seed(0)).state_dict(), ckpt)
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(DICT_ROWS, LATENT)).astype(np.float32)
+    orients = rng.uniform([0, 20, 0], [340, 140, 340], size=(DICT_ROWS, 3))
+    db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=npz, dimension=LATENT))
+    db.add_vectors(vecs, orients)
+    db.save()
+    return ckpt, npz, rng
+
+
+def _near_tie_rows(scores: np.ndarray, k: int) -> np.ndarray:
+    """Rows with two of their first ``k`` scores within `NEAR_TIE` (their
+    order may turn on the last bit)."""
+    head = np.asarray(scores)[:, :k]
+    return ((head[:, :-1] - head[:, 1:]) <= NEAR_TIE).any(axis=1)
+
+
+def _hold_indices(name: str, got, want, scores) -> int:
+    """``got``'s indices equal ``want``'s but in rows with a near tie
+    (`NEAR_TIE`, the engines phase's rule); the count of such rows."""
+    differ = (np.asarray(got) != np.asarray(want)).any(axis=1)
+    near = _near_tie_rows(scores, np.asarray(want).shape[1])
+    if (differ & ~near).any():
+        raise AssertionError(f"mesh {name}: {int((differ & ~near).sum())} rows differ from one "
+                             "device without a near tie")
+    return int(differ.sum())
+
+
+def _dp_grads(state: dict, batch, dev, mesh=None,
+              dtype=torch.float32) -> tuple[float, dict, torch.Tensor]:
+    """One train step from ``state`` on ``batch`` (x, eps; every row real)
+    on ``dev``, over ``mesh`` when given (its first device is ``dev``), in
+    ``dtype``: (loss, {name: grad as f64 on the CPU}, the first parameter
+    leaf after the update)."""
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.train import VAELoss, make_optimizer, make_train_step
+
+    model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    model.load_state_dict(state)
+    model.to(dev, dtype)
+    x, eps = (t.to(dev, dtype) for t in batch)
+    step = make_train_step(VAELoss(kl_lambda=5e-6), mesh=mesh)
+    m = step(model, make_optimizer(model.parameters()), x, None, 0, eps)
+    return (float(m["loss"]), {k: p.grad.detach().cpu().double()
+                               for k, p in model.named_parameters()},
+            next(model.parameters()).detach().clone())
+
+
+def _mesh_dp_train(mesh, counters) -> tuple[dict, dict]:
+    """The DP train step at full width (f32, TF32 off) against the
+    one-device step from the same weights and noise, then both timed at
+    16-mixed. Returns (readings, this path's launches).
+
+    At B=64 the loss and the first parameter leaf after the update are held
+    at 1e-5 and the summed gradients are reported: at full width an f32
+    step's gradient is conditioned at about 1e-2 of a leaf's scale (an f32
+    rounding moves an activation across LeakyReLU's kink or swaps a
+    max-pool's argmax, and the flip reaches every leaf upstream; see
+    `phase_train_parity`), and cuDNN's f32 forward of a 16-row block is not
+    bitwise that of the same rows in a 64-row batch. So the gradients are
+    held by `phase_train_parity`'s rule at B=8 (2 rows per replica): each
+    leaf of the DP step within `GRAD_RATIO` times the one-device step's
+    distance from a float64 CPU step plus `GRAD_FLOOR`, each over the
+    leaf's largest f64 |gradient| (the before-norm biases, whose exact
+    gradient is 0, reported only). In float64 the DP step equals the
+    one-device step to ~5e-16 (the CPU tests)."""
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.train import VAELoss, make_optimizer, make_train_step
+
+    state = VariationalAutoEncoderRawData(INPLANES, LATENT).init_weights(
+        torch.Generator().manual_seed(21)).state_dict()
+    layout = VariationalAutoEncoderRawData(INPLANES, LATENT)
+    out, launches = {}, dict.fromkeys((fn.__name__ for fn in counters), 0)
+    for batch_rows in (TRAIN_BATCH, MESH_GRAD_BATCH):
+        batch = (torch.from_numpy(_synthetic_patterns(batch_rows, seed=22)[:, None]),
+                 torch.from_numpy(np.random.default_rng(23).normal(
+                     size=(batch_rows, LATENT)).astype(np.float32)))
+        l1, g1, p1 = _dp_grads(state, batch, "cuda")
+        for fn in counters:
+            fn.launches = 0
+        l4, g4, p4 = _dp_grads(state, batch, mesh.devices[0], mesh)
+        torch.cuda.synchronize()
+        step_launches = {fn.__name__: fn.launches for fn in counters}
+        want = {"instance_norm_leaky_relu": 19 * mesh.size,
+                "instance_norm_leaky_relu_backward": 19 * mesh.size}
+        if {k: step_launches[k] for k in want} != want:
+            raise AssertionError(f"DP step launches {step_launches}, want {want}")
+        for k, v in step_launches.items():
+            launches[k] += v
+        held = [k for k in g1 if not _before_norm_bias(k, layout)]
+        rel = {k: ((g4[k] - g1[k]).abs().max() / g1[k].abs().max()).item() for k in held}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(l4 - l1) / abs(l1)
+        param_err = (p4 - p1).abs().max().item()
+        reading = dict(loss_one=l1, loss_mesh=l4, loss_rel_err=loss_rel,
+                       first_param_max_abs_err=param_err, grad_worst_leaf=worst,
+                       grad_worst_rel_to_one_device=rel[worst], launches=step_launches)
+        if not loss_rel <= MESH_LOSS_RTOL:
+            raise AssertionError(f"DP step at B={batch_rows}: loss {l4} vs one device {l1}")
+        if not param_err <= MESH_PARAM_ATOL:
+            raise AssertionError(f"DP step at B={batch_rows}: first parameter leaf {param_err}")
+        if batch_rows == MESH_GRAD_BATCH:
+            from unittest import mock
+
+            from latice_tpu_torch.models import InstanceNormLeakyReLU
+
+            with mock.patch.object(InstanceNormLeakyReLU, "forward", _aten_norm):
+                _, g_ref, _ = _dp_grads(state, batch, "cpu", dtype=torch.float64)
+
+            def dist(g):
+                return {k: ((g[k] - g_ref[k]).abs().max() / g_ref[k].abs().max()).item()
+                        for k in held}
+
+            d1, d4 = dist(g1), dist(g4)
+            share = {k: d4[k] / (GRAD_RATIO * d1[k] + GRAD_FLOOR) for k in held}
+            worst_share = max(share, key=share.get)
+            reading.update(grad_vs_f64_worst_leaf=worst_share,
+                           grad_vs_f64_share_of_limit=share[worst_share],
+                           grad_vs_f64_mesh=d4[worst_share], grad_vs_f64_one=d1[worst_share])
+            if not share[worst_share] <= 1.0:
+                raise AssertionError(f"DP gradient of {worst_share}: {d4[worst_share]} from f64 "
+                                     f"against one device's {d1[worst_share]}")
+        out[f"b{batch_rows}_f32"] = reading
+
+    # The step's times at the training precision: host wall per step over
+    # MESH_STEP_TIMED steps, and device time from a trace.
+    x = torch.from_numpy(_synthetic_patterns(TRAIN_BATCH, seed=22)[:, None]).cuda()
+    eps = torch.from_numpy(np.random.default_rng(23).normal(
+        size=(TRAIN_BATCH, LATENT)).astype(np.float32)).cuda()
+    times = {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        model = VariationalAutoEncoderRawData(INPLANES, LATENT)
+        model.load_state_dict(state)
+        model = model.cuda().set_precision("16-mixed")
+        opt = make_optimizer(model.parameters())
+        step = make_train_step(VAELoss(kl_lambda=5e-6), mesh=m)
+        run = lambda: step(model, opt, x, None, 0, eps)  # noqa: E731
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEP_TIMED):
+            run()
+        torch.cuda.synchronize()
+        times[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3 / MESH_STEP_TIMED,
+                           device_ms=device_busy_ms(run))
+    out["timed_16mixed_b64"] = times
+    return out, launches
+
+
+def _mesh_search(mesh, counters) -> dict:
+    """The sharded search alone at B=256 over the engines phase's
+    1,000,000 rows, each engine against the unsharded one on the card, timed
+    beside it: device time from a trace, and CUDA events over calls from an
+    idle stream (host-paced). Launches here are comparisons, not the
+    path's."""
+    from latice_tpu_torch.index import IndexPipeline
+    from latice_tpu_torch.parallel import shard_dictionary, sharded_cosine_topk
+    from latice_tpu_torch.parallel.sharded_knn import quantize_dictionary_int8
+
+    rows = BIG_DICT_ROWS
+    rng = np.random.default_rng(rows)
+    d_np = rng.normal(size=(rows, LATENT)).astype(np.float32)
+    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
+    src = rng.choice(rows, BATCH, replace=False)
+    q = torch.from_numpy(d_np[src] + 0.05 * rng.normal(size=(BATCH, LATENT)).astype(
+        np.float32)).cuda()
+    orients = np.zeros((rows, 3), np.float32)
+    sharded = {"f32": shard_dictionary(d_np, mesh),
+               "int8": shard_dictionary(quantize_dictionary_int8(d_np)[0], mesh)}
+    out = {}
+    for engine in ("exact", "fused", "int8", "approx"):
+        pipe = IndexPipeline(None, d_np, orients, top_n=TOP_N, batch_size=BATCH,
+                             engine=engine, device="cuda", feature_fn=_identity)
+        table = sharded["int8" if engine == "int8" else "f32"]
+        one = lambda p=pipe: p._search(q)  # noqa: E731
+        four = lambda e=engine, t=table: sharded_cosine_topk(  # noqa: E731
+            q, t, TOP_N, mesh, n_valid=rows, engine=e)
+        s1, i1 = (t.cpu().numpy() for t in one())
+        s4, i4 = (t.cpu().numpy() for t in four())
+        reading = dict(one_device_ms=device_busy_ms(one), mesh_device_ms=device_busy_ms(four),
+                       one_host_ms=host_bound_ms(one), mesh_host_ms=host_bound_ms(four),
+                       mesh_waits_for_device=waits_for_device(four))
+        if engine == "approx":
+            reading["recall_at_10"] = _recall_at(i4, i1)
+            if not reading["recall_at_10"] >= ENGINE_RECALL_MIN:
+                raise AssertionError(f"sharded approx recall@10 {reading['recall_at_10']}")
+        else:
+            # exact and fused are exact searches; int8's int32 products are
+            # exact: each is held to its unsharded self, bit for bit.
+            if not (np.array_equal(i4, i1) and np.array_equal(s4, s1)):
+                raise AssertionError(f"sharded {engine} differs from unsharded "
+                                     f"({int((i4 != i1).any(axis=1).sum())} rows)")
+            reading["bitwise"] = True
+        out[engine] = reading
+        del pipe
+    del sharded
+    torch.cuda.empty_cache()
+    return dict(rows=rows, queries=BATCH, k=TOP_N, shards=mesh.size, **out)
+
+
+def _mesh_pipeline(mesh, ckpt: str, npz: str, counters) -> tuple[dict, dict]:
+    """`IndexPipeline` over the serve phase's model and dictionary, with the
+    exact and the fused engine, mesh against one device on 512 patterns.
+    Returns (readings, this path's launches).
+
+    Held in f32 (TF32 off): the indices equal but in rows where two of the
+    one-device run's first k+1 scores lie within twice that row's latent
+    distance (the normalized latents' L2 distance bounds every score's
+    change, so only such rows can swap). The served model (16-mixed) is
+    timed: its bf16 convolutions of a 64-row block round otherwise than in
+    a 256-row batch (latents ~1e-2 apart), so its indices are not held."""
+    from latice_tpu_torch.index import IndexPipeline, l2_normalize
+
+    base = _cli_service(ckpt, npz, "cuda", BATCH, engine="exact")
+    served, db = base.pipeline.model, base._db
+    f32 = copy.deepcopy(served).set_precision("32")
+    x = np.random.default_rng(24).integers(0, 256, (MESH_PATTERNS, 128, 128), dtype=np.uint8)
+    batches = MESH_PATTERNS // BATCH
+    out, totals = {}, dict.fromkeys((fn.__name__ for fn in counters), 0)
+    for engine in ("exact", "fused"):
+        kw = dict(top_n=TOP_N, batch_size=BATCH, engine=engine)
+        one = IndexPipeline(f32, db._vectors, db._orientations, device="cuda", **kw)
+        four = IndexPipeline(f32, db._vectors, db._orientations, mesh=mesh, **kw)
+        want = one(x)
+        four(x[:BATCH])
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        got = four(x)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        expect = {"instance_norm_leaky_relu": 10 * mesh.size * batches,
+                  "cosine_topk_fused": mesh.size * batches if engine == "fused" else 0}
+        if {k: launches[k] for k in expect} != expect:
+            raise AssertionError(f"mesh pipeline {engine} launches {launches}, want {expect}")
+        for k, v in launches.items():
+            totals[k] += v
+        u1, u4 = (l2_normalize(torch.from_numpy(p.encode(x))) for p in (one, four))
+        delta = (u4 - u1).norm(dim=1).numpy()
+        gaps = np.diff(-np.asarray(want.scores), axis=1)  # (B, k-1), >= 0
+        near = (gaps <= 2 * delta[:, None]).any(axis=1)
+        differ = (got.indices != want.indices).any(axis=1)
+        if (differ & ~near).any():
+            raise AssertionError(f"mesh pipeline {engine}: {int((differ & ~near).sum())} rows "
+                                 "differ from one device beyond their latents' distance")
+        out[engine] = dict(rows_differing=int(differ.sum()), rows_within_margin=int(near.sum()),
+                           latent_unit_max_dist=float(delta.max()),
+                           score_max_abs_err=float(np.abs(got.scores - want.scores).max()),
+                           launches_per_shard_batch={k: v / (mesh.size * batches)
+                                                     for k, v in launches.items()})
+        # The served precision, timed: host wall per call and device time.
+        timed = {}
+        for tag, m in (("one", None), ("mesh", mesh)):
+            pipe = IndexPipeline(served, db._vectors, db._orientations, mesh=m,
+                                 device=None if m else "cuda", **kw)
+            pipe(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pipe(x)
+            timed[tag] = dict(wall_ms=(time.perf_counter() - t0) * 1e3 / 3,
+                              device_ms=device_busy_ms(lambda p=pipe: p(x), iters=2))
+        out[engine]["timed_16mixed"] = timed
+        del one, four, pipe
+    del base
+    torch.cuda.empty_cache()
+    return dict(patterns=MESH_PATTERNS, batches=batches, dictionary_rows=DICT_ROWS,
+                held_precision="32", **out), totals
+
+
+def _mesh_fit(mesh, workdir: str, counters) -> tuple[dict, dict]:
+    """`Trainer.fit` over the mesh for one epoch: 3*4+1 training rows at
+    batch 8 (the tail padded), full width, 16-mixed. Returns (readings, this
+    path's launches)."""
+    from latice_tpu_torch.data import DPDataModule
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.train import Trainer, VAEModule
+
+    root = Path(workdir) / "mesh_fit"
+    root.mkdir()
+    np.save(root / "p.npy", _synthetic_patterns(MESH_FIT_PATTERNS, seed=25))
+    with open(root / "a.txt", "w") as f:
+        f.write(f"zxz\n{MESH_FIT_PATTERNS}\n")
+        np.savetxt(f, np.random.default_rng(26).uniform(0, 360, (MESH_FIT_PATTERNS, 3)),
+                   fmt="%.4f")
+    dm = DPDataModule(root / "p.npy", root / "a.txt", batch_size=MESH_FIT_BATCH, seed=27)
+    trainer = Trainer(max_epochs=1, seed=28, mesh=mesh, enable_progress_bar=False,
+                      recon_figure=False)
+    module = VAEModule(VariationalAutoEncoderRawData(INPLANES, LATENT), kl_lambda=5e-6)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(module, dm)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    n_train, n_val = trainer.steps_run["train"], trainer.steps_run["val"]
+    if (dm.train_size, n_train, n_val) != (13, 2, 1):
+        raise AssertionError(f"mesh fit: {dm.train_size} rows, {n_train} train and {n_val} "
+                             "eval steps, want 13, 2 and 1")
+    want = {"instance_norm_leaky_relu": 19 * mesh.size * (n_train + n_val),
+            "instance_norm_leaky_relu_backward": 19 * mesh.size * n_train}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"mesh fit launches {launches}, want {want}")
+    epoch = trainer.history[0]
+    if not all(np.isfinite(v) for v in epoch.values()):
+        raise AssertionError(f"mesh fit epoch metrics {epoch}")
+    return dict(train_rows=dm.train_size, batch=MESH_FIT_BATCH, train_steps=n_train,
+                eval_steps=n_val, wall_s=wall_s, epoch=epoch,
+                launches_per_replica_train_step=19), launches
+
+
+def _mesh_one_card_flags(workdir: str, npz: str, ckpt: str) -> dict:
+    """``cli.index build|query --devices 4``, ``cli.serve
+    --shard-dictionary`` and ``master --devices 2`` on a machine with fewer
+    cards: each logs the JAX CLI's warning and runs on one device."""
+    from latice_tpu_torch.cli import index as index_cli
+    from latice_tpu_torch.cli.serve import build_service, parse_args
+
+    root = Path(workdir) / "mesh_cli"
+    root.mkdir()
+    n = MESH_CLI_PATTERNS
+    x = np.random.default_rng(29).integers(0, 256, (n, 128, 128), dtype=np.uint8)
+    np.save(root / "p.npy", x)
+    (root / "a.txt").write_text(f"eu\n{n}\n" + "".join(
+        f"{a:.4f} {b:.4f} {c:.4f}\n" for a, b, c in np.random.default_rng(30).uniform(
+            [0, 20, 0], [340, 140, 340], (n, 3))))
+    model = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
+             "--batch-size", str(BATCH)]
+    attached = torch.cuda.device_count()
+    log = _Captured("latice_tpu_torch.cli")
+    with log, contextlib.redirect_stdout(io.StringIO()) as stdout:
+        index_cli.main(["build", "--patterns", str(root / "p.npy"), "--angles",
+                        str(root / "a.txt"), "--db", str(root / "db.npz"), "--devices",
+                        str(MESH_SHARDS)] + model)
+        index_cli.main(["query", "--patterns", str(root / "p.npy"), "--db", str(root / "db.npz"),
+                        "--out", str(root / "o.npy"), "--engine", "fused", "--devices",
+                        str(MESH_SHARDS)] + model)
+        index_cli.main(["master", "--size", "33", "--beams", "15", "--max-hkl", "2",
+                        "--devices", "2", "--out", str(root / "m.npy")])
+        service = build_service(parse_args(["--db", npz, "--shard-dictionary"] + model))
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    messages = "\n".join(log.messages)
+    out = dict(attached=attached, messages=log.messages)
+    expected = []
+    if attached < MESH_SHARDS:  # build and query
+        expected += [f"--devices {MESH_SHARDS} ignored: only {attached} attached"] * 2
+    if attached < 2:
+        expected += [f"--devices 2 ignored: only {attached} attached",
+                     "--shard-dictionary ignored: one device attached"]
+    for want in set(expected):
+        if messages.count(want) < expected.count(want):
+            raise AssertionError(f"missing warning {want!r} in {log.messages}")
+    if attached < 2 and service.health()["mesh_devices"] != 0:
+        raise AssertionError(f"/healthz {service.health()}")
+    top1 = np.load(root / "o.npy")
+    if top1.shape != (n, 3) or not np.isfinite(top1).all():
+        raise AssertionError(f"query --devices output {top1.shape}")
+    out["master_summary"] = {k: summary[k] for k in summary if k != "out"}
+    del service
+    return out
+
+
+def _mesh_planes(mesh, workdir: str) -> dict:
+    """The remaining mesh paths against one device on the card."""
+    from scipy.spatial.transform import Rotation as R
+
+    from latice_tpu_torch import hrebsd as th
+    from latice_tpu_torch import sim as tsim
+    from latice_tpu_torch.index import (
+        DiffractionPatternIndexer,
+        HoughIndexer,
+        IndexerConfig,
+        LatentVectorDatabaseConfig,
+        PatternDictionaryIndexer,
+        SphericalIndexer,
+        SphericalIndexerConfig,
+        TorchLatentVectorDatabase,
+    )
+    from latice_tpu_torch.index.spherical import projection_tables
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.serve import IndexService
+
+    out = {}
+    # DiffractionPatternIndexer: the encode batches shard.
+    model = VariationalAutoEncoderRawData(INPLANES, LATENT).init_weights(
+        torch.Generator().manual_seed(31)).cuda().set_precision("32").eval()
+    pats = _synthetic_patterns(MESH_PATTERNS, seed=32)
+    lat = {}
+    for tag, m in (("one", None), ("mesh", mesh)):
+        ix = DiffractionPatternIndexer(model, config=IndexerConfig(
+            batch_size=BATCH, latent_dim=LATENT), mesh=m)
+        lat[tag] = ix.encode_patterns_batch(pats)
+    err = float(np.abs(lat["mesh"] - lat["one"]).max())
+    if not err <= MESH_LATENT_ATOL:
+        raise AssertionError(f"mesh indexer latents {err}")
+    out["indexer"] = dict(patterns=len(pats), precision="32", latent_max_abs_err=err)
+
+    # IndexService: /healthz, /index and /encode.
+    db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(
+        npz_path=f"{workdir}/mesh_service.npz", dimension=LATENT), device="cuda")
+    rows = lat["one"][:BATCH]
+    db.add_vectors(rows / np.linalg.norm(rows, axis=1, keepdims=True),
+                   np.random.default_rng(33).uniform([0, 20, 0], [340, 140, 340], (len(rows), 3)))
+    kw = dict(top_n=TOP_N, min_required_matches=1, batch_size=BATCH, device="cuda")
+    one, four = IndexService(model, db, **kw), IndexService(model, db, mesh=mesh, **kw)
+    health = four.health()
+    if health["mesh_devices"] != mesh.size:
+        raise AssertionError(f"/healthz {health}")
+    r1, r4 = one.index(pats[:BATCH]), four.index(pats[:BATCH])
+    e1 = np.asarray(one.encode(pats[:64])["latents"])
+    e4 = np.asarray(four.encode(pats[:64])["latents"])
+    if r1["success"] != r4["success"] or not np.allclose(
+            r4["orientations"], r1["orientations"], rtol=0, atol=1e-3):
+        raise AssertionError("mesh /index differs from one device")
+    if not np.abs(e4 - e1).max() <= MESH_LATENT_ATOL:
+        raise AssertionError(f"mesh /encode {np.abs(e4 - e1).max()}")
+    out["service"] = dict(mesh_devices=health["mesh_devices"],
+                          encode_max_abs_err=float(np.abs(e4 - e1).max()))
+    del one, four, db, model
+
+    # Pattern DI: the query features by batch, the dictionary rows by row.
+    quats = np.roll(R.random(MESH_DI_ROWS, random_state=34).as_quat(), 1, axis=1)
+    geom = tsim.DetectorGeometry()
+    dict_pats = tsim.simulate_patterns(quats, geom, device="cuda")
+    queries = dict_pats[:MESH_DI_QUERIES] + np.random.default_rng(35).normal(
+        scale=0.05, size=(MESH_DI_QUERIES, 128, 128)).astype(np.float32)
+    angles = np.degrees(R.from_quat(np.roll(quats, -1, axis=1)).as_euler("zxz"))
+    kw = dict(top_n=TOP_N, min_required_matches=1, batch_size=BATCH)
+    res = {tag: PatternDictionaryIndexer(dict_pats, angles, mesh=m, device="cuda", **kw)(queries)
+           for tag, m in (("one", None), ("mesh", mesh))}
+    differ = _hold_indices("DI", res["mesh"].indices, res["one"].indices, res["one"].scores)
+    di_err = float(np.abs(res["mesh"].scores - res["one"].scores).max())
+    if not di_err <= MESH_SCORE_ATOL:
+        raise AssertionError(f"mesh DI scores {di_err}")
+    out["pattern_di"] = dict(rows=MESH_DI_ROWS, queries=MESH_DI_QUERIES, search_dtype="bfloat16",
+                             rows_differing=differ, score_max_abs_err=di_err)
+
+    # HoughIndexer: the orientation grid's chunks shard.
+    hough_pats = dict_pats[:MESH_HOUGH_PATTERNS]
+    hres = {tag: HoughIndexer(tsim.cubic_reflectors(), geom, mesh=m,
+                              device=None if m else "cuda")(hough_pats)
+            for tag, m in (("one", None), ("mesh", mesh))}
+    gap = hres["mesh"].band_score - hres["one"].band_score
+    if not (gap >= -MESH_HOUGH_SLACK).all():
+        raise AssertionError(f"mesh Hough band score below one device's by {-gap.min()}")
+    out["hough"] = dict(patterns=len(hough_pats), min_score_gain=float(gap.min()),
+                        rows_tied=int((np.abs(gap) < 1e-5).sum()))
+    del dict_pats, hres, res
+
+    # SphericalIndexer and its ambiguity diagnostic.
+    master = tsim.make_kinematical_master(size=257)
+    sgeom = tsim.DetectorGeometry(shape=(128, 128))
+    sq = np.roll(R.random(MESH_SPHERE_PATTERNS, random_state=36).as_quat(), 1, axis=1)
+    spats = tsim.render_from_master(master, sq, sgeom, device="cuda")
+    cfg = SphericalIndexerConfig(bandwidth=MESH_SPHERE_L, detector_bin=SPHERE_BIN,
+                                 chunk=SPHERE_CHUNK)
+    tables = projection_tables(MESH_SPHERE_L, sgeom, SPHERE_BIN)
+    sph = {}
+    for tag, m in (("one", None), ("mesh", mesh)):
+        ix = SphericalIndexer(master, sgeom, cfg, mesh=m, tables=tables,
+                              device=None if m else "cuda")
+        sph[tag] = (ix.index_patterns(spats).scores, ix.ambiguity(spats[:64], n_cells=32).score_gap)
+    s_err = float(np.abs(sph["mesh"][0] - sph["one"][0]).max())
+    a_err = float(np.nanmax(np.abs(sph["mesh"][1] - sph["one"][1])))
+    if not (s_err <= MESH_SCORE_ATOL and a_err <= MESH_SCORE_ATOL):
+        raise AssertionError(f"mesh sphere scores {s_err}, ambiguity gaps {a_err}")
+    out["sphere"] = dict(patterns=len(spats), bandwidth=MESH_SPHERE_L,
+                         score_max_abs_err=s_err, gap_max_abs_err=a_err)
+
+    # hrebsd_map: the pattern chunks shard.
+    ref, spatt, _ = strain_truth(MESH_STRAIN_PATTERNS)
+    geom_s = tsim.DetectorGeometry(shape=(STRAIN_SIZE, STRAIN_SIZE))
+    hre = {}
+    for passes in (0, 1):
+        kw = dict(roi_size=STRAIN_ROI, upsample=STRAIN_UPSAMPLE, chunk=STRAIN_CHUNK,
+                  remap_iterations=passes)
+        h1 = th.hrebsd_map(spatt, ref, geom_s, device="cuda", **kw)
+        h4 = th.hrebsd_map(spatt, ref, geom_s, mesh=mesh, **kw)
+        hre[f"remap{passes}_a_max_abs_err"] = float(np.abs(h4.a - h1.a).max())
+    # Each shard's chunk runs the one-device kernels on fewer rows, so the
+    # first pass matches and the remap pass starts from the same `a`.
+    if not max(hre.values()) <= STRAIN_A_ATOL:
+        raise AssertionError(f"mesh hrebsd_map a {hre}")
+    out["hrebsd"] = dict(patterns=len(spatt), **hre)
+
+    # The dynamical master and the Monte Carlo, bit for bit.
+    structure = tsim.cubic_structure()
+    beams = tsim.dynamical_beams(structure)
+    m1 = tsim.dynamical_master_pattern(structure, size=MESH_MASTER_SIZE, beams=beams,
+                                       device="cuda")
+    m4 = tsim.dynamical_master_pattern(structure, size=MESH_MASTER_SIZE, beams=beams, mesh=mesh)
+    kw = dict(n_electrons=MESH_MC_ELECTRONS, chunk=MESH_MC_CHUNK, seed=37)
+    mc1 = tsim.simulate_bse_monte_carlo(structure, device="cuda", **kw)
+    mc4 = tsim.simulate_bse_monte_carlo(structure, mesh=mesh, **kw)
+    if not np.array_equal(m4, m1):
+        raise AssertionError(f"mesh master differs: {float(np.abs(m4 - m1).max())}")
+    if not (np.array_equal(mc4.exit_energy_kev, mc1.exit_energy_kev)
+            and np.array_equal(mc4.max_depth_nm, mc1.max_depth_nm)):
+        raise AssertionError("mesh Monte Carlo differs from one device")
+    out["master"] = dict(size=MESH_MASTER_SIZE, beams=len(beams.g), bitwise=True)
+    out["monte_carlo"] = dict(electrons=MESH_MC_ELECTRONS, chunk=MESH_MC_CHUNK,
+                              chunks=-(-MESH_MC_ELECTRONS // MESH_MC_CHUNK), bitwise=True,
+                              bse_yield=mc4.bse_yield)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(workdir: str, ckpt: str, npz: str) -> dict:
+    """Every multi-device path on a mesh that names the card `MESH_SHARDS`
+    times (``make_mesh(devices=["cuda:0"] * 4)``), each against the same
+    path on one device: DP training (one f32 step held, then
+    ``Trainer.fit``), ``IndexPipeline`` over the serve phase's files, the
+    sharded search alone over 1,000,000 rows, the indexer, the service,
+    pattern DI, Hough, spherical, HR-EBSD, the dynamical master and the
+    Monte Carlo, and the CLI flags on one card. With more than one card
+    attached the search and the pipeline run again over ``make_mesh()``.
+    The launches of the mesh runs (the pipeline, the DP step and the fit)
+    are this path's."""
+    from latice_tpu_torch.ops import (
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+        instance_norm_leaky_relu_backward,
+    )
+    from latice_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward, cosine_topk_fused)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    out = dict(mesh=repr(mesh))
+    out["dp_step"], launches = _mesh_dp_train(mesh, counters)
+    add(launches)
+    out["fit"], launches = _mesh_fit(mesh, workdir, counters)
+    add(launches)
+    out["pipeline"], launches = _mesh_pipeline(mesh, ckpt, npz, counters)
+    add(launches)
+    out["search"] = _mesh_search(mesh, counters)
+    out.update(_mesh_planes(mesh, workdir))
+    out["one_card_flags"] = _mesh_one_card_flags(workdir, npz, ckpt)
+    if torch.cuda.device_count() > 1:
+        cards = make_mesh()
+        out["cards"] = dict(mesh=repr(cards), search=_mesh_search(cards, counters),
+                            pipeline=_mesh_pipeline(cards, ckpt, npz, counters)[0])
+    emit("mesh", **out, launches=totals, phase_s=time.perf_counter() - t_phase)
+    return totals
 
 
 def _rel_dist(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -5233,6 +5830,14 @@ def main() -> int:
         print(json.dumps({"kernels": [check_stage0(gen)]}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--mesh-only"]:  # the multi-device paths alone; no verdict line
+        with tempfile.TemporaryDirectory() as workdir:
+            ckpt, npz, _ = _serve_files(workdir)
+            launches = phase_mesh(workdir, ckpt, npz)
+        print(json.dumps({"kernels": [{"name": k, "launches_by_path": {"mesh": v}}
+                                      for k, v in launches.items()]}), flush=True)
+        print(smi, flush=True)
+        return 0
     only = {"--sphere-only": phase_sphere, "--strain-only": phase_strain,
             "--master-only": phase_master, "--analyze-only": phase_analyze}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # one plane's phase alone; no verdict line
@@ -5265,6 +5870,8 @@ def main() -> int:
         preprocess_launches = phase_preprocess(workdir, ckpt)
         torch.cuda.empty_cache()
         tools_launches = phase_tools(workdir, ckpt, npz)
+        mesh_launches = phase_mesh(workdir, ckpt, npz)
+        torch.cuda.empty_cache()
         dictionary_launches = phase_dictionary(workdir, ckpt, smi)
         torch.cuda.empty_cache()
         bands_launches = phase_bands(workdir, ckpt, smi)
@@ -5291,6 +5898,7 @@ def main() -> int:
         "index_cli": {k: v for k, v in cli_launches.items() if k != "stage0_fused"},
         "preprocess": preprocess_launches,
         "tools": tools_launches,
+        "mesh": mesh_launches,
         "dictionary": dictionary_launches,
         "bands": bands_launches,
         "sphere": sphere_launches,

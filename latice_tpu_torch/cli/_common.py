@@ -12,12 +12,28 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-def later_slice(what: str, slice_name: str) -> SystemExit:
-    """The exit of a CLI option whose port waits for a later slice."""
-    return SystemExit(
-        f"{what} is not ported to latice_tpu_torch yet; it waits for a later slice "
-        f"({slice_name})"
-    )
+def mesh_from_flag(n: int | None, device, what: str):
+    """The mesh of a ``--devices N`` flag, or None.
+
+    N <= 1 (or unset) runs on one device. On cards: a mesh over the first N
+    attached cards, or, with fewer attached, the JAX CLI's warning and one
+    device. With ``--device cpu``: a mesh of N CPU entries, the counterpart
+    of the JAX package's virtual CPU devices.
+    """
+    if not n or n <= 1:
+        return None
+    from latice_tpu_torch.parallel import make_mesh
+
+    if torch.device(device or "cuda").type == "cpu":
+        mesh = make_mesh(n, devices=["cpu"] * n)
+    else:
+        attached = torch.cuda.device_count()
+        if attached < n:
+            logger.warning(f"--devices {n} ignored: only {attached} attached")
+            return None
+        mesh = make_mesh(n)
+    logger.info(f"sharding {what} over {mesh.size} devices")
+    return mesh
 
 
 def _load_model(checkpoint: str | None, inplanes: int, latent_dim: int, device):

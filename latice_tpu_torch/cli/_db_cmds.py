@@ -11,23 +11,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from latice_tpu_torch.cli._common import _load_model, _open_scan, _refine_result, later_slice
+from latice_tpu_torch.cli._common import _load_model, _open_scan, _refine_result, mesh_from_flag
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def _check_devices(args) -> None:
-    """``--devices N``: ignored with a warning when fewer than N cards are
-    attached (as the JAX CLI does), refused when N are, since sharding over
-    several cards waits for slice C."""
-    n = getattr(args, "devices", None)
-    if not n or n <= 1:
-        return
-    attached = torch.cuda.device_count()
-    if attached >= n:
-        raise later_slice(f"--devices {n}", "slice C")
-    logger.warning(f"--devices {n} ignored: only {attached} attached")
 
 
 def cmd_build(args) -> None:
@@ -46,7 +33,7 @@ def cmd_build(args) -> None:
     # Phase labels persist with more than one phase OR an explicit point
     # group: a single-phase hexagonal dictionary must not fall back to cubic.
     multiphase = len(args.patterns) > 1 or groups is not None
-    _check_devices(args)
+    mesh = mesh_from_flag(args.devices, args.device, "build encode")
     device = resolve_device(args.device)
     model = _load_model(args.checkpoint, args.inplanes, args.latent_dim, device)
     db = TorchLatentVectorDatabase(
@@ -67,6 +54,7 @@ def cmd_build(args) -> None:
             device=str(device),
             latent_dim=args.latent_dim,
         ),
+        mesh=mesh,
     )
     t0 = time.time()
     if multiphase:
@@ -186,7 +174,7 @@ def cmd_query(args) -> None:
 
     with _open_scan(args) as (raw, batches):
         raw_dtype = raw.dtype
-        _check_devices(args)
+        mesh = mesh_from_flag(args.devices, args.device, "pipeline")
         device = resolve_device(args.device)
         preprocess = _resolve_static_auto(
             _parse_preprocess(args), raw if batches is None else batches()
@@ -212,6 +200,7 @@ def cmd_query(args) -> None:
             consensus_weight_power=args.weight_power,
             batch_size=args.batch_size,
             engine=args.engine,
+            mesh=mesh,
             device=device,
             preprocess=preprocess,
             **phase_kw,
@@ -345,8 +334,10 @@ def register(sub, common) -> None:
     )
     b.add_argument(
         "--devices", type=int, default=None,
-        help="several cards wait for a later slice: ignored with a warning "
-        "when fewer are attached, refused otherwise",
+        help="shard the build encode over N devices (data-parallel mesh, "
+        "model replicated; latents match the single-device build to float "
+        "roundoff); ignored with a warning when fewer cards are attached, N "
+        "CPU entries with --device cpu. Default: single device",
     )
     b.set_defaults(fn=cmd_build)
 
@@ -389,8 +380,10 @@ def register(sub, common) -> None:
     )
     q.add_argument(
         "--devices", type=int, default=None,
-        help="several cards wait for a later slice: ignored with a warning "
-        "when fewer are attached, refused otherwise",
+        help="run the pipeline data-parallel over N devices: batch-sharded "
+        "encode + row-sharded dictionary search; ignored with a warning when "
+        "fewer cards are attached, N CPU entries with --device cpu (default: "
+        "single device)",
     )
     q.add_argument(
         "--refine", type=int, default=None, metavar="STEPS",

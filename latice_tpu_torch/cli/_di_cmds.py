@@ -10,8 +10,12 @@ import time
 import numpy as np
 import torch
 
-from latice_tpu_torch.cli._common import _load_phase_stacks, _load_raw_pattern_stack
-from latice_tpu_torch.cli._db_cmds import _check_devices, _parse_preprocess, _resolve_static_auto
+from latice_tpu_torch.cli._common import (
+    _load_phase_stacks,
+    _load_raw_pattern_stack,
+    mesh_from_flag,
+)
+from latice_tpu_torch.cli._db_cmds import _parse_preprocess, _resolve_static_auto
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -30,7 +34,7 @@ def cmd_di(args) -> None:
         candidate_ambiguity,
     )
 
-    _check_devices(args)
+    mesh = mesh_from_flag(args.devices, args.device, "DI")
     device = resolve_device(args.device)
     dict_stack, dict_angles, dict_phases, groups = _load_phase_stacks(
         args.dict_patterns, args.dict_angles, args.phase_groups
@@ -58,6 +62,12 @@ def cmd_di(args) -> None:
     if args.streamed:
         # Host-resident rows streamed through the card in fixed chunks:
         # dictionaries beyond device memory.
+        if mesh is not None:
+            logger.warning(
+                "--streamed ignores --devices: the streamed engine is the "
+                "single-chip beyond-HBM path (shard via the resident "
+                "engine instead)"
+            )
         rows = build_pattern_dictionary(
             dict_stack,
             bin_factor=args.bin,
@@ -68,7 +78,8 @@ def cmd_di(args) -> None:
         di = StreamedPatternDI(rows, dict_angles, **knobs)
     else:
         di = PatternDictionaryIndexer(
-            dict_stack, dict_angles, engine=args.engine, search_dtype=args.search_dtype, **knobs
+            dict_stack, dict_angles, engine=args.engine, search_dtype=args.search_dtype,
+            mesh=mesh, **knobs
         )
     t_build = time.time() - t0
     t0 = time.time()
@@ -166,8 +177,9 @@ def register(sub, common) -> None:
     )
     d.add_argument(
         "--devices", type=int, default=None,
-        help="several cards wait for a later slice: ignored with a warning "
-        "when fewer are attached, refused otherwise",
+        help="data-parallel mesh: batch-sharded features + row-sharded "
+        "dictionary NCC; ignored with a warning when fewer cards are "
+        "attached, N CPU entries with --device cpu (default: single device)",
     )
     d.add_argument(
         "--preprocess", default=None, metavar="SPEC",

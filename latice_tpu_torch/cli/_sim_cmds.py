@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np
 
-from latice_tpu_torch.cli._common import _load_raw_pattern_stack, later_slice
+from latice_tpu_torch.cli._common import _load_raw_pattern_stack, mesh_from_flag
 from latice_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -297,8 +297,7 @@ def cmd_master(args) -> None:
     ``.mastermeta.json`` and summary line as the JAX CLI."""
     from latice_tpu_torch.sim import dynamical_beams, dynamical_master_pattern
 
-    if args.devices and args.devices > 1:
-        raise later_slice(f"--devices {args.devices}", "slice C")
+    mesh = mesh_from_flag(args.devices, args.device, "master generation")
     device = resolve_device(args.device)
     structure = _master_structure(args)
     beams = dynamical_beams(
@@ -311,14 +310,15 @@ def cmd_master(args) -> None:
 
         mc = simulate_bse_monte_carlo(
             structure, kv=args.kv, tilt_deg=args.tilt, n_electrons=args.mc_electrons,
-            energy_bins=args.mc_energy_bins, depth_bins=args.mc_depth_bins, device=device,
+            energy_bins=args.mc_energy_bins, depth_bins=args.mc_depth_bins, mesh=mesh,
+            device=device,
         )
         logger.info(f"MC: eta={mc.bse_yield:.3f}, depth p90 "
                     f"{float(np.percentile(mc.max_depth_nm, 90)):.0f} nm")
         img = mc_weighted_master_pattern(
             structure, mc, size=args.size, n_beams=args.beams,
             absorption_ratio=args.absorption, max_hkl=args.max_hkl, min_d=args.min_d,
-            device=device,
+            mesh=mesh, device=device,
         )
         mc_meta = {
             "mc": True,
@@ -331,7 +331,7 @@ def cmd_master(args) -> None:
     else:
         img = dynamical_master_pattern(
             structure, kv=args.kv, size=args.size, depth_nm=args.depth_nm,
-            absorption_ratio=args.absorption, beams=beams, device=device,
+            absorption_ratio=args.absorption, beams=beams, mesh=mesh, device=device,
         )
     dt = time.time() - t0
     out_path = args.out if args.out.endswith(".npy") else args.out + ".npy"
@@ -495,8 +495,8 @@ def register(sub, common) -> None:
                     help="with --mc: sample tilt from the beam, degrees (EBSD: 70)")
     dm.add_argument(
         "--devices", type=int, default=0,
-        help="shard master generation over this many devices (more than one waits for "
-        "slice C)",
+        help="shard master generation over this many devices (ignored with a warning "
+        "when fewer cards are attached; N CPU entries with --device cpu)",
     )
     dm.add_argument("--device", default=None, help="torch device (default: cuda)")
     dm.set_defaults(fn=cmd_master)

@@ -34,7 +34,9 @@ the master at ``--sphere-bandwidth``, same geometry and group) and
 at ``--pc``/``--tilt``, with ``--strain-stiffness`` and
 ``--strain-remap``); with any of them the server may run without ``--db``
 and ``--checkpoint``, the zero-training mode, where ``/index``, ``/encode``
-and ``/reload`` answer 400.
+and ``/reload`` answer 400. ``--shard-dictionary`` shards the dictionary and
+each batch over every attached card (`parallel.make_mesh`); with one device
+it is ignored with a warning.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ import logging
 import os
 
 import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -73,6 +78,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument("--nlpar-radius", type=int, default=1,
                    help="NLPAR search-window half-width (default 1 = 3x3)")
+    p.add_argument(
+        "--shard-dictionary", action="store_true",
+        help="shard the dictionary over all attached cards (1-D mesh; per-shard "
+        "top-k merged on the first card); ignored with a warning on one device",
+    )
     p.add_argument("--checkpoint", default=None, help="reference-layout .pt state dict")
     p.add_argument("--inplanes", type=int, default=32)
     p.add_argument("--latent-dim", type=int, default=16)
@@ -157,7 +167,8 @@ def build_service(args: argparse.Namespace):
     no model. ``--hough`` adds an `index.HoughIndexer` and
     ``--sphere-master`` an `index.SphericalIndexer` and ``--strain-ref`` an
     HR-EBSD reference to either, or they serve alone without ``--db``
-    (zero-training mode). Binds no socket."""
+    (zero-training mode). ``--shard-dictionary`` serves over a mesh of every
+    attached card. Binds no socket."""
     from latice_tpu_torch.cli._common import _load_model, _load_phase_stacks
     from latice_tpu_torch.cli._strain_cmds import _parse_stiffness
     from latice_tpu_torch.data import parse_preprocess_spec
@@ -183,6 +194,15 @@ def build_service(args: argparse.Namespace):
                 "data.estimate_static_background) and pass static=<frame.npy>."
             )
     device = resolve_device(args.device)
+    mesh = None
+    if args.shard_dictionary:
+        from latice_tpu_torch.parallel import make_mesh
+
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            mesh = make_mesh()
+            logger.info(f"sharding dictionary over {mesh.size} devices")
+        else:
+            logger.warning("--shard-dictionary ignored: one device attached")
     common = dict(
         top_n=args.top_n,
         orientation_threshold=args.threshold,
@@ -193,6 +213,7 @@ def build_service(args: argparse.Namespace):
         preprocess=preprocess,
         nlpar_h=args.nlpar,
         nlpar_radius=args.nlpar_radius,
+        mesh=mesh,
         device=device,
     )
     geometry = DetectorGeometry(pcx=args.pc[0], pcy=args.pc[1], dd=args.pc[2], tilt=args.tilt)

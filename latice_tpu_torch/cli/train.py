@@ -62,11 +62,6 @@ def train(config: dict, device: str | None = None):
     devices = trainer_cfg.pop("devices", "auto")
     trainer_cfg.pop("callbacks", None)
     trainer_cfg.pop("_target_", None)
-    if devices not in ("auto", None, 1, "1"):
-        raise ValueError(
-            f"devices={devices}: data-parallel training comes with a later slice of "
-            "the port (slice C); train on one device"
-        )
     if trainer_cfg.get("augment") is not None:
         trainer_cfg["augment"] = maybe_instantiate(trainer_cfg["augment"])
 
@@ -78,8 +73,21 @@ def train(config: dict, device: str | None = None):
     )
     seed = int(config.get("seed") or 0)
 
+    # devices=N (N>1): a data-parallel mesh over the first N cards, or over
+    # N CPU entries when training on the CPU.
+    mesh = None
+    if devices not in ("auto", None, 1, "1"):
+        import torch
+
+        from latice_tpu_torch.parallel import make_mesh
+
+        n = int(devices)
+        on_cpu = torch.device(device or "cuda").type == "cpu"
+        mesh = make_mesh(n, devices=["cpu"] * n if on_cpu else None)
+        logger.info(f"Data-parallel training over mesh: {mesh}")
+
     logger.info("Instantiating trainer <latice_tpu_torch.train.trainer.Trainer>")
-    trainer = Trainer(logger=exp_logger, seed=seed, device=device, **trainer_cfg)
+    trainer = Trainer(logger=exp_logger, seed=seed, mesh=mesh, device=device, **trainer_cfg)
 
     logger.info(f"Instantiating datamodule <{config['data_module']['_target_']}>")
     datamodule = maybe_instantiate(config["data_module"])

@@ -27,7 +27,9 @@ Every product runs at full float32 (`device.full_f32_matmul`), as JAX runs
 them at ``Precision.HIGHEST``: under TF32 the 10-bit mantissa is of the
 size of the 1/upsample-px shift signal the fine grid resolves. uint8 frames
 cross the bus raw and widen on the device. Entry points run on ``cuda``
-unless ``device="cpu"`` is passed; ``mesh=`` waits for slice C.
+unless ``device="cpu"`` is passed. With ``mesh=`` each chunk's patterns
+shard over the mesh's devices (every stage is per pattern and ROI), the
+tables copied to each device; the solve runs on the first device.
 
 Geometry (detector frame of `sim.geometry`: x right, y up, z from the
 sample into the detector, widths as units). A screen point sits at
@@ -52,7 +54,7 @@ import torch
 
 from latice_tpu_torch.crystal.quaternion import quat_to_matrix
 from latice_tpu_torch.device import full_f32_matmul, resolve_device
-from latice_tpu_torch.index.pipeline import _later_slice
+from latice_tpu_torch.parallel.mesh import chunk_device, map_blocks, replicate
 from latice_tpu_torch.sim.geometry import DetectorGeometry
 
 __all__ = [
@@ -281,6 +283,14 @@ def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _run_chunk(fn, arrays, tables, device: torch.device, mesh):
+    """``fn(*chunk arrays, *tables)`` on ``device``, or per mesh device
+    (`parallel.mesh.map_blocks`; ``tables`` holds one tuple per device)."""
+    if mesh is None:
+        return fn(*(_upload(a, device) for a in arrays), *tables[0])
+    return map_blocks(fn, arrays, tables, mesh)
+
+
 def _pad_last(a: np.ndarray, size: int) -> np.ndarray:
     """``a`` padded to ``size`` rows by repeating its last row (the last
     chunk keeps the shape, and the FFT plans, of the others)."""
@@ -313,16 +323,16 @@ def remap_patterns(
             ``A`` (any gauge: the warp is projective).
         geometry: the detector the patterns were captured on.
         chunk: patterns per device pass.
-        mesh: waits for slice C (raises).
+        mesh: optional `parallel.Mesh`: each chunk shards over its
+            devices; ``chunk`` must divide by the mesh size.
         pc: optional ``(B, 3)`` per-pattern ``(pcx, pcy, dd)``: each
             TARGET's own PC; output pixels stay in ``geometry``'s frame.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
 
     Returns ``(B, H, W)`` float32 warped patterns (host numpy).
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
-    device = resolve_device(device)
+    device = chunk_device(mesh, device, chunk)
     x = np.asarray(patterns)
     if x.dtype != np.uint8:  # uint8 ships raw; the device widens it
         x = x.astype(np.float32, copy=False)
@@ -336,15 +346,17 @@ def remap_patterns(
     f = (np.eye(3) + a).astype(np.float32)
     pc_arr = _as_pc_array(geometry, len(x), pc)
     base = torch.from_numpy(_pixel_screen_vectors(geometry)).to(device)
+    tables = [(base,)] if mesh is None else replicate((base,), mesh)
+
+    def warp(xc, fc, pcc, base):
+        return _remap_core(xc, fc, base, pcc)
+
     outs = []
     with torch.no_grad(), full_f32_matmul():
         for start in range(0, len(x), chunk):
             n = len(x[start : start + chunk])
-            xc, fc, pcc = (
-                _upload(_pad_last(arr[start : start + chunk], chunk), device)
-                for arr in (x, f, pc_arr)
-            )
-            outs.append(_remap_core(xc, fc, base, pcc)[:n])
+            arrays = [_pad_last(arr[start : start + chunk], chunk) for arr in (x, f, pc_arr)]
+            outs.append(_run_chunk(warp, arrays, tables, device, mesh)[:n])
         return torch.cat(outs).cpu().numpy()
 
 
@@ -471,7 +483,9 @@ def measure_roi_shifts(
         f_min / f_max: annular Fourier band-pass, cycles per window.
         chunk: patterns per device pass; the last chunk is padded by
             repeating its last pattern.
-        mesh: waits for slice C (raises).
+        mesh: optional `parallel.Mesh`: each chunk shards over its
+            devices, the windows and the reference copied to each;
+            ``chunk`` must divide by the mesh size.
         deformation: optional ``(B, 3, 3)`` displacement gradients: each
             pattern is first remapped through ``I + A`` on the device
             (`_remap_core`, in the same pass, no host round trip), so the
@@ -481,14 +495,13 @@ def measure_roi_shifts(
             ``deformation``).
         pc: optional ``(B, 3)`` per-pattern ``(pcx, pcy, dd)`` for the
             remap warp; default: the geometry's fixed PC.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
 
     Returns:
         ``(shifts (B, R, 2) float64 (d_row, d_col) px, quality (B, R))``.
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
-    device = resolve_device(device)
+    device = chunk_device(mesh, device, chunk)
     x = np.asarray(patterns)
     if x.dtype != np.uint8:  # uint8 ships raw; the device widens it
         x = x.astype(np.float32, copy=False)
@@ -519,27 +532,32 @@ def measure_roi_shifts(
         f_mats = (np.eye(3) + a).astype(np.float32)
         pc_arr = _as_pc_array(geometry, len(x), pc)
         base = torch.from_numpy(_pixel_screen_vectors(geometry)).to(device)
+    else:
+        base = None
 
     hann = torch.from_numpy(_hann2(roi_size)).to(device)
     fmask = torch.from_numpy(_annular_mask(roi_size, f_min, f_max)).to(device)
     roi_index = torch.from_numpy(_roi_index(rint, roi_size, x.shape[2])).to(device)
     ref_dev = torch.from_numpy(np.array(ref)).to(device)
+    tables = (ref_dev, hann, fmask, roi_index, base)
+    tables = [tables] if mesh is None else replicate(tables, mesh)
+
+    def shifts_of(xc, *rest):
+        if f_mats is not None:
+            fc, pcc, ref_t, hann_t, fmask_t, roi_t, base_t = rest
+            # Chained on the device: the warped chunk never visits host.
+            xc = _remap_core(xc, fc, base_t, pcc)
+        else:
+            ref_t, hann_t, fmask_t, roi_t, _ = rest
+        return _xcorr_shifts(ref_t, xc, hann_t, fmask_t, roi_t, roi_size, upsample, window_px)
 
     out_s, out_q = [], []
     with torch.no_grad(), full_f32_matmul():
         for start in range(0, len(x), chunk):
             n = len(x[start : start + chunk])
-            xc = _upload(_pad_last(x[start : start + chunk], chunk), device)
-            if f_mats is not None:
-                fc, pcc = (
-                    _upload(_pad_last(arr[start : start + chunk], chunk), device)
-                    for arr in (f_mats, pc_arr)
-                )
-                # Chained on the device: the warped chunk never visits host.
-                xc = _remap_core(xc, fc, base, pcc)
-            s_dev, q_dev = _xcorr_shifts(
-                ref_dev, xc, hann, fmask, roi_index, roi_size, upsample, window_px
-            )
+            sources = (x,) if f_mats is None else (x, f_mats, pc_arr)
+            arrays = [_pad_last(arr[start : start + chunk], chunk) for arr in sources]
+            s_dev, q_dev = _run_chunk(shifts_of, arrays, tables, device, mesh)
             out_s.append(s_dev[:n])
             out_q.append(q_dev[:n])
         shifts = torch.cat(out_s).cpu().numpy().astype(np.float64)
@@ -746,7 +764,9 @@ def hrebsd_map(
             crystal frame as the detector frame.
         min_quality: drop ROIs whose XCF peak falls below this.
         chunk: patterns per device pass.
-        mesh: waits for slice C (raises).
+        mesh: optional `parallel.Mesh`, forwarded to `measure_roi_shifts`
+            (the shift measurement shards; the 8x8 solves and the closure
+            run on the first device).
         remap_iterations: iterative remapping passes after the
             first-order solve: remap each pattern through ``F = I + A``,
             re-correlate, compose ``F ← F (I + A_res)``, accepted PER
@@ -760,11 +780,10 @@ def hrebsd_map(
             (required with ``calibration``).
         pc: alternative to ``calibration``: an explicit ``(B, 3)``
             per-pattern ``(pcx, pcy, dd)`` field.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
-    device = resolve_device(device)
+    device = chunk_device(mesh, device, chunk)
     x = np.asarray(patterns)  # uint8 passes through to the device's widening
     if calibration is not None:
         if pc is not None:
@@ -781,7 +800,7 @@ def hrebsd_map(
         centers = default_roi_centers(geometry, roi_size=roi_size)
     measure = dict(
         roi_size=roi_size, upsample=upsample, f_min=f_min, f_max=f_max, chunk=chunk,
-        device=device,
+        mesh=mesh, device=device,
     )
     shifts, quality = measure_roi_shifts(reference, x, centers, **measure)
     a_gauge, rms = solve_deformation(

@@ -21,7 +21,12 @@ algorithm beside the latent `index.pipeline` and the pattern `index.pattern_di`:
 Every geometric product runs in full f32 (`device.full_f32_matmul`): bf16
 or TF32 rounding is the size of 1 - cos(5°). Selections the JAX package
 made with one-hot products are plain indexing here; they give the same
-values. ``mesh=`` waits for slice C.
+values.
+
+With ``mesh=`` the orientation grid is the plane's dictionary: its chunks
+shard over the mesh's devices, each device votes over and refines its own
+block's top candidates, and the per-device winners merge on the first
+device by the same soft band-credit rank (ties to the lowest device).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from latice_tpu_torch.crystal import reduce_to_fundamental_zone, sample_fundamen
 from latice_tpu_torch.data.hough import BandDetection, BandDetector
 from latice_tpu_torch.device import full_f32_matmul
 from latice_tpu_torch.index.knn import topk_lower_index_first
-from latice_tpu_torch.index.pipeline import _later_slice
+from latice_tpu_torch.parallel.mesh import check_mesh_device, replicate
 from latice_tpu_torch.sim.geometry import DetectorGeometry
 from latice_tpu_torch.sim.kinematical import _quat_rotate
 
@@ -216,8 +221,12 @@ class HoughIndexer:
             ``(B, n_bands, grid_chunk, K)`` vote tensor.
         intensity_weight: weight of the band-intensity factor in the soft
             band-credit ranking (0 disables it).
-        mesh: waits for slice C; anything but None raises.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        mesh: optional `parallel.Mesh`: the grid's chunks (their count
+            padded to the mesh size) shard over its devices, each device
+            refines its own top candidates, and the winners merge by rank
+            on the first device (the band detection runs there too).
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
     """
 
     def __init__(
@@ -240,7 +249,8 @@ class HoughIndexer:
         device: str | torch.device | None = None,
     ) -> None:
         if mesh is not None:
-            raise _later_slice("mesh")
+            device = check_mesh_device(mesh, device)
+        self.mesh = mesh
         self.geometry = geometry or DetectorGeometry()
         h, w = self.geometry.shape
         self.group = group
@@ -274,6 +284,13 @@ class HoughIndexer:
         pad = (-len(grid)) % grid_chunk
         if pad:
             grid = np.concatenate([grid, np.tile(grid[:1], (pad, 1))])
+        if mesh is not None:
+            # The chunk count padded to the mesh size, so every device holds
+            # an equal block; pad rows are copies of grid[0], masked by
+            # their global position.
+            chunk_pad = (-(len(grid) // grid_chunk)) % mesh.size
+            if chunk_pad:
+                grid = np.concatenate([grid, np.tile(grid[:1], (chunk_pad * grid_chunk, 1))])
         self.grid_chunk = grid_chunk
         dev = self.device
         self._grid_q = torch.as_tensor(grid, dtype=torch.float32, device=dev)  # (Mp, 4)
@@ -281,6 +298,17 @@ class HoughIndexer:
         self._refl_i = torch.as_tensor(refl_i, device=dev)
         # Rotated reflector normals, once per indexer: (Mp, K, 3).
         self._grid_normals = _quat_rotate(self._grid_q, self._refl)
+        self._blocks = None
+        if mesh is not None:
+            # Per device: (row offset, grid block, its normals, reflectors,
+            # intensities), the block on its own device.
+            rows = len(grid) // mesh.size
+            refl_reps = replicate((self._refl, self._refl_i), mesh)
+            self._blocks = [
+                (i * rows, self._grid_q[i * rows : (i + 1) * rows].to(d, copy=True),
+                 self._grid_normals[i * rows : (i + 1) * rows].to(d, copy=True), *reps)
+                for i, (d, reps) in enumerate(zip(mesh.devices, refl_reps))
+            ]
         # The vote gate uses the grid's covering radius (~2x its mean
         # resolution): gating at the assignment tolerance would zero the
         # true basin's vote when its nearest grid point is that far off.
@@ -290,14 +318,34 @@ class HoughIndexer:
 
     @torch.inference_mode()
     def _solve(self, nrm: torch.Tensor, wts: torch.Tensor):
-        """Vote over the grid, then refine: see `_index_bands`."""
+        """Vote over the grid, then refine: see `_index_bands`; with a mesh,
+        per grid block and merged by rank."""
+        kw = dict(
+            tol_rad=self.tol_rad, vote_tol_rad=self.vote_tol_rad,
+            refine_iters=self.refine_iters, top_p=self.top_p, m_valid=self.m_valid,
+            i_weight=self.i_weight, grid_chunk=self.grid_chunk,
+        )
         with full_f32_matmul():
-            return _index_bands(
-                nrm, wts, self._grid_q, self._grid_normals, self._refl, self._refl_i,
-                tol_rad=self.tol_rad, vote_tol_rad=self.vote_tol_rad,
-                refine_iters=self.refine_iters, top_p=self.top_p, m_valid=self.m_valid,
-                i_weight=self.i_weight, grid_chunk=self.grid_chunk,
-            )
+            if self._blocks is None:
+                return _index_bands(
+                    nrm, wts, self._grid_q, self._grid_normals, self._refl, self._refl_i, **kw
+                )
+            first = self.mesh.devices[0]
+            outs = [
+                _index_bands(
+                    nrm.to(d), wts.to(d), grid_q, grid_normals, refl, refl_i,
+                    row_offset=offset, **kw,
+                )
+                for d, (offset, grid_q, grid_normals, refl, refl_i)
+                in zip(self.mesh.devices, self._blocks)
+            ]
+            fields = [torch.stack([o[f].to(first) for o in outs]) for f in range(5)]
+            # The first maximum is the lowest device: device 0 holds the
+            # real grid[0] rows, so an all-pad block's copy never displaces
+            # the genuine candidate.
+            best = fields[4].argmax(dim=0)  # (B,)
+            rows = torch.arange(best.shape[0], device=first)
+            return tuple(f[best, rows] for f in fields)
 
     def index_bands(
         self, normals: np.ndarray, weights: np.ndarray
@@ -402,7 +450,7 @@ def _to_host(out) -> tuple[np.ndarray, ...]:
 
 
 def _index_bands(nrm, wts, grid_q, grid_normals, refl, refl_i, *, tol_rad, vote_tol_rad,
-                 refine_iters, top_p, m_valid, i_weight, grid_chunk):
+                 refine_iters, top_p, m_valid, i_weight, grid_chunk, row_offset=0):
     """Vote over the grid, then q-method refinement. Call inside
     `device.full_f32_matmul`.
 
@@ -414,6 +462,9 @@ def _index_bands(nrm, wts, grid_q, grid_normals, refl, refl_i, *, tol_rad, vote_
         grid_normals: (Mp, K, 3) rotated reflector normals.
         refl: (K, 3) crystal-frame reflector normals.
         refl_i: (K,) reflector intensities, max-normalized to [0, 1].
+        row_offset: global position of this grid block's first row (0 on
+            one device; a mesh block's offset), since ``m_valid`` addresses
+            global grid positions.
 
     Returns ``(q (B, 4), fit_rad (B,), n_matched (B,), vote (B,),
     band_score (B,))`` on the device.
@@ -435,7 +486,9 @@ def _index_bands(nrm, wts, grid_q, grid_normals, refl, refl_i, *, tol_rad, vote_
     # Chunk-padding rows are copies of grid[0] with live votes; left in,
     # they could fill the candidate list with one orientation.
     scores = torch.where(
-        torch.arange(scores.shape[1], device=scores.device) < m_valid, scores, float("-inf")
+        row_offset + torch.arange(scores.shape[1], device=scores.device) < m_valid,
+        scores,
+        float("-inf"),
     )
     # The vote only has to put the right basin somewhere in the top few:
     # near-ties are broken after refinement.

@@ -21,13 +21,13 @@ import numpy as np
 import torch
 
 from latice_tpu_torch.data import DPDataModule, default_transform
-from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.index.db import (
     LatentVectorDatabaseBase,
     LatentVectorDatabaseConfig,
     TorchLatentVectorDatabase,
 )
 from latice_tpu_torch.index.result import OrientationResult
+from latice_tpu_torch.parallel.mesh import chunk_device, gather_rows, replicate, shard_batch
 
 logger = logging.getLogger(__name__)
 
@@ -74,8 +74,12 @@ class DiffractionPatternIndexer:
         config: the indexer's configuration.
         timer: optional object whose ``phase(name)`` context times the
             encode and search phases of the query methods.
-        mesh: several devices wait for a later slice of the port; anything
-            but None raises.
+        mesh: optional `parallel.Mesh`: encode batches shard over its
+            devices, each block encoded by that device's copy of the model
+            (rows are independent through the conv stack, so the latents
+            are the one-device build's to float roundoff).
+            ``config.batch_size`` must divide by the mesh size, and
+            ``config.device`` must be the mesh's first device.
     """
 
     def __init__(
@@ -86,13 +90,10 @@ class DiffractionPatternIndexer:
         timer: Any | None = None,
         mesh: Any | None = None,
     ) -> None:
-        if mesh is not None:
-            raise ValueError(
-                "mesh is not ported to latice_tpu_torch yet; it waits for a later slice"
-            )
         self.timer = timer
         self.config = config if config is not None else IndexerConfig()
-        self.device = resolve_device(self.config.device)
+        self.mesh = mesh
+        self.device = chunk_device(mesh, self.config.device, self.config.batch_size)
         self.db = (
             db
             if db is not None
@@ -101,7 +102,8 @@ class DiffractionPatternIndexer:
             )
         )
         self.model = model.to(self.device).eval()
-        logger.info(f"Using device: {self.device}")
+        self._replicas = None if mesh is None else replicate(self.model, mesh)
+        logger.info(f"Using device: {self.device}" if mesh is None else f"Using mesh: {mesh}")
 
     def _phase(self, name: str):
         return self.timer.phase(name) if self.timer is not None else contextlib.nullcontext()
@@ -117,7 +119,12 @@ class DiffractionPatternIndexer:
         n = len(batch)
         if n < bs:
             batch = np.concatenate([batch, np.zeros((bs - n,) + batch.shape[1:], batch.dtype)])
-        host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
+        batch = np.ascontiguousarray(batch, dtype=np.float32)
+        if self.mesh is not None:
+            blocks = shard_batch(batch, self.mesh)
+            mu = [m.encode(x.permute(0, 3, 1, 2))[0] for m, x in zip(self._replicas, blocks)]
+            return gather_rows(mu, self.mesh), n
+        host = torch.from_numpy(batch)
         if self.device.type == "cuda":
             host = host.pin_memory()
         x = host.to(self.device, non_blocking=True).permute(0, 3, 1, 2)

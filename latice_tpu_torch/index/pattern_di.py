@@ -38,6 +38,7 @@ from latice_tpu_torch.index.pipeline import (
     device_batches,
     model_units,
 )
+from latice_tpu_torch.parallel.mesh import chunk_device
 
 __all__ = [
     "PatternDictionaryIndexer",
@@ -148,9 +149,10 @@ class PatternDictionaryIndexer:
             (ignored for precomputed rows).
         dict_batch_size: patterns per batch of the dictionary build.
         Everything else (top_n, orientation_threshold,
-        min_required_matches, batch_size, device, dictionary_phases,
+        min_required_matches, batch_size, device, mesh, dictionary_phases,
         phase_symmetries, consensus_weight_power, ...) goes to
-        `IndexPipeline` unchanged.
+        `IndexPipeline` unchanged; with ``mesh`` the queries shard by batch
+        and the feature rows by row.
     """
 
     def __init__(
@@ -177,17 +179,21 @@ class PatternDictionaryIndexer:
             vectors = pats  # precomputed rows (host or device)
         else:
             # Built in the engine's dtype on the device: an f32 table at
-            # unbinned sizes is twice the bf16 one.
+            # unbinned sizes is twice the bf16 one. With a mesh the rows go
+            # back to the host, and each shard is copied from there to its
+            # own device (a build kept on the first device would hold the
+            # whole table there).
+            mesh = pipeline_kw.get("mesh")
             vectors = build_pattern_dictionary(
                 pats,
                 bin_factor=bin_factor,
                 batch_size=dict_batch_size,
                 preprocess=dict_preprocess,
-                as_numpy=False,
+                as_numpy=mesh is not None,
                 dtype=torch.bfloat16
                 if search_dtype == "bfloat16" and engine != "int8"
                 else torch.float32,
-                device=resolve_device(pipeline_kw.get("device")),
+                device=chunk_device(mesh, pipeline_kw.get("device")),
             )
         self.bin_factor = bin_factor
         self.pipeline = IndexPipeline(

@@ -1,4 +1,4 @@
-"""End-to-end indexer: patterns in, orientations out, on one device.
+"""End-to-end indexer: patterns in, orientations out, on one device or a mesh.
 
 The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
 device: uint8 ``/255``, an optional preprocess, the VAE encoder's ``mu``,
@@ -7,6 +7,12 @@ the candidate search (the CUDA kernel `ops.cosine_topk_fused` for
 "int8"), the symmetry-aware consensus and the Euler angles. One host-to-device copy of the patterns
 and one device-to-host copy of the results per batch; every batch of a
 call is enqueued before the first result is copied back.
+
+With ``mesh=`` (`parallel.make_mesh`) each batch splits over the mesh's
+devices, each block encoded by that device's replica of the model; the
+latents gather on the first device, the dictionary is row-sharded and
+searched shard by shard (`parallel.sharded_cosine_topk_inner`), and the
+consensus runs on the first device.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from latice_tpu_torch.index.knn import (
     topk_lower_index_first,
 )
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
+from latice_tpu_torch.parallel.mesh import check_mesh_device, gather_rows, replicate, shard_batch
 
 __all__ = [
     "CandidateConsensus",
@@ -71,12 +78,8 @@ def concat_dense_results(results) -> DenseIndexResult:
     return DenseIndexResult(**fields, phase=phase)
 
 
-def _later_slice(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported to latice_tpu_torch yet; it waits for a later slice")
-
-
 class IndexPipeline:
-    """Indexer over a fixed dictionary, on one device.
+    """Indexer over a fixed dictionary, on one device or a mesh.
 
     Args:
         model: the port's VAE (`models.VariationalAutoEncoderRawData`); it
@@ -102,7 +105,13 @@ class IndexPipeline:
             int32 products, `index.knn.cosine_topk_int8`).
         recall_target: the approx engine's target recall.
         device: where everything runs; ``cuda`` unless given, and a missing
-            CUDA device raises.
+            CUDA device raises. With ``mesh``, the mesh's first device (or
+            None); any other device raises.
+        mesh: optional `parallel.Mesh`: each batch shards over its devices
+            for the encode (the model replicated), and the dictionary rows
+            shard for the search, every engine per shard with one merge of
+            the ``devices * k`` candidates on the first device.
+            ``batch_size`` must divide by the mesh size.
         preprocess: optional correction of the ``(B, H, W)`` float32 device
             patterns, run after the uint8 ``/255`` and before the encoder (or
             ``feature_fn``): a callable, or a `data.PreprocessConfig`
@@ -116,8 +125,7 @@ class IndexPipeline:
             rounded to bf16, while the products and scores stay f32. The
             fused and int8 engines ignore it.
 
-    The dictionary is cast or quantized once, here. ``mesh`` raises
-    ``ValueError`` until a later slice of the port brings it.
+    The dictionary is cast or quantized once, here.
     """
 
     def __init__(
@@ -146,35 +154,59 @@ class IndexPipeline:
             raise ValueError(f"unknown engine {engine!r}")
         if search_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown search_dtype {search_dtype!r}")
-        if mesh is not None:
-            raise _later_slice("mesh")
         preprocess = as_preprocess_fn(preprocess)
         if feature_fn is None and model is None:
             raise ValueError("pass a model or a feature_fn")
         if feature_fn is not None and model is not None:
             raise ValueError("model and feature_fn are mutually exclusive")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = check_mesh_device(mesh, device)
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide by mesh size {mesh.size}"
+                )
+        else:
+            self.device = resolve_device(device)
         self.engine = engine
         self.batch_size = batch_size
         self.feature_fn = feature_fn
         self.preprocess = preprocess
         self.recall_target = recall_target
         self.model = None if model is None else model.to(self.device).eval()
+        self._replicas = None
+        if mesh is not None and self.model is not None:
+            self._replicas = replicate(self.model, mesh)
         if isinstance(dictionary_vectors, torch.Tensor):
             # Taken in its dtype (a bf16 table stays bf16), without a host copy.
-            vectors = dictionary_vectors.to(self.device)
+            vectors = dictionary_vectors if mesh is not None else dictionary_vectors.to(self.device)
+        elif mesh is not None:
+            # A host table stays on the host until each shard is copied
+            # straight to its own device.
+            vectors = np.asarray(dictionary_vectors, np.float32)
         else:
             vectors = torch.as_tensor(
                 np.asarray(dictionary_vectors, np.float32), device=self.device
             )
         self._n = len(vectors)
         if engine == "int8":
+            vectors = quantize_dictionary_int8(vectors)[0]
+        elif search_dtype == "bfloat16" and engine in ("exact", "approx"):
+            vectors = (
+                torch.from_numpy(vectors).bfloat16()
+                if isinstance(vectors, np.ndarray)
+                else vectors.to(torch.bfloat16)
+            )
+        if mesh is not None:
+            from latice_tpu_torch.parallel.sharded_knn import shard_dictionary
+
+            self._dict = shard_dictionary(vectors, mesh)
+        elif engine == "int8":
             # Zero rows up to a multiple of 8 for the int8 tensor cores;
             # the search reads the first _n columns of its products.
-            vectors = pad_rows(quantize_dictionary_int8(vectors)[0])
-        elif search_dtype == "bfloat16" and engine in ("exact", "approx"):
-            vectors = vectors.to(torch.bfloat16)
-        self._dict = vectors.contiguous()
+            self._dict = pad_rows(vectors).contiguous()
+        else:
+            self._dict = vectors.contiguous()
         self._k = min(top_n, self._n)
         self.consensus = CandidateConsensus(
             dictionary_orientations,
@@ -189,18 +221,34 @@ class IndexPipeline:
         )
         self.n_phases = self.consensus.n_phases
 
-    def _encode(self, patterns: torch.Tensor) -> torch.Tensor:
+    def _encode(self, patterns) -> torch.Tensor:
         """``mu`` (or the ``feature_fn`` features) of ``(B, H, W)`` uint8 or
-        f32 device patterns."""
+        f32 device patterns; with a mesh, of its per-device row blocks,
+        gathered on the first device."""
+        if self.mesh is not None:
+            models = self._replicas or [None] * self.mesh.size
+            return gather_rows(
+                [self._encode_block(m, block) for m, block in zip(models, patterns)], self.mesh
+            )
+        return self._encode_block(self.model, patterns)
+
+    def _encode_block(self, model, patterns: torch.Tensor) -> torch.Tensor:
         patterns = model_units(patterns, self.preprocess)
         if self.feature_fn is not None:
             return self.feature_fn(patterns)
-        return self.model.encode(patterns[:, None])[0]
+        return model.encode(patterns[:, None])[0]
 
     def _search(self, mu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Best-first ``(scores, indices)`` of the ``(B, D)`` features with
         the configured engine."""
         k = self._k
+        if self.mesh is not None:
+            from latice_tpu_torch.parallel.sharded_knn import sharded_cosine_topk_inner
+
+            return sharded_cosine_topk_inner(
+                mu, self._dict, k, self.mesh, n_valid=self._n,
+                engine=self.engine, recall_target=self.recall_target,
+            )
         if self.engine == "fused":
             return cosine_topk_fused(mu, self._dict, k)
         if self.engine == "int8":
@@ -218,6 +266,11 @@ class IndexPipeline:
         return self.consensus(scores, indices)
 
     def _batches(self, patterns: np.ndarray):
+        """``(n_real, batch)`` pairs: each batch on the device, or its
+        per-device row blocks, each copied from the host to its device."""
+        if self.mesh is not None:
+            return ((n, shard_batch(chunk, self.mesh))
+                    for n, chunk in padded_batches(_host_stack(patterns), self.batch_size))
         return device_batches(patterns, self.batch_size, self.device)
 
     @torch.inference_mode()
@@ -262,10 +315,9 @@ def model_units(patterns: torch.Tensor, preprocess=None) -> torch.Tensor:
     return patterns
 
 
-def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
-    """``(n_real, device batch)`` pairs of a ``(B, H, W[, 1])`` host stack,
-    each batch zero-padded to ``batch_size`` rows; uint8 stays uint8 (the
-    device divides it by 255), other dtypes become float32."""
+def _host_stack(patterns: np.ndarray) -> np.ndarray:
+    """A ``(B, H, W[, 1])`` host stack as ``(B, H, W)``: uint8 stays uint8
+    (the device divides it by 255), other dtypes become float32."""
     x = np.asarray(patterns)
     if x.dtype != np.uint8:
         x = x.astype(np.float32, copy=False)
@@ -273,7 +325,14 @@ def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
         x = x[..., 0]
     if x.ndim != 3:
         raise ValueError(f"expected (B, H, W) or (B, H, W, 1) patterns, got {x.shape}")
-    for n, chunk in padded_batches(x, batch_size):
+    return x
+
+
+def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
+    """``(n_real, device batch)`` pairs of a ``(B, H, W[, 1])`` host stack,
+    each batch zero-padded to ``batch_size`` rows; uint8 stays uint8 (the
+    device divides it by 255), other dtypes become float32."""
+    for n, chunk in padded_batches(_host_stack(patterns), batch_size):
         host = torch.from_numpy(np.ascontiguousarray(chunk))
         if device.type == "cuda":
             # Pinned, so the copy is queued and the host moves on to

@@ -47,7 +47,11 @@ On the CPU everything is float32 with true float32 products
 
 Newton's derivatives are written out: X is a finite trig series in (α, γ)
 and a quartic Lagrange interpolation in β over 5 grid rows, so its gradient
-and Hessian are sums of the same terms. ``mesh=`` waits for slice C.
+and Hessian are sums of the same terms.
+
+With ``mesh=`` the tables are copied to every device of the mesh and each
+pattern chunk splits over the devices, the per-device results gathered on
+the first one.
 """
 
 from __future__ import annotations
@@ -60,9 +64,9 @@ import torch
 
 from latice_tpu_torch.crystal.sampling import reduce_to_fundamental_zone
 from latice_tpu_torch.crystal.symmetry import ROTATION_GROUPS
-from latice_tpu_torch.device import full_f32_matmul, resolve_device
+from latice_tpu_torch.device import full_f32_matmul
 from latice_tpu_torch.index.knn import topk_lower_index_first
-from latice_tpu_torch.index.pipeline import _later_slice
+from latice_tpu_torch.parallel.mesh import chunk_device, gather_rows, replicate, shard_batch
 from latice_tpu_torch.sim.geometry import DetectorGeometry, pixel_directions
 from latice_tpu_torch.sim.master import directions_to_lambert
 from latice_tpu_torch.sim.sht import (
@@ -514,10 +518,13 @@ class SphericalIndexer:
         master: ``(N, N)`` master in `sim.master`'s equal-area convention.
         geometry: detector description the patterns were captured with.
         config: `SphericalIndexerConfig`.
-        mesh: waits for slice C (raises).
+        mesh: optional `parallel.Mesh`: the tables are replicated and each
+            pattern chunk shards over the devices; ``config.chunk`` must
+            divide by the mesh size.
         tables: optional `projection_tables` of this bandwidth, binned
             shape and β grid, shared between indexers.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
 
     Setup is one-time per (master, geometry): the master's harmonic
     analysis, the Wigner ``m̂·d`` block tables and the projection matrix,
@@ -533,12 +540,11 @@ class SphericalIndexer:
         tables: dict | None = None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise _later_slice("mesh")
-        self.device = resolve_device(device)
-        self.geometry = geometry or DetectorGeometry()
         self.config = config or SphericalIndexerConfig()
         cfg = self.config
+        self.mesh = mesh
+        self.device = chunk_device(mesh, device, cfg.chunk)
+        self.geometry = geometry or DetectorGeometry()
         L = cfg.bandwidth
         h, w = self.geometry.shape
         if h % cfg.detector_bin or w % cfg.detector_bin:
@@ -616,17 +622,32 @@ class SphericalIndexer:
             k_n=k_n,
             a_n=a_n,
         )
+        # One copy of the tables per mesh device (the first on the first).
+        self._dev_copies = None if mesh is None else replicate(self._dev, mesh)
 
     def _chunks(self, p: np.ndarray):
         """``(slice, device chunk)`` pairs, the last padded to the chunk
-        size with copies of its final pattern (every pass has one shape)."""
+        size with copies of its final pattern (every pass has one shape);
+        with a mesh the chunk is its per-device row blocks."""
         chunk = self.config.chunk
         for start in range(0, len(p), chunk):
             pc = p[start : start + chunk]
             m = len(pc)
             if m < chunk:
                 pc = np.concatenate([pc, np.repeat(pc[-1:], chunk - m, axis=0)])
-            yield slice(start, start + m), m, torch.from_numpy(pc).to(self.device)
+            if self.mesh is not None:
+                yield slice(start, start + m), m, shard_batch(pc, self.mesh)
+            else:
+                yield slice(start, start + m), m, torch.from_numpy(pc).to(self.device)
+
+    def _map(self, fn, pc, *args):
+        """``fn(chunk, tables, *args)`` on one device, or on each mesh
+        device's block with its own tables, the outputs gathered on the
+        first device."""
+        if self.mesh is None:
+            return fn(pc, self._dev, *args)
+        outs = [fn(block, tabs, *args) for block, tabs in zip(pc, self._dev_copies)]
+        return tuple(gather_rows(parts, self.mesh) for parts in zip(*outs))
 
     @torch.inference_mode()
     def index_patterns(self, patterns: np.ndarray) -> SphericalResult:
@@ -647,12 +668,12 @@ class SphericalIndexer:
             nbs = np.empty((n, 3, 3, 3), np.float64)
         for sl, m, pc in self._chunks(p):
             if mode == "newton":
-                out = _correlate_chunk(pc, self._dev, cfg.detector_bin, "newton",
-                                       cfg.newton_steps)
+                out = self._map(_correlate_chunk, pc, cfg.detector_bin, "newton",
+                                cfg.newton_steps)
                 for dst, val in zip((peaks, beta, alpha, gamma), out):
                     dst[sl] = val[:m].double().cpu().numpy()
             else:
-                out = _correlate_chunk(pc, self._dev, cfg.detector_bin)
+                out = self._map(_correlate_chunk, pc, cfg.detector_bin)
                 for dst, val in zip((peaks, ks, as_, gs, nbs), out):
                     dst[sl] = val[:m].cpu().numpy()
 
@@ -711,7 +732,7 @@ class SphericalIndexer:
         vals = np.empty((n, n_cells), np.float64)
         ks, as_, gs = (np.empty((n, n_cells), np.int64) for _ in range(3))
         for sl, m, pc in self._chunks(p):
-            out = _top_cells_chunk(pc, self._dev, cfg.detector_bin, n_cells)
+            out = self._map(_top_cells_chunk, pc, cfg.detector_bin, n_cells)
             for dst, val in zip((vals, ks, as_, gs), out):
                 dst[sl] = val[:m].cpu().numpy()
 
@@ -763,7 +784,8 @@ class MultiPhaseSphericalIndexer:
         config: shared `SphericalIndexerConfig`; per-phase symmetry from
             ``symmetries`` (``config.symmetry`` for every phase otherwise).
         symmetries: optional per-phase proper point groups.
-        mesh: waits for slice C (raises).
+        mesh: optional `parallel.Mesh`, forwarded to every phase's
+            `SphericalIndexer`.
         tables: optional `projection_tables`, built here once for all the
             phases when not given.
         device: ``cuda`` unless given; a missing CUDA device raises.
@@ -779,8 +801,6 @@ class MultiPhaseSphericalIndexer:
         tables: dict | None = None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise _later_slice("mesh")
         masters = list(masters)
         if not masters:
             raise ValueError("need at least one master pattern")
@@ -796,8 +816,8 @@ class MultiPhaseSphericalIndexer:
         if tables is None:
             tables = projection_tables(cfg.bandwidth, geometry, cfg.detector_bin, cfg.beta_count)
         self.indexers = [
-            SphericalIndexer(m, geometry, dataclasses.replace(cfg, symmetry=s), tables=tables,
-                             device=device)
+            SphericalIndexer(m, geometry, dataclasses.replace(cfg, symmetry=s), mesh=mesh,
+                             tables=tables, device=device)
             for m, s in zip(masters, symmetries)
         ]
 

@@ -69,10 +69,10 @@ import torch
 
 from latice_tpu_torch.data import BandDetector, nlpar_denoise, prepare_patterns
 from latice_tpu_torch.data.transforms import _int_scale
-from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.hrebsd import hrebsd_map, von_mises_strain
 from latice_tpu_torch.index import IndexPipeline, PatternDictionaryIndexer
 from latice_tpu_torch.index.pipeline import as_preprocess_fn
+from latice_tpu_torch.parallel.mesh import chunk_device
 from latice_tpu_torch.utils.device import get_platform
 
 logger = logging.getLogger(__name__)
@@ -125,7 +125,12 @@ class IndexService:
             the other keys pass through to `hrebsd.hrebsd_map`
             (``stiffness``, ``remap_iterations``, ``roi_size``, ...), and
             ``chunk`` defaults to 128. It may serve alone too.
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        mesh: optional `parallel.Mesh`: the dictionary shards over its
+            devices and each ``/index`` and ``/encode`` batch shards over
+            them (see `index.IndexPipeline`; ``batch_size`` must divide by
+            the mesh size); ``/healthz`` reports ``mesh_devices``.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
     """
 
     def __init__(
@@ -149,6 +154,7 @@ class IndexService:
         hough_indexer=None,
         sphere_indexer=None,
         strain_config: dict | None = None,
+        mesh=None,
         device: str | torch.device | None = None,
     ) -> None:
         self._strain = None
@@ -169,7 +175,8 @@ class IndexService:
                 "pass model and db, di_dictionary for pattern-DI mode, or at least one "
                 "zero-training plane (hough_indexer, sphere_indexer or strain_config)"
             )
-        self.device = resolve_device(device)
+        self.device = chunk_device(mesh, device)
+        self.mesh = mesh
         phase_kw = {}
         if di_dictionary is not None:
             if len(di_dictionary) == 4 and di_dictionary[2] is not None:
@@ -191,6 +198,7 @@ class IndexService:
             batch_size=batch_size,
             engine=engine,
             preprocess=preprocess,
+            mesh=mesh,
             device=device,
             **phase_kw,
         )
@@ -507,6 +515,7 @@ class IndexService:
             "batch_size": 0 if self.pipeline is None else int(self.pipeline.batch_size),
             "multiphase": bool(multiphase),
             "planes": planes,
+            "mesh_devices": 0 if self.mesh is None else int(self.mesh.size),
             "model_version": self.model_version,
             "uptime_s": time.time() - self.started,
             "requests": self.requests,

@@ -38,7 +38,9 @@ measured-depth quadrature. The products run at full float32
 the solver's own roundoff. ``eigh`` checks its convergence on the host, so
 each chunk waits for the device once; the chunks' results stay on the
 device and come back in one copy. Entry points run on ``cuda`` unless
-``device="cpu"`` is passed; ``mesh=`` waits for slice C.
+``device="cpu"`` is passed. With ``mesh=`` each direction chunk shards
+over the mesh's devices (each direction's eigenproblem is independent), the
+beam tables copied to each.
 
 Eigenvectors are unique only up to sign, and up to a rotation inside a
 degenerate eigenspace (zone axes and mirror lines of the master). Every
@@ -57,8 +59,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from latice_tpu_torch.device import full_f32_matmul, resolve_device
-from latice_tpu_torch.index.pipeline import _later_slice
+from latice_tpu_torch.device import full_f32_matmul
+from latice_tpu_torch.parallel.mesh import chunk_device, map_blocks, replicate
 from latice_tpu_torch.sim.kinematical import _direct_basis, electron_wavelength
 from latice_tpu_torch.sim.master import lambert_to_directions
 
@@ -610,16 +612,16 @@ def channeling_intensities(
         depth_centers_nm / depth_weights: optional MEASURED generation-
             depth histogram (both or neither; same length; weights are
             normalized here), e.g. a `sim.montecarlo` energy bin's row.
-        mesh: waits for slice C (raises).
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        mesh: optional `parallel.Mesh`: each chunk shards over its devices;
+            ``chunk`` must divide by the mesh size.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
 
     Returns ``dirs.shape[:-1]`` float32 intensities (host numpy).
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
     if (depth_centers_nm is None) != (depth_weights is None):
         raise ValueError("pass depth_centers_nm and depth_weights together (or neither)")
-    dev = resolve_device(device)
+    dev = chunk_device(mesh, device, chunk)
     d = np.asarray(dirs, np.float32)
     lead = d.shape[:-1]
     d = d.reshape(-1, 3)
@@ -633,6 +635,7 @@ def channeling_intensities(
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     g, coupling, bs = dev32(beams.g), dev32(beams.coupling), dev32(beams.backscatter)
+    ci = bi = z_ang = z_w = None
     if not beams.is_centrosymmetric:
         ci, bi = dev32(beams.coupling_imag), dev32(beams.backscatter_imag)
     q_scale = float(absorption_ratio * beams.u0 / (2.0 * beams.k_int))  # 1/Å per unit sigma
@@ -650,6 +653,20 @@ def channeling_intensities(
             raise ValueError("depth_weights must have positive mass")
         z_ang, z_w = dev32(zc * 10.0), dev32(zw / total)  # nm → Å
     k_int = beams.k_int
+
+    def run(dc, g, coupling, bs, ci, bi, z_ang, z_w):
+        if depth_centers_nm is not None:
+            if beams.is_centrosymmetric:
+                return _channel_chunk_quad(dc, g, coupling, bs, z_ang, z_w, k_int, q_scale)
+            return _channel_chunk_hermitian_quad(
+                dc, g, coupling, ci, bs, bi, z_ang, z_w, k_int, q_scale
+            )
+        if beams.is_centrosymmetric:
+            return _channel_chunk(dc, g, coupling, bs, k_int, q_scale, z0)
+        return _channel_chunk_hermitian(dc, g, coupling, ci, bs, bi, k_int, q_scale, z0)
+
+    tables = (g, coupling, bs, ci, bi, z_ang, z_w)
+    copies = None if mesh is None else replicate(tables, mesh)
     parts = []
     with full_f32_matmul():
         for start in range(0, n, chunk):
@@ -657,18 +674,10 @@ def channeling_intensities(
             m = len(dc)
             if m < chunk:  # pad to the chunk shape, as the JAX package does
                 dc = np.concatenate([dc, np.tile(dc[-1:], (chunk - m, 1))])
-            dc = dev32(dc)
-            if depth_centers_nm is not None:
-                if beams.is_centrosymmetric:
-                    res = _channel_chunk_quad(dc, g, coupling, bs, z_ang, z_w, k_int, q_scale)
-                else:
-                    res = _channel_chunk_hermitian_quad(
-                        dc, g, coupling, ci, bs, bi, z_ang, z_w, k_int, q_scale
-                    )
-            elif beams.is_centrosymmetric:
-                res = _channel_chunk(dc, g, coupling, bs, k_int, q_scale, z0)
+            if mesh is None:
+                res = run(dev32(dc), *tables)
             else:
-                res = _channel_chunk_hermitian(dc, g, coupling, ci, bs, bi, k_int, q_scale, z0)
+                res = map_blocks(run, [np.ascontiguousarray(dc, np.float32)], copies, mesh)
             parts.append(res[:m])
     out = torch.cat(parts).cpu().numpy() if parts else np.empty(0, np.float32)
     return out.reshape(lead)
@@ -713,19 +722,19 @@ def dynamical_master_pattern(
         normalize: min-max normalize to [0, 1].
         beams: a precomputed `dynamical_beams` result (the selection
             arguments are then ignored).
-        mesh: waits for slice C (raises).
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        mesh: optional `parallel.Mesh`: the pixel chunks shard over its
+            devices (see `channeling_intensities`).
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
     if size < 3:
         raise ValueError(f"master size must be >= 3, got {size}")
-    dev = resolve_device(device)
+    dev = chunk_device(mesh, device, chunk)
     if beams is None:
         beams = dynamical_beams(structure, kv=kv, n_beams=n_beams, max_hkl=max_hkl, min_d=min_d)
     img = channeling_intensities(
         lambert_master_directions(size), beams, depth_nm=depth_nm,
-        absorption_ratio=absorption_ratio, chunk=chunk, device=dev,
+        absorption_ratio=absorption_ratio, chunk=chunk, mesh=mesh, device=dev,
     )
     if normalize:
         lo, hi = float(img.min()), float(img.max())

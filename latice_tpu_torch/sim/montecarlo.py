@@ -48,8 +48,7 @@ import math
 import numpy as np
 import torch
 
-from latice_tpu_torch.device import resolve_device
-from latice_tpu_torch.index.pipeline import _later_slice
+from latice_tpu_torch.parallel.mesh import chunk_device
 from latice_tpu_torch.sim.dynamical import (
     CrystalStructure,
     channeling_intensities,
@@ -252,11 +251,13 @@ def simulate_bse_monte_carlo(
         seed: RNG seed (deterministic for a fixed seed, chunk and count).
         chunk: walkers per device pass (at most ``n_electrons``).
         z / a / density_g_cm3: explicit effective medium override.
-        mesh: waits for slice C (raises).
-        device: ``cuda`` unless given; a missing CUDA device raises.
+        mesh: optional `parallel.Mesh`: chunk ``i`` walks on device
+            ``i % mesh.size`` from the same ``_sub_seed(seed, i)`` as on one
+            device, so the result is bit-equal to one device's on devices
+            of one type.
+        device: ``cuda`` unless given; a missing CUDA device raises. With
+            ``mesh``, the mesh's first device or None.
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
     if structure is not None:
         z_eff, a_eff, rho = effective_medium(structure)
     else:
@@ -271,7 +272,8 @@ def simulate_bse_monte_carlo(
         rho = float(density_g_cm3)
     if not 0.0 <= tilt_deg < 90.0:
         raise ValueError(f"tilt_deg must be in [0, 90), got {tilt_deg}")
-    dev = resolve_device(device)
+    dev = chunk_device(mesh, device)
+    walkers = [dev] if mesh is None else list(mesh.devices)
     e_min = float(e_min_kev if e_min_kev is not None else kv / 10.0)
     t = math.radians(tilt_deg)
     chunk = max(1, min(int(chunk), int(n_electrons)))
@@ -283,10 +285,11 @@ def simulate_bse_monte_carlo(
         m = min(chunk, n_electrons - done)
         ee, mz = _walk_chunk(
             _sub_seed(seed, chunk_index), n=chunk, n_steps=n_steps, z=z_eff, a=a_eff,
-            density=rho, e_min_kev=e_min, e0_kev=float(kv), tilt_rad=t, device=dev,
+            density=rho, e_min_kev=e_min, e0_kev=float(kv), tilt_rad=t,
+            device=walkers[chunk_index % len(walkers)],
         )
-        exits.append(ee[:m])
-        depths.append(mz[:m])
+        exits.append(ee[:m].to(dev))
+        depths.append(mz[:m].to(dev))
         done += m
         chunk_index += 1
     exit_e = torch.cat(exits).cpu().numpy() if exits else np.empty(0, np.float32)
@@ -369,13 +372,12 @@ def mc_weighted_master_pattern(
     distribution as the absorption quadrature, summed in float64 with the
     bin's electron weight. Bins lighter than ``min_bin_weight`` fold into
     their nearest kept neighbour (`fold_energy_bins`). Output matches
-    `dynamical_master_pattern`'s equal-area convention.
+    `dynamical_master_pattern`'s equal-area convention. ``mesh`` shards
+    each bin's pixel chunks (`channeling_intensities`).
     """
-    if mesh is not None:
-        raise _later_slice("mesh")
     if size < 3:
         raise ValueError(f"master size must be >= 3, got {size}")
-    dev = resolve_device(device)
+    dev = chunk_device(mesh, device, chunk)
     d = lambert_master_directions(size)
     centers = mc.energy_centers_kev
     kept, weights = fold_energy_bins(mc.energy_weights, min_bin_weight)
@@ -386,7 +388,8 @@ def mc_weighted_master_pattern(
         )
         part = channeling_intensities(
             d, beams, absorption_ratio=absorption_ratio, chunk=chunk,
-            depth_centers_nm=mc.depth_centers_nm, depth_weights=mc.depth_weights[b], device=dev,
+            depth_centers_nm=mc.depth_centers_nm, depth_weights=mc.depth_weights[b],
+            mesh=mesh, device=dev,
         )
         img += weights[b] * part.astype(np.float64)
     if normalize:

@@ -27,7 +27,7 @@ import torch
 
 from latice_tpu_torch.data.datamodule import pad_batch
 from latice_tpu_torch.data.prefetch import prefetch_to_device
-from latice_tpu_torch.device import resolve_device
+from latice_tpu_torch.parallel.mesh import chunk_device
 from latice_tpu_torch.train.checkpoint import CheckpointManager
 from latice_tpu_torch.train.metrics import EpochAggregator
 from latice_tpu_torch.train.module import VAEModule
@@ -61,8 +61,11 @@ class Trainer:
         checkpoint_dir: directory for top-k checkpoints; None disables.
         save_top_k / monitor: checkpoint selection (reference: 5 on
             Epoch_val_loss).
-        mesh: data-parallel training over several cards; raises until the
-            multi-device slice of the port.
+        mesh: optional `parallel.Mesh` for data-parallel training: each
+            padded batch splits over the model's replicas, the noise drawn
+            once for the global batch, the gradients summed on the first
+            device (`train.steps`); validation splits the same way. The
+            data module's batch size must divide by the mesh size.
         log_every_n_steps: step-metric logging cadence.
         seed: seed of the weights and of the noise streams.
         enable_progress_bar: a live train/val bar per epoch on stderr
@@ -78,6 +81,7 @@ class Trainer:
         denoising: with ``augment``, train the denoising-VAE objective
             (reconstruct the clean batch from the augmented input).
         device: where to train; ``cuda`` unless the caller asks for another.
+            With ``mesh``, the mesh's first device or None.
     """
 
     def __init__(
@@ -97,11 +101,6 @@ class Trainer:
         denoising: bool = False,
         device: str | torch.device | None = None,
     ) -> None:
-        if mesh is not None:
-            raise ValueError(
-                "mesh: data-parallel training comes with a later slice of the port "
-                "(slice C); train on one device"
-            )
         if augment is not None and not callable(augment):
             from latice_tpu_torch.data.augment import AugmentConfig, make_augment_fn
 
@@ -113,7 +112,8 @@ class Trainer:
             augment = make_augment_fn(augment)
         self.augment = augment
         self.denoising = denoising
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = chunk_device(mesh, device)
         self.max_epochs = max_epochs
         self.precision = precision
         self.logger = logger
@@ -212,6 +212,11 @@ class Trainer:
         batch_size = getattr(datamodule, "batch_size", None)
         if batch_size is None:
             batch_size = len(next(iter(datamodule.train_batches()))[0])
+        if self.mesh is not None and batch_size % self.mesh.size:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by the mesh size {self.mesh.size}: "
+                "batches are padded to the static size and then split over the mesh"
+            )
 
         global_step = 0
         if resume and self.checkpoints is not None:
@@ -226,15 +231,19 @@ class Trainer:
                 logger.info("No checkpoint to resume from; starting fresh")
 
         train_step = make_train_step(
-            module.loss_fn, augment=self.augment, denoising=self.denoising, seed=self.seed
+            module.loss_fn, augment=self.augment, denoising=self.denoising, seed=self.seed,
+            mesh=self.mesh,
         )
-        eval_step = make_eval_step(module.loss_fn, return_recon=self.recon_figure, seed=self.seed)
+        eval_step = make_eval_step(
+            module.loss_fn, return_recon=self.recon_figure, seed=self.seed, mesh=self.mesh
+        )
         self.model, self.optimizer = model, optimizer
 
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(
             f"Training {n_params / 1e6:.2f}M params for {self.max_epochs} epochs "
-            f"on {self.device} (precision={self.precision})"
+            f"on {self.device if self.mesh is None else self.mesh} "
+            f"(precision={self.precision})"
         )
 
         for epoch in range(self.start_epoch, self.max_epochs):

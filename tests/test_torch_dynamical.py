@@ -270,9 +270,10 @@ def test_validation_and_refusals():
                                   depth_weights=np.zeros(3), device="cpu")
     with pytest.raises(ValueError, match="master size must be >= 3"):
         pd.dynamical_master_pattern(pd.cubic_structure(), size=2, device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_paths.py runs it).
+    with pytest.raises(TypeError, match="Mesh"):
         pd.channeling_intensities(d, beams, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         pd.dynamical_master_pattern(pd.cubic_structure(), mesh=object(), device="cpu")
 
 

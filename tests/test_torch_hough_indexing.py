@@ -299,5 +299,6 @@ def test_validation_and_mesh_refused():
         thi.HoughIndexer(refl, tsim.DetectorGeometry(), detector=det)
     with pytest.raises(ValueError, match="bands"):
         thi.HoughIndexer(refl, geom, n_bands=12, detector=det)
-    with pytest.raises(ValueError, match="later slice"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_paths.py runs it).
+    with pytest.raises(TypeError, match="Mesh"):
         thi.HoughIndexer(refl, geom, detector=det, mesh=object())

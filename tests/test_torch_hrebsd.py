@@ -368,7 +368,8 @@ def test_validation_and_device():
                           device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         th.default_roi_centers(PortGeometry(shape=(64, 64)), roi_size=64)
-    with pytest.raises(ValueError, match="later slice"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_paths.py runs it).
+    with pytest.raises(TypeError, match="Mesh"):
         th.hrebsd_map(z[None], z, PGEOM, roi_size=ROI, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         # Entry points run on cuda unless asked: no silent CPU run.

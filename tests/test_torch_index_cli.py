@@ -32,6 +32,17 @@ N = 24
 SMALL = ["--inplanes", "2", "--latent-dim", "8", "--batch-size", "16"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _restore_global_rng():
+    """Leave torch's global RNG as this module found it. The port's CLI
+    builds its model inside the library (its constructor's default init
+    draws from the global RNG before the checkpoint or the seeded weights
+    replace it), and tests in other files build torch models from it
+    unseeded, so their weights must not depend on which files ran first."""
+    with torch.random.fork_rng(devices=[]):
+        yield
+
+
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")
@@ -186,14 +197,22 @@ def test_ported_query_flags_index(files, tmp_path, capsys, flags):
 
 
 def test_devices_and_engines(files, capsys, monkeypatch, caplog):
+    """``--devices 4`` with ``--device cpu`` builds over a mesh of four CPU
+    entries, the same dictionary as one device's (to float roundoff); on
+    cards, fewer attached than asked for is JAX's warning and one device."""
+    from latice_tpu_torch.cli._common import mesh_from_flag
+
     base = ["build", "--patterns", str(files / "dict.npy"), "--angles",
-            str(files / "dict.txt"), "--db", str(files / "dev.npz"), "--device", "cpu"] + SMALL
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(SystemExit, match="slice C"):
-        _run_port(base + ["--devices", "4"], capsys)
+            str(files / "dict.txt"), "--device", "cpu"] + SMALL
+    caplog.set_level("INFO")
+    _run_port(base + ["--db", str(files / "dev1.npz")], capsys)
+    _run_port(base + ["--db", str(files / "dev.npz"), "--devices", "4"], capsys)
+    assert "sharding build encode over 4 devices" in caplog.text
+    one, four = np.load(files / "dev1.npz"), np.load(files / "dev.npz")
+    np.testing.assert_allclose(four["vectors"], one["vectors"], rtol=0, atol=1e-5)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    _run_port(base + ["--devices", "4"], capsys)
-    assert "--devices 4 ignored" in caplog.text
+    assert mesh_from_flag(4, None, "build encode") is None
+    assert "--devices 4 ignored: only 1 attached" in caplog.text
     query = ["query", "--patterns", str(files / "dict.npy"), "--db", str(files / "dev.npz"),
              "--device", "cpu", "--out", str(files / "dev_o.npy")] + SMALL
     for engine in ("int8", "approx"):  # ported: they index

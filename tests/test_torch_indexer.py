@@ -136,7 +136,8 @@ def test_timer_and_refusals(setup):
     port_ix.db.add_vectors(np.eye(LATENT, dtype=np.float32), np.zeros((LATENT, 3)))
     port_ix.index_pattern(np.load(setup["paths"][0][0])[0])
     assert phases == ["encode", "search"]
-    with pytest.raises(ValueError, match="later slice"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_paths.py runs it).
+    with pytest.raises(TypeError, match="Mesh"):
         DiffractionPatternIndexer(setup["tm"], config=IndexerConfig(device="cpu"), mesh=object())
     with pytest.raises(ValueError, match="must be configured"):
         port_ix._make_datamodule(None, None)

@@ -8,8 +8,9 @@
 * ``--mc`` at 2,000 electrons: the same summary and sidecar keys, the same
   beams, bins and edges; the yield and the energy weights come from other
   draws and are held by `SIGMAS` binomial standard errors.
-* The element parser's errors, ``--devices 2`` (one card until slice C)
-  and a machine without a card.
+* The element parser's errors, ``--devices 2`` (a mesh of two CPU entries
+  with ``--device cpu``, the one-device master bit for bit) and a machine
+  without a card.
 """
 
 from __future__ import annotations
@@ -103,9 +104,10 @@ def test_element_errors_match_jax(argv, message, monkeypatch, capsys):
 
 
 def test_master_devices_and_missing_card(tmp_path):
-    with pytest.raises(SystemExit, match="later slice"):
-        port_cli.main(["master", "--devices", "2", "--out", str(tmp_path / "m.npy"),
+    for devices in ("0", "2"):
+        port_cli.main(["master", "--devices", devices, "--out", str(tmp_path / f"m{devices}.npy"),
                        "--device", "cpu"] + SMALL)
+    np.testing.assert_array_equal(np.load(tmp_path / "m2.npy"), np.load(tmp_path / "m0.npy"))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal is for machines without one")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -123,7 +123,8 @@ def test_validation():
     with pytest.raises(ValueError, match="backscattered"):
         psim.simulate_bse_monte_carlo(_ni(), kv=20.0, e_min_kev=19.999, n_electrons=512,
                                       n_steps=4, chunk=512, device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
+    # mesh= takes a parallel.Mesh (tests/test_torch_parallel_paths.py runs it).
+    with pytest.raises(TypeError, match="Mesh"):
         psim.simulate_bse_monte_carlo(_ni(), mesh=object(), device="cpu", **FAST)
     with pytest.raises(ValueError, match="unknown element"):
         psim.effective_medium(psim.CrystalStructure(

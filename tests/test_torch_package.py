@@ -198,7 +198,9 @@ def test_kernel_wrappers_never_run_plain_off_the_cpu():
 
 
 def test_unported_options_raise(tmp_path):
-    """What the port still refuses: ``mesh`` (slice C). The DB's
+    """What the port still refuses: a ``mesh`` that is not a
+    `parallel.Mesh` (tests/test_torch_parallel_paths.py runs the real one;
+    nothing else refuses since the multi-device slice). The DB's
     ``native`` engine, once refused here, answers on the host (it raises
     ``ImportError`` only where g++ cannot build it). ``--sphere-master``
     and ``/sphere``, and
@@ -217,7 +219,7 @@ def test_unported_options_raise(tmp_path):
 
     model = VariationalAutoEncoderRawData(inplanes=2, latent_dim=4, n_stages=3)
     vecs, orients = np.eye(4, dtype=np.float32), np.zeros((4, 3))
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         IndexPipeline(model, vecs, orients, device="cpu", mesh=object())
     from latice_tpu_torch import native
 

@@ -22,7 +22,7 @@ padded), and L=24 for the two-phase case, as tests/index/test_spherical.py.
   symmetric images may be listed in another order.
 * `MultiPhaseSphericalIndexer`: JAX's phases and per-phase scores.
 * Everything runs on ``cuda`` unless given ``device="cpu"``; ``mesh=``
-  waits for slice C.
+  takes a `parallel.Mesh` (tests/test_torch_parallel_paths.py runs it).
 """
 
 import dataclasses
@@ -260,10 +260,10 @@ def test_validation_and_refusals(setup):
         ts.SphericalIndexerConfig(symmetry="999")
     with pytest.raises(ValueError, match="refine"):
         ts.SphericalIndexerConfig(refine="cubic")
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         ts.SphericalIndexer(setup["master"], setup["tgeom"], setup["tcfg"], mesh=object(),
                             tables=setup["ttab"], device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         ts.MultiPhaseSphericalIndexer([setup["master"]], setup["tgeom"], setup["tcfg"],
                                       mesh=object(), device="cpu")
     if not torch.cuda.is_available():

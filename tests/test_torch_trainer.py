@@ -125,11 +125,13 @@ def test_checkpoint_manager_prunes_by_monitor(tmp_path):
 
 
 def test_trainer_unported_options_raise():
-    """``mesh`` still waits for slice C; ``augment`` (a callable or a
-    `data.AugmentConfig`) and ``denoising``, once refused here, are taken."""
+    """``mesh`` takes a `parallel.Mesh` (anything else raises;
+    tests/test_torch_parallel_train.py trains over one); ``augment`` (a
+    callable or a `data.AugmentConfig`) and ``denoising``, once refused
+    here, are taken."""
     from latice_tpu_torch.data import AugmentConfig
 
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         Trainer(device="cpu", mesh=object())
     identity = lambda g, b: b  # noqa: E731
     assert Trainer(device="cpu", augment=identity).augment is identity
@@ -175,8 +177,11 @@ def test_instantiate_maps_targets_to_the_port():
     assert isinstance(aug, AugmentConfig) and aug.noise_std == 0.05
     assert port_target("latice_tpu.data.StreamedDPDataModule") == (
         f"{StreamedDPDataModule.__module__.rsplit('.', 1)[0]}.StreamedDPDataModule")
+    # latice_tpu.parallel, the last package without a port, now has one.
+    mesh = instantiate({"_target_": "latice_tpu.parallel.make_mesh", "devices": ["cpu"] * 2})
+    assert type(mesh).__module__ == "latice_tpu_torch.parallel.mesh" and mesh.size == 2
     with pytest.raises(ImportError, match="port has no"):
-        instantiate({"_target_": "latice_tpu.parallel.make_mesh"})
+        instantiate({"_target_": "latice_tpu.parallel.no_such_helper"})
     assert port_target("latice_tpu.train.trainer.Trainer") == "latice_tpu_torch.train.trainer.Trainer"
 
 
@@ -213,6 +218,11 @@ def test_cli_without_device_needs_cuda(dataset, tmp_path):
 
 
 def test_cli_refuses_several_devices(dataset, tmp_path):
-    with pytest.raises(ValueError, match="later slice"):
-        train_main(["--device", "cpu", "--config-path", str(ROOT / "conf"),
+    """``trainer.devices=4`` builds its mesh over the first four cards, so
+    a machine without them refuses it; with ``--device cpu`` the mesh is
+    four CPU entries (tests/test_torch_parallel_cli.py trains over it)."""
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("four cards are attached; the refusal is for machines without them")
+    with pytest.raises(ValueError, match="Requested 4 devices but only"):
+        train_main(["--config-path", str(ROOT / "conf"),
                     *_cli_args(dataset, tmp_path), "trainer.devices=4"])
