@@ -120,8 +120,8 @@ def sharded_cosine_topk(
         queries: (B, D), host numpy or a tensor (placed on the mesh's first
             device as f32 by this call).
         dictionary_sharded: `shard_dictionary`'s table; L2-normalized float
-            for "exact"/"approx"/"fused" (a bf16 table rounds the queries
-            to bf16 too, as the one-device bf16 search does),
+            for "exact"/"approx"/"fused" (a bf16 table is multiplied by
+            the f32 queries, as the JAX package's sharded search does),
             int8-quantized (`quantize_dictionary_int8`) for "int8".
         k: neighbours.
         mesh: the device mesh.
@@ -177,12 +177,10 @@ def sharded_cosine_topk_inner(
     elif engine == "fused":
         q_base = queries.float().contiguous()  # the kernel normalizes
     else:
+        # f32 queries against each shard in its own dtype, products and sums
+        # in f32 (`cosine_scores`): the JAX package's sharded search. Only
+        # the one-device bf16 engine rounds its queries too.
         q_base = l2_normalize(queries.float())
-        if dictionary_sharded.dtype == torch.bfloat16:
-            # Both operands rounded, products and sums in f32: the one-device
-            # engine's bf16 search (the JAX package's sharded search
-            # multiplies f32 queries into its bf16 shards instead).
-            q_base = q_base.bfloat16()
     parts_s, parts_i = [], []
     for shard_id, (dev, shard) in enumerate(zip(mesh.devices, dictionary_sharded.shards)):
         offset = shard_id * shard_rows

@@ -21,8 +21,13 @@ def _restore_global_rng():
         yield
 
 
+def _example_twins():
+    return sorted(p for p in (ROOT / "examples").glob("*_torch.py") if p.stem != "common_torch")
+
+
 def _port_files():
-    return sorted((ROOT / "latice_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "latice_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -45,6 +50,26 @@ def test_port_files_exist():
 def test_no_jax_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_example_twins_import_no_jax_script():
+    """The seven `examples/*_torch.py` twins exist, and they and the
+    module they share, `examples/common_torch.py`, import from `examples`
+    only each other, never the JAX scripts beside them."""
+    twins = _example_twins()
+    assert len(twins) == 7, twins
+    for path in twins + [ROOT / "examples" / "common_torch.py"]:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.ImportFrom) and node.module == "examples":
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("examples."):
+                names = [node.module.split(".", 1)[1]]
+            elif isinstance(node, ast.Import):
+                names = [a.name.split(".", 1)[1] for a in node.names
+                         if a.name.startswith("examples.")]
+            else:
+                continue
+            assert all(n.endswith("_torch") for n in names), f"{path} imports {names}"
 
 
 def _cuda_absent():

@@ -13,7 +13,9 @@ devices (tests/conftest.py). The same seeded numpy inputs go through
   the reciprocal, one ulp apart), and the port's unsharded int8 bit for
   bit;
 * approx: recall@10 >= 0.9 against the exact top-k, as JAX's own tests hold
-  its approx engine.
+  its approx engine;
+* a bf16 table (exact, and approx at 128 rows a shard): f32 queries times
+  the bf16 shards, indices equal to JAX's and scores within 1e-5.
 
 `dp_dispatch_plan`'s cases are tests/parallel/test_parallel.py's.
 """
@@ -237,6 +239,25 @@ class TestShardedSearch:
         )
         np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
         np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("engine, n", [("exact", 8192), ("approx", 512)])
+    def test_bf16_table_matches_jax(self, mesh, jax_mesh, engine, n):
+        """A bf16 table multiplied by the f32 queries, as JAX's sharded
+        search does: indices equal, scores within 1e-5 (rounding the
+        queries to bf16 too moves the scores by ~1e-3). The approx case
+        keeps each shard at 128 rows, where both engines select exactly."""
+        rng = np.random.default_rng(n)
+        d = _unit(rng.normal(size=(n, 16)).astype(np.float32))
+        q = rng.normal(size=(64, 16)).astype(np.float32)
+        s_ref, i_ref = jax_sharded_topk(
+            jnp.asarray(q), jax_shard_dictionary(jnp.asarray(d, jnp.bfloat16), jax_mesh),
+            20, jax_mesh, n_valid=n, engine=engine,
+        )
+        table = shard_dictionary(torch.from_numpy(d).bfloat16(), mesh)
+        assert table.dtype == torch.bfloat16
+        s, i = sharded_cosine_topk(q, table, 20, mesh, n_valid=n, engine=engine)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
 
     def test_ties_keep_the_lower_global_index(self, mesh):
         """Duplicate rows on different shards: the merge keeps lax.top_k's

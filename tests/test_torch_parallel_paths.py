@@ -13,10 +13,12 @@ tests/parallel/test_parallel.py):
 * `IndexService`: ``/healthz`` reports ``mesh_devices``; ``/index`` and
   ``/encode`` equal the unsharded service's.
 * Pattern DI: indices equal to the resident indexer's and to JAX's mesh DI,
-  scores within 1e-5.
+  scores within 1e-5, in f32 and with the default bf16 table.
 * `HoughIndexer`: the band score at least the one-device score minus 0.01
   (each grid block refines its own candidates, so the merged winner can
-  only rank as well or better), orientations where the scores tie.
+  only rank as well or better), orientations where the scores tie; against
+  JAX's mesh `HoughIndexer`, Euler triples within 1e-3 degrees and band
+  scores within 1.2e-3.
 * `SphericalIndexer`, its ambiguity diagnostic and the multi-phase class:
   scores within 1e-5.
 * HR-EBSD's remap, shifts and map: ``a`` within 1e-6.
@@ -191,6 +193,25 @@ def test_pattern_di_matches_resident_and_jax(latent, mesh):
     np.testing.assert_allclose(four.scores, want.scores, rtol=0, atol=1e-5)
 
 
+def test_pattern_di_bf16_matches_jax_mesh(latent, mesh):
+    """The default ``search_dtype="bfloat16"``: each bf16 shard multiplied
+    by the f32 query features, as JAX's mesh DI does. Both indexers take
+    JAX's bf16 feature rows: the two builds' f32 features are one ulp apart
+    in places, which flips a few bf16 roundings of the table (38 of 65,536
+    here, scores 1.1e-5 apart) and would hide what this holds."""
+    from latice_tpu.index.pattern_di import build_pattern_dictionary as jax_build
+
+    rng = np.random.default_rng(6)
+    pats, angles = latent["pats"][:64], latent["orients"][:64]
+    rows = np.asarray(jax_build(pats, dtype=jnp.bfloat16)).astype(np.float32)
+    queries = pats[:BATCH + 3] + rng.normal(size=(BATCH + 3, SIZE, SIZE)).astype(np.float32) * 0.05
+    kw = dict(top_n=5, min_required_matches=1, batch_size=BATCH)
+    four = PatternDictionaryIndexer(rows, angles, mesh=mesh, device="cpu", **kw)(queries)
+    want = JaxPatternDI(rows, angles, mesh=jax_make_mesh(4), **kw)(queries)
+    np.testing.assert_array_equal(four.indices, want.indices)
+    np.testing.assert_allclose(four.scores, want.scores, rtol=0, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def band_patterns():
     from scipy.spatial.transform import Rotation as R
@@ -214,6 +235,32 @@ def test_hough_over_mesh(band_patterns, mesh):
     tie = np.abs(four.band_score - one.band_score) < 1e-5
     assert tie.mean() > 0.5
     np.testing.assert_allclose(four.eulers_deg[tie], one.eulers_deg[tie], atol=1e-3)
+
+
+def test_hough_over_mesh_matches_jax_mesh(band_patterns, mesh):
+    """The same 12 patterns through JAX's mesh `HoughIndexer` on 4 devices:
+    Euler triples within 1e-3 degrees, band scores within 1.2e-3 (the bf16
+    Radon product's rounding; 1.14e-3 measured)."""
+    from latice_tpu.data.hough import BandDetector as JaxDetector
+    from latice_tpu.index import HoughIndexer as JaxHough
+    from latice_tpu.sim import DetectorGeometry as JaxGeometry
+    from latice_tpu.sim import cubic_reflectors as jax_cubic_reflectors
+
+    geom, pats = band_patterns
+    det_kw = dict(height=64, width=64, n_theta=90, n_rho=64, k=8, band_width_px=5.0,
+                  batch_size=8)
+    kw = dict(grid_resolution_deg=6.0, n_bands=8, tolerance_deg=4.0, batch_size=8,
+              grid_chunk=128)
+    four = HoughIndexer(tsim.cubic_reflectors(), geom, mesh=mesh,
+                        detector=BandDetector(device="cpu", **det_kw), **kw)(pats)
+    jax_ix = JaxHough(jax_cubic_reflectors(), JaxGeometry(shape=(64, 64)), mesh=jax_make_mesh(4),
+                      detector=JaxDetector(**det_kw), **kw)
+    # The JAX mesh solve is a `shard_map` run op by op unless jitted (~80 s
+    # for these 12 patterns on the CPU); jitted it is the same program.
+    jax_ix._solve = jax.jit(jax_ix._solve)
+    want = jax_ix(pats)
+    np.testing.assert_allclose(four.eulers_deg, np.asarray(want.eulers_deg), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(four.band_score, np.asarray(want.band_score), rtol=0, atol=1.2e-3)
 
 
 @pytest.fixture(scope="module")
