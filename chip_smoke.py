@@ -5834,15 +5834,19 @@ def _fused_vs_materialized(state: dict) -> dict:
                 leaves=len(grad_err))
 
 
-def _phase_of(evt) -> str:
-    """The labelled region (or the backward pass) a host event ran in."""
+def _phase_of(evt, spans, trace_start_ns: int) -> str:
+    """The labelled region (or the backward pass) a host event ran in: the
+    innermost ``train:*`` program span (`utils.profiling.span`) open at the
+    event's start, on the profiler's clock."""
     node = evt
     while node.cpu_parent is not None:
         node = node.cpu_parent
     if node.name.startswith("autograd::engine"):
         return "backward"
-    if node.name.startswith("train:"):
-        return node.name[len("train:"):]
+    at = trace_start_ns + int(evt.time_range.start * 1e3)
+    inside = [s for s in spans if s.start_ns <= at <= s.end_ns]
+    if inside:
+        return min(inside, key=lambda s: s.end_ns - s.start_ns).name[len("train:"):]
     return "unlabelled"
 
 
@@ -5906,6 +5910,7 @@ def _train_profile(model, decoder: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from latice_tpu_torch.train import Trainer, VAELoss, make_optimizer, make_train_step
+    from latice_tpu_torch.utils.profiling import recorded
 
     model.set_precision("16-mixed")
     trainer = Trainer(precision="16-mixed", device="cuda")
@@ -5925,10 +5930,12 @@ def _train_profile(model, decoder: str) -> None:
     for name, dev_ms, _ in kernels:
         by_name[_kernel_group(name)] = by_name.get(_kernel_group(name), 0.0) + dev_ms
     by_part: dict[str, float] = {}
+    spans = [s for s in recorded().spans if s.name.startswith("train:")]
+    trace_start_ns = prof.profiler.kineto_results.trace_start_ns()
     for evt in prof.events():
         for k in getattr(evt, "kernels", []):
             group = _kernel_group(k.name)
-            part = _phase_of(evt)
+            part = _phase_of(evt, spans, trace_start_ns)
             if group == "convolution":
                 group = f"convolution ({part})"
             elif group in ("other", "copy", "optimizer"):

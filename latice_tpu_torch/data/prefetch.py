@@ -16,6 +16,8 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from latice_tpu_torch.utils.profiling import span
+
 __all__ = ["prefetch_host", "prefetch_to_device"]
 
 
@@ -126,7 +128,12 @@ def prefetch_host(iterable: Iterable[Any], size: int = 2) -> Iterator[Any]:
 
     def _worker() -> None:
         try:
-            for item in iterable:
+            it = iter(iterable)
+            while True:
+                with span("prefetch:produce"):
+                    item = next(it, _END)
+                if item is _END:
+                    break
                 if not _put(("item", item)):
                     return
         except BaseException as e:  # re-raised on the consumer side
@@ -138,7 +145,8 @@ def prefetch_host(iterable: Iterable[Any], size: int = 2) -> Iterator[Any]:
     thread.start()
     try:
         while True:
-            kind, payload = q.get()
+            with span("prefetch:wait"):
+                kind, payload = q.get()
             if kind is _END:
                 return
             if kind == "error":

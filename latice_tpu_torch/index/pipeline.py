@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables, to_euler_zxz_deg
-from latice_tpu_torch.data import padded_batches
+from latice_tpu_torch.data import pad_batch, padded_batches
 from latice_tpu_torch.device import resolve_device
 from latice_tpu_torch.index.consensus import consensus_orientations
 from latice_tpu_torch.index.knn import (
@@ -37,6 +37,7 @@ from latice_tpu_torch.index.knn import (
 )
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 from latice_tpu_torch.parallel.mesh import check_mesh_device, gather_rows, replicate, shard_batch
+from latice_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "CandidateConsensus",
@@ -225,12 +226,13 @@ class IndexPipeline:
         """``mu`` (or the ``feature_fn`` features) of ``(B, H, W)`` uint8 or
         f32 device patterns; with a mesh, of its per-device row blocks,
         gathered on the first device."""
-        if self.mesh is not None:
-            models = self._replicas or [None] * self.mesh.size
-            return gather_rows(
-                [self._encode_block(m, block) for m, block in zip(models, patterns)], self.mesh
-            )
-        return self._encode_block(self.model, patterns)
+        with span("index:encode"):
+            if self.mesh is not None:
+                models = self._replicas or [None] * self.mesh.size
+                return gather_rows(
+                    [self._encode_block(m, block) for m, block in zip(models, patterns)], self.mesh
+                )
+            return self._encode_block(self.model, patterns)
 
     def _encode_block(self, model, patterns: torch.Tensor) -> torch.Tensor:
         patterns = model_units(patterns, self.preprocess)
@@ -241,25 +243,26 @@ class IndexPipeline:
     def _search(self, mu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Best-first ``(scores, indices)`` of the ``(B, D)`` features with
         the configured engine."""
-        k = self._k
-        if self.mesh is not None:
-            from latice_tpu_torch.parallel.sharded_knn import sharded_cosine_topk_inner
+        with span("index:search"):
+            k = self._k
+            if self.mesh is not None:
+                from latice_tpu_torch.parallel.sharded_knn import sharded_cosine_topk_inner
 
-            return sharded_cosine_topk_inner(
-                mu, self._dict, k, self.mesh, n_valid=self._n,
-                engine=self.engine, recall_target=self.recall_target,
-            )
-        if self.engine == "fused":
-            return cosine_topk_fused(mu, self._dict, k)
-        if self.engine == "int8":
-            return cosine_topk_int8(mu, self._dict, k, n_valid=self._n)
-        q = l2_normalize(mu.float())
-        if self._dict.dtype == torch.bfloat16:
-            q = q.bfloat16()  # both operands rounded; products and sums in f32
-        scores = cosine_scores(q, self._dict)
-        if self.engine == "approx":
-            return approx_topk(scores, k, self.recall_target)
-        return topk_lower_index_first(scores, k)
+                return sharded_cosine_topk_inner(
+                    mu, self._dict, k, self.mesh, n_valid=self._n,
+                    engine=self.engine, recall_target=self.recall_target,
+                )
+            if self.engine == "fused":
+                return cosine_topk_fused(mu, self._dict, k)
+            if self.engine == "int8":
+                return cosine_topk_int8(mu, self._dict, k, n_valid=self._n)
+            q = l2_normalize(mu.float())
+            if self._dict.dtype == torch.bfloat16:
+                q = q.bfloat16()  # both operands rounded; products and sums in f32
+            scores = cosine_scores(q, self._dict)
+            if self.engine == "approx":
+                return approx_topk(scores, k, self.recall_target)
+            return topk_lower_index_first(scores, k)
 
     def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
         scores, indices = self._search(self._encode(patterns))
@@ -284,8 +287,13 @@ class IndexPipeline:
     @torch.inference_mode()
     def __call__(self, patterns: np.ndarray) -> DenseIndexResult:
         """Index a stack of ``(B, H, W[, 1])`` uint8 or float patterns."""
-        pending = [(n, self._run(chunk)) for n, chunk in self._batches(patterns)]
-        return collect_results(pending, self._k, self.n_phases is not None)
+        with span("index:call"):
+            pending = []
+            for n, chunk in self._batches(patterns):
+                pending.append((n, self._run(chunk)))
+                count("index.batches")
+                count("index.patterns", n)
+            return collect_results(pending, self._k, self.n_phases is not None)
 
 
 def as_preprocess_fn(preprocess):
@@ -332,13 +340,17 @@ def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
     """``(n_real, device batch)`` pairs of a ``(B, H, W[, 1])`` host stack,
     each batch zero-padded to ``batch_size`` rows; uint8 stays uint8 (the
     device divides it by 255), other dtypes become float32."""
-    for n, chunk in padded_batches(_host_stack(patterns), batch_size):
-        host = torch.from_numpy(np.ascontiguousarray(chunk))
-        if device.type == "cuda":
-            # Pinned, so the copy is queued and the host moves on to
-            # enqueue the next batch.
-            host = host.pin_memory()
-        yield n, host.to(device, non_blocking=True)
+    x = _host_stack(patterns)
+    for start in range(0, len(x), batch_size):
+        with span("index:stage"):
+            chunk, _, n = pad_batch(x[start : start + batch_size], batch_size)
+            host = torch.from_numpy(np.ascontiguousarray(chunk))
+            if device.type == "cuda":
+                # Pinned, so the copy is queued and the host moves on to
+                # enqueue the next batch.
+                host = host.pin_memory()
+            batch = host.to(device, non_blocking=True)
+        yield n, batch
 
 
 class CandidateConsensus:
@@ -395,66 +407,68 @@ class CandidateConsensus:
         self.weight_power = consensus_weight_power
 
     def __call__(self, scores: torch.Tensor, indices: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        cand_rows = self.quats[indices]
-        cand_quats = cand_rows[..., :4]
-        cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)
-        cand_weights = None
-        if self.weight_power is not None:
-            # Normalize by the row max before powering: raw s**p flushes to
-            # zero in f32 for p=256 at s below ~0.71.
-            pos = torch.clamp(scores, min=0.0)
-            top = torch.clamp(pos.max(dim=-1, keepdim=True).values, min=1e-30)
-            cand_weights = (pos / top) ** self.weight_power
-        cons = consensus_orientations(
-            cand_quats,
-            self.threshold,
-            min_required_matches=self.min_matches,
-            max_iterations=self.max_iterations,
-            angle_unit=self.angle_unit,
-            cand_phases=cand_phases,
-            sym_tables=self.sym_tables,
-            cand_weights=cand_weights,
-        )
-        # Failure fallback: the top-1 candidate, in canonical scipy ranges.
-        top1_euler = to_euler_zxz_deg(cand_quats[:, 0])
-        best = torch.where(cons.success[:, None], cons.mean_euler, top1_euler)
-        out = (
-            cons.mean_euler,
-            best,
-            cons.success,
-            cons.similar_mask.sum(dim=1),
-            indices,
-            scores,
-        )
-        if cand_phases is not None:
-            out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
-        return out
+        with span("index:consensus"):
+            cand_rows = self.quats[indices]
+            cand_quats = cand_rows[..., :4]
+            cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)
+            cand_weights = None
+            if self.weight_power is not None:
+                # Normalize by the row max before powering: raw s**p flushes to
+                # zero in f32 for p=256 at s below ~0.71.
+                pos = torch.clamp(scores, min=0.0)
+                top = torch.clamp(pos.max(dim=-1, keepdim=True).values, min=1e-30)
+                cand_weights = (pos / top) ** self.weight_power
+            cons = consensus_orientations(
+                cand_quats,
+                self.threshold,
+                min_required_matches=self.min_matches,
+                max_iterations=self.max_iterations,
+                angle_unit=self.angle_unit,
+                cand_phases=cand_phases,
+                sym_tables=self.sym_tables,
+                cand_weights=cand_weights,
+            )
+            # Failure fallback: the top-1 candidate, in canonical scipy ranges.
+            top1_euler = to_euler_zxz_deg(cand_quats[:, 0])
+            best = torch.where(cons.success[:, None], cons.mean_euler, top1_euler)
+            out = (
+                cons.mean_euler,
+                best,
+                cons.success,
+                cons.similar_mask.sum(dim=1),
+                indices,
+                scores,
+            )
+            if cand_phases is not None:
+                out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
+            return out
 
 
 def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:
     """One `DenseIndexResult` from ``(n_real, device outputs)`` per batch
     (`CandidateConsensus`'s tuples), copied to the host only here, so
     every batch is enqueued before the first copy."""
-    if not pending:
-        return DenseIndexResult(
-            mean_orientation=np.zeros((0, 3), np.float64),
-            best_orientation=np.zeros((0, 3), np.float64),
-            success=np.zeros((0,), bool),
-            n_similar=np.zeros((0,), np.int64),
-            indices=np.zeros((0, k), np.int64),
-            scores=np.zeros((0, k), np.float64),
-            phase=np.zeros((0,), np.int64) if multiphase else None,
+    with span("index:collect"):
+        if not pending:
+            return DenseIndexResult(
+                mean_orientation=np.zeros((0, 3), np.float64),
+                best_orientation=np.zeros((0, 3), np.float64),
+                success=np.zeros((0,), bool),
+                n_similar=np.zeros((0,), np.int64),
+                indices=np.zeros((0, k), np.int64),
+                scores=np.zeros((0, k), np.float64),
+                phase=np.zeros((0,), np.int64) if multiphase else None,
+            )
+        outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
+        mean, best, success, n_sim, indices, scores, *extra = (
+            np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
         )
-    outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
-    mean, best, success, n_sim, indices, scores, *extra = (
-        np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
-    )
-    return DenseIndexResult(
-        mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
-        best_orientation=best.astype(np.float64),
-        success=success.astype(bool),
-        n_similar=n_sim.astype(np.int64),
-        indices=indices.astype(np.int64),
-        scores=scores.astype(np.float64),
-        phase=extra[0].astype(np.int64) if extra else None,
-    )
+        return DenseIndexResult(
+            mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
+            best_orientation=best.astype(np.float64),
+            success=success.astype(bool),
+            n_similar=n_sim.astype(np.int64),
+            indices=indices.astype(np.int64),
+            scores=scores.astype(np.float64),
+            phase=extra[0].astype(np.int64) if extra else None,
+        )

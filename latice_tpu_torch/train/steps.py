@@ -35,10 +35,10 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from latice_tpu_torch.device import no_tf32
 from latice_tpu_torch.train.loss import VAELoss
+from latice_tpu_torch.utils.profiling import span
 
 __all__ = ["make_train_step", "make_eval_step", "keyed_generator", "model_replicas"]
 
@@ -98,7 +98,7 @@ def _global_draws(model, batch, mask, eps, gen_key, augment, aug_key, denoising,
     batch = batch.to(first)
     model_in, target = batch, batch
     if augment is not None:
-        with record_function("train:augment"):
+        with span("train:augment"):
             aug_gen = keyed_generator(first, *aug_key)
             model_in = augment(aug_gen, batch.permute(0, 2, 3, 1))
             model_in = model_in.permute(0, 3, 1, 2).contiguous()
@@ -130,9 +130,9 @@ def _replica_losses(loss_fn, reps, mesh, model_in, target, eps, w, want_recon=Fa
     for i, (rep, dev) in enumerate(zip(reps, mesh.devices)):
         sl = slice(i * rows, (i + 1) * rows)
         w_i = w[sl].to(dev)
-        with record_function("train:forward"):
+        with span("train:forward"):
             z, x_hat, mu, std = rep(model_in[sl].to(dev), eps=eps[sl].to(dev))
-        with record_function("train:loss"):
+        with span("train:loss"):
             losses = loss_fn(z, x_hat, mu, std, target[sl].to(dev), w_i)
             share = w_i.sum() / denom.to(dev)
         for k in _METRIC_KEYS:
@@ -194,7 +194,7 @@ def make_train_step(
         gen = None if eps is not None else keyed_generator(batch.device, seed, _TRAIN_STREAM, step)
         model_in, target = batch, batch
         if augment is not None:
-            with record_function("train:augment"):
+            with span("train:augment"):
                 aug_gen = keyed_generator(batch.device, seed, _AUGMENT_STREAM, step)
                 # The augmentation works on NHWC, as in the JAX package; with
                 # one channel the permuted view holds the same bytes.
@@ -204,9 +204,9 @@ def make_train_step(
                 target = model_in
         # The labels name the parts of a step in a torch.profiler trace;
         # backward's work is under the autograd engine's own events.
-        with record_function("train:forward"):
+        with span("train:forward"):
             out = model(model_in, generator=gen, eps=eps)
-        with record_function("train:loss"):
+        with span("train:loss"):
             losses = loss_fn(*out, target, mask)
         # An f32 model's forward keeps TF32 off (its _autocast); the conv
         # backward reads the flag again, so the f32 step keeps it off here too.
@@ -223,7 +223,7 @@ def make_train_step(
 def _update(model, optimizer, metrics: Metrics, skip_nonfinite_updates: bool) -> None:
     """The optimizer step; with ``skip_nonfinite_updates`` only where the
     loss and every gradient are finite (``metrics["skipped"]`` says)."""
-    with record_function("train:optimizer"):
+    with span("train:optimizer"):
         if skip_nonfinite_updates:
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
@@ -262,7 +262,7 @@ def _make_dp_train_step(loss_fn, mesh, skip_nonfinite_updates, augment, denoisin
             # One backward over every replica's graph: the engine runs each
             # device's part on that device's own thread.
             totals["loss"].backward()
-        with record_function("train:allreduce"), torch.no_grad():
+        with span("train:allreduce"), torch.no_grad():
             for params in zip(*(rep.parameters() for rep in reps)):
                 grads = [p.grad for p in params[1:] if p.grad is not None]
                 if not grads:
