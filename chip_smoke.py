@@ -15,7 +15,8 @@ files, before 7, and 20 after 7):
    top-k, the top-k also over 1,000,000 rows; training: B=64, the 19
    InstanceNorm shapes of encoder and decoder, f32 and bf16; K3 at B=256,
    C=32, 128x128, at C=16 and C=64, at B=1 and B=257, and at 40x24 and
-   64x64), and timed
+   64x64; the consensus K4 at B=256, k=20, 3 trials over a 100,000-row
+   dictionary, with the cubic table and with 432 + 622), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
 4. serve: the full-width server as ``python -m latice_tpu_torch.cli.serve``
@@ -26,7 +27,9 @@ files, before 7, and 20 after 7):
    launches and 1 top-k launch per batch.
 5. parity: 64 patterns through the card's service and through the same
    service built on the CPU (the plain twins), both 16-mixed; then the f32
-   model on the card against an f32 CPU pipeline built from the same files.
+   model on the card against an f32 CPU pipeline built from the same files
+   (success may differ only where a trial misorientation lies within 1e-4
+   degrees of the threshold).
 6. profile: torch.profiler over one /index call of two batches; device
    time by kernel group and the device's idle share of the wall time.
 7. train: ``latice_tpu_torch.cli.train``'s path on the ``conf/`` tree at
@@ -240,6 +243,10 @@ files, before 7, and 20 after 7):
     (``examples/*_demo_torch.py``) at their defaults, each holding its own
     asserts, with their figures, walls and launches reported.
 
+Every path that indexes also counts the consensus kernel K4: 1 launch per
+indexed batch, whatever the engine (on a mesh, once a batch on its first
+device); a path's counts are zeroed just before it runs.
+
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 ``--topk-only`` runs phases 1 and 2, the top-k kernel's checks and times
@@ -365,6 +372,13 @@ NEAR_TIE = 1e-6
 STAGE0_PATTERNS = 512  # stage0_path: two batches
 CLI_DICT, CLI_QUERY = 16_384, 4_096  # index_cli: dictionary and query patterns
 BIG_DICT_ROWS = 1_000_000  # K1's second timed shape: 64 MB, beyond the L2
+# K4 at the index path's shapes (B=256, k=TOP_N) over a dictionary of
+# K4_ROWS rows in clusters of K4_CLUSTER, at the CLIs' consensus defaults.
+K4_ROWS, K4_CLUSTER = 100_000, 250
+K4_THRESHOLD, K4_MIN_MATCHES, K4_ITERS = 3.0, 18, 3
+# f32 rounding may decide a trial match apart nearer the threshold than
+# K4_MARGIN_DEG; orientations within K4_ORIENT_DEG (tests/test_torch_consensus_fused.py).
+K4_MARGIN_DEG, K4_ORIENT_DEG = 1e-4, 1e-3
 ENGINE_PATTERNS = 512  # engines: two batches through each engine's pipeline
 BLOCK_ROWS = 131_072  # blocked and streamed engines: rows per block or chunk
 ENGINE_RECALL_MIN = 0.9  # approx's recall@10 against exact
@@ -1703,6 +1717,170 @@ def check_stage0(gen: torch.Generator) -> dict:
     )
 
 
+def _k4_inputs(rng: np.random.Generator, phased: bool):
+    """A `CandidateConsensus` on the card over `K4_ROWS` dictionary rows in
+    clusters of `K4_CLUSTER` within 2.5 degrees of their centres (with
+    phases, 432 + 622: the first half of the rows cubic, the rest either at
+    random), and a batch of `BATCH` best-first candidate sets of `TOP_N`:
+    part of one cluster, the rest drawn anywhere, shuffled, so that trials
+    both succeed and fail. Returns (consensus, scores, indices)."""
+    from latice_tpu_torch.crystal import quat_mul, to_euler_zxz_deg
+    from latice_tpu_torch.index.pipeline import CandidateConsensus
+
+    n_clusters = K4_ROWS // K4_CLUSTER
+    axis = rng.normal(size=(K4_ROWS, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    half = np.deg2rad(rng.uniform(0.0, 2.5, size=(K4_ROWS, 1))) / 2
+    small = np.concatenate([np.cos(half), np.sin(half) * axis], axis=1)
+    centres = rng.normal(size=(n_clusters, 4))
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    quats = quat_mul(torch.from_numpy(small),
+                     torch.from_numpy(np.repeat(centres, K4_CLUSTER, axis=0)))
+    euler = to_euler_zxz_deg(quats).numpy().astype(np.float32)
+    phases = None
+    if phased:
+        phases = rng.integers(0, 2, size=K4_ROWS).astype(np.int32)
+        phases[: K4_ROWS // 2] = 0
+    cc = CandidateConsensus(euler, torch.device("cuda"), dictionary_phases=phases,
+                            phase_symmetries=["432", "622"] if phased else None,
+                            orientation_threshold=K4_THRESHOLD,
+                            min_required_matches=K4_MIN_MATCHES, max_iterations=K4_ITERS)
+    idx = np.empty((BATCH, TOP_N), np.int64)
+    for r in range(BATCH):
+        c = rng.integers(n_clusters)
+        members = c * K4_CLUSTER + rng.choice(
+            K4_CLUSTER, size=rng.integers(TOP_N // 2, TOP_N + 1), replace=False)
+        outliers = rng.choice(K4_ROWS, size=TOP_N - len(members), replace=False)
+        idx[r] = rng.permutation(np.concatenate([members, outliers]))
+    scores = np.sort(rng.uniform(0.2, 1.0, size=(BATCH, TOP_N)), axis=1)[:, ::-1]
+    return (cc, torch.from_numpy(scores.astype(np.float32)).cuda(),
+            torch.from_numpy(idx).cuda())
+
+
+def _near_threshold(quats: torch.Tensor) -> np.ndarray:
+    """Per row of ``(B, k, 4)`` candidate quaternions, whether a trial
+    misorientation (the first `K4_ITERS` candidates against every one, in
+    float64) lies within `K4_MARGIN_DEG` of `K4_THRESHOLD`."""
+    from latice_tpu_torch.crystal import misorientation_angle
+
+    q = quats.double().cpu()
+    mis = np.rad2deg(misorientation_angle(q[:, :K4_ITERS, None], q[:, None]).numpy())
+    return (np.abs(mis - K4_THRESHOLD) <= K4_MARGIN_DEG).any(axis=(1, 2))
+
+
+def _euler_gap_deg(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Per row, the angle in degrees between two stacks of zxz Euler
+    degrees, as rotations (float64)."""
+    from latice_tpu_torch.crystal import from_euler_zxz_deg, misorientation_angle
+
+    qa, qb = (from_euler_zxz_deg(t.double().cpu()) for t in (a, b))
+    return np.rad2deg(misorientation_angle(qa, qb).numpy())
+
+
+def _k4_work(b: int, k: int, n_phases: int, n_sym: int, phased: bool) -> tuple[float, float]:
+    """(bytes, operations) of one K4 call on int64 indices, unweighted.
+    Bytes: the scores and indices, each candidate's row as one 32-byte
+    sector, the tables and the outputs. Operations, a multiply or an add
+    each, a square root or an atan2 one: a misorientation is a quaternion
+    product (28) and the angle (9); per query, the trials' K4_ITERS * k
+    misorientations, each candidate's n_sym images and their angles to the
+    reference, its 10 matrix entries and 4 start-vector terms (28), 30 power
+    steps (a 4x4 product and a normalisation, 40) and two Euler
+    conversions (40 each)."""
+    n_bytes = b * k * (4.0 + 8.0 + 32.0) + 16.0 * n_phases * n_sym
+    n_bytes += b * (12.0 + 12.0 + 1.0 + 8.0 + (4.0 if phased else 0.0))
+    miso = 28 + 9
+    per_query = K4_ITERS * k * miso + k * n_sym * (28 + miso) + k * 28 + 30 * 40 + 2 * 40
+    return n_bytes, float(b * per_query)
+
+
+def check_consensus() -> dict:
+    """K4 against its twin at the index path's shapes (`_k4_inputs`: B=256,
+    k=20, 3 trials at 3 degrees and 18 matches), with the cubic table
+    alone (``vae_ref``'s dictionary) and with 432 + 622 phases
+    (``vae_scaled``'s). ``success``, ``n_similar`` and ``phase`` must be
+    equal in every row whose trial misorientations lie more than
+    `K4_MARGIN_DEG` from the threshold, the mean orientation of each such
+    succeeding row and the best orientation of each such row within
+    `K4_ORIENT_DEG`, and two runs bitwise equal. Timed by CUDA events
+    (`cuda_ms`) and host-paced (`host_bound_ms`) beside the twin, whose
+    host syncs rule out `cuda_ms`: its kernels' device time from a trace,
+    its kernels and copies counted. The bound is `_k4_work`'s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from latice_tpu_torch.ops import candidate_consensus_fused, candidate_consensus_fused_plain
+
+    rng = np.random.default_rng(40)
+    cases = {}
+    for tag, phased in (("cubic", False), ("432_622", True)):
+        cc, scores, idx = _k4_inputs(rng, phased)
+        args = (scores, idx, cc.quats, cc.sym_tables, cc.threshold, cc.min_matches,
+                cc.max_iterations, cc.angle_unit, cc.weight_power)
+        before = candidate_consensus_fused.launches
+        got = candidate_consensus_fused(*args)
+        again = candidate_consensus_fused(*args)
+        want = candidate_consensus_fused_plain(*args)
+        torch.cuda.synchronize()
+        if candidate_consensus_fused.launches != before + 2:
+            raise AssertionError(f"K4 {tag}: {candidate_consensus_fused.launches - before} "
+                                 "launches for two calls")
+        if [(g.dtype, g.shape) for g in got] != [(w.dtype, w.shape) for w in want]:
+            raise AssertionError(f"K4 {tag}: dtypes or shapes differ from the twin's")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"K4 {tag}: two runs are not bitwise equal")
+        keep = ~_near_threshold(cc.quats[idx][..., :4])
+        success = want[2].cpu().numpy()
+        if not (keep.mean() > 0.9 and 0 < success.sum() < BATCH):
+            raise AssertionError(f"K4 {tag}: {int(keep.sum())} rows held, "
+                                 f"{int(success.sum())} succeed: the inputs test too little")
+        fields = {"success": 2, "n_similar": 3, **({"phase": 6} if phased else {})}
+        differing = {f: int((got[i].cpu().numpy() != want[i].cpu().numpy())[keep].sum())
+                     for f, i in fields.items()}
+        mean_err = float(_euler_gap_deg(got[0], want[0])[keep & success].max(initial=0.0))
+        best_err = float(_euler_gap_deg(got[1], want[1])[keep].max(initial=0.0))
+        if any(differing.values()) or not max(mean_err, best_err) < K4_ORIENT_DEG:
+            raise AssertionError(f"K4 {tag} against its twin: {differing} rows differ, "
+                                 f"orientations {mean_err} / {best_err} degrees apart")
+
+        def k4():
+            return candidate_consensus_fused(*args)
+
+        def plain():
+            return candidate_consensus_fused_plain(*args)
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plain()
+            torch.cuda.synchronize()
+        eager = _device_kernels(prof)
+        copies = sum(c for n, _, c in eager if _kernel_group(n) == "copy")
+        n_phases, n_sym, _ = cc.sym_tables.shape
+        b_ms, b_by = bound_ms(*_k4_work(BATCH, TOP_N, n_phases, n_sym, phased))
+        cases[tag] = dict(
+            shape=dict(B=BATCH, k=TOP_N, iters=K4_ITERS, rows=K4_ROWS, phases=int(n_phases),
+                       operators=int(n_sym)),
+            rows_held=int(keep.sum()), rows_succeeding=int(success.sum()),
+            rows_differing=differing, mean_max_err_deg=mean_err, best_max_err_deg=best_err,
+            ms=cuda_ms(k4), host_ms=host_bound_ms(k4), plain_ms=device_busy_ms(plain),
+            plain_host_ms=host_bound_ms(plain), plain_kernels=sum(c for _, _, c in eager) - copies,
+            plain_copies=copies, bound_ms=b_ms, bound_by=b_by,
+        )
+        del cc, scores, idx, got, again, want
+    main = cases["cubic"]
+    emit("kernels", kernel="candidate_consensus_fused", cases=cases)
+    return dict(
+        name="candidate_consensus_fused", route="cuda",
+        source="latice_tpu_torch/ops/csrc/consensus_fused.cu",
+        replaces="none: the JAX package's consensus is jnp that XLA fuses under jit",
+        **{k: main[k] for k in ("ms", "host_ms", "plain_ms", "plain_host_ms", "plain_kernels",
+                                "plain_copies", "bound_ms", "bound_by")},
+        cases={k: {f: v[f] for f in ("shape", "rows_held", "mean_max_err_deg",
+                                     "best_max_err_deg", "ms", "plain_ms", "bound_ms")}
+               for k, v in cases.items()},
+        timed_as="B=256, k=20, 3 trials, a 100,000-row dictionary, the cubic table; "
+                 "plain_ms the twin's kernels alone, plain_host_ms with its host syncs",
+    )
+
+
 def _npy(arr: np.ndarray) -> bytes:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -1733,7 +1911,11 @@ def _cli_service(ckpt: str, npz: str, device: str, batch: int, engine: str = "fu
 
 
 def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.serve import make_server
 
     ckpt, npz, rng = _serve_files(workdir)
@@ -1746,7 +1928,7 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     try:
         health = _request(f"{url}/healthz")
         if health["count"] != DICT_ROWS or health["platform"] != "gpu":
@@ -1764,7 +1946,7 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
             dt = time.perf_counter() - t0
             batches = -(-len(x) // BATCH)
             delta = [fn.launches - b for fn, b in zip(counters, before)]
-            want = [10 * batches, batches if route == "index" else 0]
+            want = [10 * batches] + [batches if route == "index" else 0] * 2
             if delta != want:
                 raise AssertionError(f"/{route} of {len(x)}: launches {delta}, want {want}")
             if out["n"] != len(x):
@@ -1788,6 +1970,7 @@ def phase_serve(workdir: str) -> tuple[dict, dict, object, str, str]:
             "instance_norm_leaky_relu": sum(-(-len(x) // BATCH) for _, x in requests),
             "cosine_topk_fused": sum(-(-len(x) // BATCH) for r, x in requests if r == "index"),
         }
+        batches["candidate_consensus_fused"] = batches["cosine_topk_fused"]
         per_batch = {name: launches[name] / batches[name] for name in launches}
     finally:
         server.shutdown()
@@ -1820,18 +2003,23 @@ def _tf32_at_defaults() -> None:
         raise AssertionError("cuDNN's TF32 flag is not at PyTorch's default (True)")
 
 
-def _index_rows_agree(res_gpu, res_cpu, lat_cpu, vectors, margin) -> tuple[int, int]:
+def _index_rows_agree(res_gpu, res_cpu, lat_cpu, vectors, orients,
+                      margin) -> tuple[int, int]:
     """Rows whose top-n indices and success agree, where a row may differ
     only if two of its first n+1 CPU scores lie within ``margin`` (a
-    scalar or one per row) of each other. Returns (equal rows, near-tie rows)."""
+    scalar or one per row) of each other, and its success only if a trial
+    misorientation of its candidates lies within `K4_MARGIN_DEG` of the
+    threshold (`_near_threshold`). Returns (equal rows, near-tie rows)."""
+    from latice_tpu_torch.crystal import from_euler_zxz_deg
     from latice_tpu_torch.index import l2_normalize
 
     scores = l2_normalize(torch.from_numpy(lat_cpu)) @ torch.from_numpy(vectors).T
     head = torch.sort(scores, dim=1, descending=True).values[:, : TOP_N + 1]
     gaps = (head[:, :-1] - head[:, 1:]).numpy()
     near = (gaps <= np.reshape(margin, (-1, 1))).any(axis=1)
+    cand = from_euler_zxz_deg(torch.from_numpy(np.asarray(orients, np.float64)[res_cpu.indices]))
     same = (res_gpu.indices == res_cpu.indices).all(axis=1) & (
-        res_gpu.success == res_cpu.success
+        (res_gpu.success == res_cpu.success) | _near_threshold(cand)
     )
     if not np.all(same | near):
         raise AssertionError(f"{int((~same & ~near).sum())} rows differ without a near tie")
@@ -1857,7 +2045,7 @@ def _hold_16mixed(name: str, service, cpu16, cpu32, x: np.ndarray, vectors) -> d
     unit_dist = (l2_normalize(torch.from_numpy(lat_gpu))
                  - l2_normalize(torch.from_numpy(lat_cpu))).norm(dim=1).numpy()
     equal, near = _index_rows_agree(service.pipeline(x), cpu16.pipeline(x), lat_cpu,
-                                    vectors, 2.0 * unit_dist + 1e-6)
+                                    vectors, cpu16._db._orientations, 2.0 * unit_dist + 1e-6)
     out = dict(
         card_rel_dist_from_f32=dict(median=float(np.median(d_gpu)), max=float(d_gpu.max())),
         cpu_rel_dist_from_f32=dict(median=float(np.median(d_cpu)), max=float(d_cpu.max())),
@@ -1912,7 +2100,8 @@ def phase_parity(service, ckpt: str, npz: str) -> None:
     if seen != {(False, True)}:
         raise AssertionError(f"f32 convolutions ran with cuDNN (allow_tf32, enabled) in {seen}")
     _tf32_at_defaults()
-    equal32, near32 = _index_rows_agree(gpu32(noise), cpu32(noise), lat_cpu, vectors, 1e-4)
+    equal32, near32 = _index_rows_agree(gpu32(noise), cpu32(noise), lat_cpu, vectors, orients,
+                                        1e-4)
     emit("parity", rows=len(noise), mixed16=mixed16,
          f32=dict(latent_max_abs_err=lat_err, equal_rows=equal32, near_tie_rows=near32,
                   conv_flags_seen=sorted(seen), tf32_default=True))
@@ -1925,6 +2114,8 @@ def _kernel_group(name: str) -> str:
         return "instance_norm_leaky_relu"
     if "topk_partial" in name or "topk_merge" in name:
         return "cosine_topk_fused"
+    if "consensus_fused" in name:
+        return "candidate_consensus_fused"
     if any(s in name for s in ("xmma", "fft", "conv", "pointwise_mult_and_sum", "gemm",
                                "cutlass", "fprop", "dgrad", "wgrad", "nchwToNhwc",
                                "nhwcToNchw", "winograd")):
@@ -1993,7 +2184,11 @@ def phase_reload(service, workdir: str, npz: str) -> dict:
     path outside the root answers 400 and swaps nothing."""
     from latice_tpu_torch.index import IndexPipeline
     from latice_tpu_torch.models import VariationalAutoEncoderRawData, load_checkpoint
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.serve import make_server
 
     ckpt2 = f"{workdir}/vae_reload.pt"
@@ -2004,7 +2199,7 @@ def phase_reload(service, workdir: str, npz: str) -> dict:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     try:
         before = np.asarray(_request(f"{url}/encode", _npy(x))["latents"], np.float32)
         code, refused = _post_json(f"{url}/reload", {"checkpoint": "../vae.pt"})
@@ -2023,7 +2218,8 @@ def phase_reload(service, workdir: str, npz: str) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    want = {"instance_norm_leaky_relu": 20, "cosine_topk_fused": 1}  # one /index, one /encode
+    want = {"instance_norm_leaky_relu": 20, "cosine_topk_fused": 1,  # one /index, one /encode
+            "candidate_consensus_fused": 1}
     if launches != want:
         raise AssertionError(f"reload launches {launches}, want {want}")
     if not np.abs(after - before).max() > 1e-2:
@@ -2075,13 +2271,17 @@ def phase_engines(ckpt: str, npz: str) -> dict:
         cosine_topk_streamed,
         l2_normalize,
     )
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
 
     engines = {"exact": {}, "fused": {}, "approx": {}, "int8": {},
                "bfloat16": dict(search_dtype="bfloat16")}
     x = np.random.default_rng(12).integers(0, 256, (ENGINE_PATTERNS, 128, 128), dtype=np.uint8)
     batches = ENGINE_PATTERNS // BATCH
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
     served, results = {}, {}
     base = _cli_service(ckpt, npz, "cuda", BATCH, engine="exact")
@@ -2103,7 +2303,8 @@ def phase_engines(ckpt: str, npz: str) -> dict:
         wall_s = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counters}
         want = {"instance_norm_leaky_relu": 10 * batches,
-                "cosine_topk_fused": batches if name == "fused" else 0}
+                "cosine_topk_fused": batches if name == "fused" else 0,
+                "candidate_consensus_fused": batches}  # every engine's consensus
         if launches != want:
             raise AssertionError(f"engines {name} launches {launches}, want {want}")
         for k, v in launches.items():
@@ -2225,7 +2426,11 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
     from latice_tpu_torch import native
     from latice_tpu_torch.data import write_ang, write_ctf
     from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.utils import PhaseTimer, get_platform, summarize_trace, trace
 
     t_phase = time.perf_counter()
@@ -2286,7 +2491,7 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
     x = np.random.default_rng(15).integers(0, 256, (2 * BATCH, 128, 128), dtype=np.uint8)
     service.pipeline(x)
     torch.cuda.synchronize()
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     trace_dir = Path(workdir) / "tools_trace"
@@ -2299,7 +2504,8 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
     rel = abs(summary.total_ms - profiler_ms) / profiler_ms
     named = {}
     for fn, marks in ((instance_norm_leaky_relu, ("instance_norm_lrelu",)),
-                      (cosine_topk_fused, ("topk_partial", "topk_merge"))):
+                      (cosine_topk_fused, ("topk_partial", "topk_merge")),
+                      (candidate_consensus_fused, ("consensus_fused",))):
         ops = [(rank, op) for rank, op in enumerate(kernels_only.ops) if any(
             m in op.name for m in marks)]
         if not ops:
@@ -2308,8 +2514,11 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
                                   ms=sum(op.total_ms for _, op in ops))
     if not rel <= 0.02:
         raise AssertionError(f"trace summary {summary.total_ms} ms vs profiler {profiler_ms} ms")
-    if named["instance_norm_leaky_relu"]["calls"] != [launches["instance_norm_leaky_relu"]]:
-        raise AssertionError(f"K2f calls in the trace {named} vs launches {launches}")
+    for name in ("instance_norm_leaky_relu", "candidate_consensus_fused"):
+        if named[name]["calls"] != [launches[name]]:
+            raise AssertionError(f"{name} calls in the trace {named} vs launches {launches}")
+    if launches["candidate_consensus_fused"] != 2:  # one a batch
+        raise AssertionError(f"tools trace launches {launches}, want 2 consensus launches")
     out["trace"] = dict(patterns=len(x), summary_ms=summary.total_ms, kernels_ms=kernels_only.total_ms,
                         profiler_ms=profiler_ms, rel_diff=rel, ops=len(kernels_only.ops),
                         named=named, top=[dict(kernel=op.name[:80], ms=op.total_ms, calls=op.count)
@@ -2434,7 +2643,8 @@ def _mesh_dp_train(mesh, counters) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         step_launches = {fn.__name__: fn.launches for fn in counters}
         want = {"instance_norm_leaky_relu": 19 * mesh.size,
-                "instance_norm_leaky_relu_backward": 19 * mesh.size}
+                "instance_norm_leaky_relu_backward": 19 * mesh.size,
+                "candidate_consensus_fused": 0}
         if {k: step_launches[k] for k in want} != want:
             raise AssertionError(f"DP step launches {step_launches}, want {want}")
         for k, v in step_launches.items():
@@ -2583,7 +2793,8 @@ def _mesh_pipeline(mesh, ckpt: str, npz: str, counters) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counters}
         expect = {"instance_norm_leaky_relu": 10 * mesh.size * batches,
-                  "cosine_topk_fused": mesh.size * batches if engine == "fused" else 0}
+                  "cosine_topk_fused": mesh.size * batches if engine == "fused" else 0,
+                  "candidate_consensus_fused": batches}  # on the first device, once a batch
         if {k: launches[k] for k in expect} != expect:
             raise AssertionError(f"mesh pipeline {engine} launches {launches}, want {expect}")
         for k, v in launches.items():
@@ -2652,7 +2863,8 @@ def _mesh_fit(mesh, workdir: str, counters) -> tuple[dict, dict]:
         raise AssertionError(f"mesh fit: {dm.train_size} rows, {n_train} train and {n_val} "
                              "eval steps, want 13, 2 and 1")
     want = {"instance_norm_leaky_relu": 19 * mesh.size * (n_train + n_val),
-            "instance_norm_leaky_relu_backward": 19 * mesh.size * n_train}
+            "instance_norm_leaky_relu_backward": 19 * mesh.size * n_train,
+            "candidate_consensus_fused": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"mesh fit launches {launches}, want {want}")
     epoch = trainer.history[0]
@@ -2885,6 +3097,7 @@ def phase_mesh(workdir: str, ckpt: str, npz: str) -> dict:
     The launches of the mesh runs (the pipeline, the DP step and the fit)
     are this path's."""
     from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
         cosine_topk_fused,
         instance_norm_leaky_relu,
         instance_norm_leaky_relu_backward,
@@ -2892,7 +3105,8 @@ def phase_mesh(workdir: str, ckpt: str, npz: str) -> dict:
     from latice_tpu_torch.parallel import make_mesh
 
     t_phase = time.perf_counter()
-    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward, cosine_topk_fused,
+                candidate_consensus_fused)
     mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
     totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
 
@@ -2933,6 +3147,7 @@ def phase_stage0_path(ckpt: str, npz: str) -> dict:
     )
     from latice_tpu_torch.models import load_checkpoint
     from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
         cosine_topk_fused,
         fused_stage0_apply,
         instance_norm_leaky_relu,
@@ -2953,7 +3168,8 @@ def phase_stage0_path(ckpt: str, npz: str) -> dict:
     x = np.random.default_rng(9).integers(0, 256, (STAGE0_PATTERNS, 128, 128), dtype=np.uint8)
     pipe(x[:BATCH])
     torch.cuda.synchronize()
-    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused,
+                candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2963,7 +3179,7 @@ def phase_stage0_path(ckpt: str, npz: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     batches = STAGE0_PATTERNS // BATCH
     want = {"stage0_fused": batches, "instance_norm_leaky_relu": 8 * batches,
-            "cosine_topk_fused": batches}
+            "cosine_topk_fused": batches, "candidate_consensus_fused": batches}
     if launches != want:
         raise AssertionError(f"stage0_path launches {launches}, want {want}")
     if res.indices.shape != (STAGE0_PATTERNS, TOP_N) or not np.all(
@@ -3002,7 +3218,12 @@ def phase_index_cli(workdir: str, ckpt: str) -> dict:
     from latice_tpu_torch.cli.index import main as index_main
     from latice_tpu_torch.crystal import from_euler_zxz_deg, misorientation_angle
     from latice_tpu_torch.data import read_ang
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu, stage0_fused
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+        stage0_fused,
+    )
 
     root = Path(workdir) / "index_cli"
     root.mkdir()
@@ -3027,7 +3248,8 @@ def phase_index_cli(workdir: str, ckpt: str) -> dict:
     }
     encode_batches = {"build": CLI_DICT // BATCH, "export": CLI_DICT // BATCH,
                       "query": CLI_QUERY // BATCH}
-    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (stage0_fused, instance_norm_leaky_relu, cosine_topk_fused,
+                candidate_consensus_fused)
     steps, totals = {}, dict.fromkeys((fn.__name__ for fn in counters), 0)
     for name, argv in commands.items():
         for fn in counters:
@@ -3041,7 +3263,8 @@ def phase_index_cli(workdir: str, ckpt: str) -> dict:
         launches = {fn.__name__: fn.launches for fn in counters}
         n = encode_batches[name]
         want = {"stage0_fused": 0, "instance_norm_leaky_relu": 10 * n,
-                "cosine_topk_fused": n if name == "query" else 0}
+                "cosine_topk_fused": n if name == "query" else 0,
+                "candidate_consensus_fused": n if name == "query" else 0}
         if launches != want:
             raise AssertionError(f"index_cli {name} launches {launches}, want {want}")
         for k, v in launches.items():
@@ -3112,7 +3335,11 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
         make_preprocess_fn,
         parse_preprocess_spec,
     )
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
 
     x = np.round(_synthetic_patterns(PREPROCESS_PATTERNS, seed=13) * 255.0).astype(np.uint8)
     x = x.astype(np.float32) / 255.0
@@ -3142,7 +3369,7 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
             "--out", out, "--engine", "fused", "--preprocess", PREPROCESS_RECIPE,
             "--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
             "--batch-size", str(BATCH)]
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     stdout = io.StringIO()
@@ -3154,7 +3381,8 @@ def phase_preprocess(workdir: str, ckpt: str) -> dict:
     logging.getLogger().setLevel(logging.WARNING)  # the CLI turned INFO on
     launches = {fn.__name__: fn.launches for fn in counters}
     n = CLI_QUERY // BATCH
-    want = {"instance_norm_leaky_relu": 10 * n, "cosine_topk_fused": n}
+    want = {"instance_norm_leaky_relu": 10 * n, "cosine_topk_fused": n,
+            "candidate_consensus_fused": n}
     if launches != want:
         raise AssertionError(f"preprocess query launches {launches}, want {want}")
     got = np.load(out)
@@ -3241,7 +3469,11 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
         StreamedPatternDI,
         build_pattern_dictionary,
     )
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.sim import kinematical, refine_orientations, simulate_patterns
 
     root = Path(workdir) / "dictionary"
@@ -3420,7 +3652,7 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     db, oriented = str(root / "dict_db.npz"), str(root / "orientations.npy")
     common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
               "--batch-size", str(BATCH)]
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     steps = {"build": _index_cli(["build", "--patterns", dict_npy, "--angles", grid, "--db", db]
@@ -3431,7 +3663,8 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = -(-GRID_ROWS // BATCH), SCAN_SIDE**2 // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
-                     "cosine_topk_fused": query_batches}
+                     "cosine_topk_fused": query_batches,
+                     "candidate_consensus_fused": query_batches}
     if launches != want_launches:
         raise AssertionError(f"dictionary launches {launches}, want {want_launches}")
     got = np.load(oriented)
@@ -3543,7 +3776,11 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
     from latice_tpu_torch.device import full_f32_matmul
     from latice_tpu_torch.index import HoughIndexer, MultiPhaseHoughIndexer
     from latice_tpu_torch.index.hough_indexing import _index_bands
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.serve import make_server
     from latice_tpu_torch.sim import (
         DetectorGeometry,
@@ -3665,7 +3902,7 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
 
     # 6. query --hough-iq on index_cli's files: the path's K2f and K1 launches.
     cli_root = Path(workdir) / "index_cli"
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     qout = str(root / "query.npy")
@@ -3675,7 +3912,8 @@ def phase_bands(workdir: str, ckpt: str, smi: str) -> dict:
                         str(INPLANES), "--latent-dim", str(LATENT), "--batch-size", str(BATCH)])
     launches = {fn.__name__: fn.launches for fn in counters}
     batches = CLI_QUERY // BATCH
-    want = {"instance_norm_leaky_relu": 10 * batches, "cosine_topk_fused": batches}
+    want = {"instance_norm_leaky_relu": 10 * batches, "cosine_topk_fused": batches,
+            "candidate_consensus_fused": batches}
     if launches != want:
         raise AssertionError(f"query --hough-iq launches {launches}, want {want}")
     raw = np.load(cli_root / "query.npy")
@@ -3994,7 +4232,11 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
         SphericalIndexerConfig,
     )
     from latice_tpu_torch.index.spherical import projection_tables
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.serve import make_server
     from latice_tpu_torch.sim import (
         DetectorGeometry,
@@ -4149,7 +4391,7 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     db, oriented = str(root / "db.npz"), str(root / "orientations.npy")
     common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
               "--batch-size", str(BATCH)]
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     steps["build"] = _index_cli(["build", "--patterns", dict_npy, "--angles", str(grid), "--db", db]
@@ -4159,7 +4401,8 @@ def phase_sphere(workdir: str, ckpt: str, smi: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = -(-GRID_ROWS // BATCH), CLI_QUERY // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
-                     "cosine_topk_fused": query_batches}
+                     "cosine_topk_fused": query_batches,
+                     "candidate_consensus_fused": query_batches}
     if launches != want_launches:
         raise AssertionError(f"sphere CLI launches {launches}, want {want_launches}")
     q_sum = steps["query"]["summary"]
@@ -4366,7 +4609,11 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     from latice_tpu_torch.cli.serve import build_service, parse_args
     from latice_tpu_torch.crystal import CUBIC_STIFFNESS, cubic_stiffness
     from latice_tpu_torch.data import read_ang
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.serve import make_server
     from latice_tpu_torch.sim import DetectorGeometry
 
@@ -4529,7 +4776,7 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
         np.savetxt(f, angles, fmt="%.4f")
     common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
               "--batch-size", str(BATCH)]
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     db = str(root / "db.npz")
@@ -4541,7 +4788,8 @@ def phase_strain(workdir: str, ckpt: str, smi: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = len(pats) // BATCH, len(scan) // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
-                     "cosine_topk_fused": query_batches}
+                     "cosine_topk_fused": query_batches,
+                     "candidate_consensus_fused": query_batches}
     q_sum = steps["query"]["summary"]
     grid = read_ang(str(root / "scan.ang")).grid
     if not (launches == want_launches and q_sum["n_patterns"] == len(scan)
@@ -4660,7 +4908,11 @@ def phase_master(workdir: str, ckpt: str, smi: str) -> dict:
     are the path's."""
     from latice_tpu_torch import sim as psim
     from latice_tpu_torch.data import parse_angle_file
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.sim.dynamical import lambert_master_directions
 
     t_phase = time.perf_counter()
@@ -4824,7 +5076,7 @@ def phase_master(workdir: str, ckpt: str, smi: str) -> dict:
     db, oriented = str(root / "db.npz"), str(root / "orientations.npy")
     common = ["--checkpoint", ckpt, "--inplanes", str(INPLANES), "--latent-dim", str(LATENT),
               "--batch-size", str(BATCH)]
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     steps["build"] = _index_cli(["build", "--patterns", dict_npy, "--angles", str(grid),
@@ -4834,7 +5086,8 @@ def phase_master(workdir: str, ckpt: str, smi: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     build_batches, query_batches = -(-GRID_ROWS // BATCH), MASTER_QUERY // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * (build_batches + query_batches),
-                     "cosine_topk_fused": query_batches}
+                     "cosine_topk_fused": query_batches,
+                     "candidate_consensus_fused": query_batches}
     if launches != want_launches:
         raise AssertionError(f"master chain launches {launches}, want {want_launches}")
     q_err = _disorientation_deg(np.load(oriented), parse_angle_file(str(grid))[:MASTER_QUERY])
@@ -5036,7 +5289,11 @@ def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
     (JAX_ANALYZE); and ``analyze --parent ks`` of a 512x512 martensite map,
     whose planted parents must come back."""
     from latice_tpu_torch import crystal as cr
-    from latice_tpu_torch.ops import cosine_topk_fused, instance_norm_leaky_relu
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        cosine_topk_fused,
+        instance_norm_leaky_relu,
+    )
     from latice_tpu_torch.sim import simulate_patterns
 
     root = Path(workdir) / "analyze"
@@ -5063,7 +5320,7 @@ def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
         clean = simulate_patterns(_grain_scan(rng))
         noisy = clean + rng.standard_normal(clean.shape, dtype=np.float32) * SCAN_NOISE
         np.save(scan_npy, np.round(np.clip(noisy, 0.0, 1.0) * 255.0).astype(np.uint8))
-    counters = (instance_norm_leaky_relu, cosine_topk_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
     for fn in counters:
         fn.launches = 0
     ang = str(root / "scan.ang")
@@ -5075,7 +5332,8 @@ def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     query_batches = SCAN_SIDE**2 // BATCH
     want_launches = {"instance_norm_leaky_relu": 10 * query_batches,
-                     "cosine_topk_fused": query_batches}
+                     "cosine_topk_fused": query_batches,
+                     "candidate_consensus_fused": query_batches}
     chain = steps["analyze"]["summary"]
     keys = ("grain_stats", "csl_fractions", "mean_schmid", "mean_taylor", "mean_youngs_gpa",
             "gnd_valid_fraction", "component_fractions", "texture_index", "cleaned_px")
@@ -5251,15 +5509,17 @@ def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
 
 
 def _gate_launches() -> dict:
-    """The K2f and K2b launches one gate run makes: 19 of each per train
-    step; 10 K2f per encoded batch of 512 (the dictionary three times, the
-    on-grid queries twice, the off-grid queries four times)."""
+    """The K2f, K2b and K4 launches one gate run makes: 19 K2f and K2b per
+    train step; 10 K2f per encoded batch of 512 (the dictionary three
+    times, the on-grid queries twice, the off-grid queries four times); 1 K4
+    per indexed batch (those six pipelines and pattern DI's)."""
     g = EXAMPLES_GATE
     dict_batches = -(-g["grid"] ** 3 // 512)
     query_batches = -(-g["n_query"] // g["pipe_batch"])
     encodes = 3 * dict_batches + 6 * query_batches
     return {"instance_norm_leaky_relu": 19 * g["steps"] + 10 * encodes,
-            "instance_norm_leaky_relu_backward": 19 * g["steps"]}
+            "instance_norm_leaky_relu_backward": 19 * g["steps"],
+            "candidate_consensus_fused": 7 * query_batches}
 
 
 def _gate_row(readings: dict, tag: str) -> dict:
@@ -5274,10 +5534,15 @@ def phase_examples(workdir: str, smi: str) -> dict:
     demos at their defaults, each holding its own asserts. The launches of
     the whole phase are the ``examples`` path's."""
     from examples import accuracy_benchmark_torch as gate
-    from latice_tpu_torch.ops import instance_norm_leaky_relu, instance_norm_leaky_relu_backward
+    from latice_tpu_torch.ops import (
+        candidate_consensus_fused,
+        instance_norm_leaky_relu,
+        instance_norm_leaky_relu_backward,
+    )
 
     t_phase = time.perf_counter()
-    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward)
+    counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward,
+                candidate_consensus_fused)
     totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
     out: dict = {"card": smi, "gate": {}, "demos": {}}
 
@@ -6008,7 +6273,8 @@ def main() -> int:
     k2f["bf16_serve"] = check_norm_serve_bf16(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
     k3 = check_stage0(gen)
-    kernels = [k1, k2f, k2b, k3]
+    k4 = check_consensus()
+    kernels = [k1, k2f, k2b, k3, k4]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, per_batch, service, ckpt, npz = phase_serve(workdir)

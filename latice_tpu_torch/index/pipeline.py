@@ -4,9 +4,11 @@ The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
 device: uint8 ``/255``, an optional preprocess, the VAE encoder's ``mu``,
 the candidate search (the CUDA kernel `ops.cosine_topk_fused` for
 ``engine="fused"``, the `index.knn` engines for "exact", "approx" and
-"int8"), the symmetry-aware consensus and the Euler angles. One host-to-device copy of the patterns
-and one device-to-host copy of the results per batch; every batch of a
-call is enqueued before the first result is copied back.
+"int8"), then the symmetry-aware consensus and the Euler angles (the CUDA
+kernel `ops.candidate_consensus_fused`, one launch a batch). One
+host-to-device copy of the patterns and one device-to-host copy of the
+results per batch; every batch of a call is enqueued before the first
+result is copied back.
 
 With ``mesh=`` (`parallel.make_mesh`) each batch splits over the mesh's
 devices, each block encoded by that device's replica of the model; the
@@ -22,10 +24,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables, to_euler_zxz_deg
+from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables
 from latice_tpu_torch.data import pad_batch, padded_batches
 from latice_tpu_torch.device import resolve_device
-from latice_tpu_torch.index.consensus import consensus_orientations
 from latice_tpu_torch.index.knn import (
     approx_topk,
     cosine_scores,
@@ -35,6 +36,7 @@ from latice_tpu_torch.index.knn import (
     quantize_dictionary_int8,
     topk_lower_index_first,
 )
+from latice_tpu_torch.ops.consensus_fused import candidate_consensus_fused
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 from latice_tpu_torch.parallel.mesh import check_mesh_device, gather_rows, replicate, shard_batch
 from latice_tpu_torch.utils.profiling import count, span
@@ -358,12 +360,13 @@ class CandidateConsensus:
 
     Holds the rows' unit quaternions (from their zxz Euler degrees; with
     phases, the phase id rides as a 5th column so one row gather fetches
-    both) and each phase's symmetry table (cubic unless named). Called with
-    a batch's best-first ``(B, k)`` candidate scores and dictionary rows, it
-    returns the batch's device outputs: the consensus mean, the best
-    orientation (the top-1 on failure), success, the count of similar
-    candidates, the indices and scores, and with phases the phase. The
-    knobs are `IndexPipeline`'s.
+    both) and each phase's symmetry table (cubic unless named), on the
+    device. Called with a batch's best-first ``(B, k)`` candidate scores and
+    dictionary rows, it returns the batch's device outputs: the consensus
+    mean, the best orientation (the top-1 on failure), success, the count of
+    similar candidates, the indices and scores, and with phases the phase
+    (`ops.candidate_consensus_fused`: one kernel launch on the card, its
+    plain twin on the CPU). The knobs are `IndexPipeline`'s.
     """
 
     def __init__(
@@ -381,7 +384,7 @@ class CandidateConsensus:
         quats = from_euler_zxz_deg(
             torch.as_tensor(np.asarray(dictionary_orientations, np.float32), device=device)
         )
-        self.sym_tables = None
+        groups = ["432"]
         self.n_phases = None
         if dictionary_phases is not None:
             n = len(quats)
@@ -396,9 +399,11 @@ class CandidateConsensus:
                     f"{self.n_phases} phase ids but only "
                     f"{len(phase_symmetries)} phase_symmetries entries"
                 )
-            self.sym_tables = stack_symmetry_tables(phase_symmetries, device=device)
+            groups = phase_symmetries
             phase_col = torch.as_tensor(phases, dtype=torch.float32, device=device)
             quats = torch.cat([quats, phase_col[:, None]], dim=1)
+        # On the device once, so that no call copies a table there.
+        self.sym_tables = stack_symmetry_tables(groups, device=device)
         self.quats = quats
         self.threshold = orientation_threshold
         self.min_matches = min_required_matches
@@ -408,40 +413,17 @@ class CandidateConsensus:
 
     def __call__(self, scores: torch.Tensor, indices: torch.Tensor) -> tuple[torch.Tensor, ...]:
         with span("index:consensus"):
-            cand_rows = self.quats[indices]
-            cand_quats = cand_rows[..., :4]
-            cand_phases = None if self.n_phases is None else cand_rows[..., 4].to(torch.int32)
-            cand_weights = None
-            if self.weight_power is not None:
-                # Normalize by the row max before powering: raw s**p flushes to
-                # zero in f32 for p=256 at s below ~0.71.
-                pos = torch.clamp(scores, min=0.0)
-                top = torch.clamp(pos.max(dim=-1, keepdim=True).values, min=1e-30)
-                cand_weights = (pos / top) ** self.weight_power
-            cons = consensus_orientations(
-                cand_quats,
-                self.threshold,
-                min_required_matches=self.min_matches,
-                max_iterations=self.max_iterations,
-                angle_unit=self.angle_unit,
-                cand_phases=cand_phases,
-                sym_tables=self.sym_tables,
-                cand_weights=cand_weights,
-            )
-            # Failure fallback: the top-1 candidate, in canonical scipy ranges.
-            top1_euler = to_euler_zxz_deg(cand_quats[:, 0])
-            best = torch.where(cons.success[:, None], cons.mean_euler, top1_euler)
-            out = (
-                cons.mean_euler,
-                best,
-                cons.success,
-                cons.similar_mask.sum(dim=1),
-                indices,
+            return candidate_consensus_fused(
                 scores,
+                indices,
+                self.quats,
+                self.sym_tables,
+                self.threshold,
+                self.min_matches,
+                self.max_iterations,
+                angle_unit=self.angle_unit,
+                weight_power=self.weight_power,
             )
-            if cand_phases is not None:
-                out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
-            return out
 
 
 def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:

@@ -4,6 +4,10 @@ Every wrapper launches its kernel on a CUDA tensor (counting the launch in
 its ``launches`` attribute) and runs the plain version on a CPU tensor.
 """
 
+from latice_tpu_torch.ops.consensus_fused import (
+    candidate_consensus_fused,
+    candidate_consensus_fused_plain,
+)
 from latice_tpu_torch.ops.fused_norm import (
     InstanceNormLeakyReLUFunction,
     instance_norm_leaky_relu,
@@ -20,6 +24,8 @@ from latice_tpu_torch.ops.topk_fused import cosine_topk_fused, cosine_topk_fused
 
 __all__ = [
     "InstanceNormLeakyReLUFunction",
+    "candidate_consensus_fused",
+    "candidate_consensus_fused_plain",
     "cosine_topk_fused",
     "cosine_topk_fused_plain",
     "fused_stage0_apply",
