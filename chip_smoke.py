@@ -16,7 +16,8 @@ files, before 7, and 20 after 7):
    InstanceNorm shapes of encoder and decoder, f32 and bf16; K3 at B=256,
    C=32, 128x128, at C=16 and C=64, at B=1 and B=257, and at 40x24 and
    64x64; the consensus K4 at B=256, k=20, 3 trials over a 100,000-row
-   dictionary, with the cubic table and with 432 + 622), and timed
+   dictionary, with the cubic table and with 432 + 622; the DI search K5
+   at B=256 and B=1 over 333,227 x 16,384 bf16 rows, k=20), and timed
    (CUDA events) beside the plain version, a library call and the card's
    bound.
 4. serve: the full-width server as ``python -m latice_tpu_torch.cli.serve``
@@ -97,7 +98,9 @@ files, before 7, and 20 after 7):
     NLPAR of it, timed, its first 8 rows against the CPU at relative 1e-5;
     pattern DI (exact, bf16) of the clean, noisy and denoised scans, timed,
     each median disorientation to the truth under the grid's 2 degrees,
-    and ``StreamedPatternDI`` equal to the resident indexer; refinement at
+    with 1 K5 launch per batch, ``StreamedPatternDI`` equal to the resident
+    indexer with none, and the server's DI mode (`IndexService` over the
+    same stack) with 1 K5 launch per batch and the resident answers; refinement at
     40 steps, timed: at the default rate from the truth turned 1.5 degrees
     (tests/sim/test_refine.py's setting), median under 0.15 degrees, each
     error under a third of its start and every NCC above 0.95; and from the
@@ -379,6 +382,11 @@ K4_THRESHOLD, K4_MIN_MATCHES, K4_ITERS = 3.0, 18, 3
 # f32 rounding may decide a trial match apart nearer the threshold than
 # K4_MARGIN_DEG; orientations within K4_ORIENT_DEG (tests/test_torch_consensus_fused.py).
 K4_MARGIN_DEG, K4_ORIENT_DEG = 1e-4, 1e-3
+# K5 at the DI cell's shapes: EMsoft's cubochoric N = 100 dictionary in 432,
+# unbinned 128x128 NCC features. The tensor cores' f32 sums drop each
+# step's bits below the running sum's last place: over 1,024 steps a score
+# near 1 drifts up to ~1e-4 from cuBLAS's (tests/test_torch_topk_wide.py).
+K5_ROWS, K5_DIM, K5_TIE = 333_227, 16_384, 2e-4
 ENGINE_PATTERNS = 512  # engines: two batches through each engine's pipeline
 BLOCK_ROWS = 131_072  # blocked and streamed engines: rows per block or chunk
 ENGINE_RECALL_MIN = 0.9  # approx's recall@10 against exact
@@ -1881,6 +1889,127 @@ def check_consensus() -> dict:
     )
 
 
+def _unit_rows_bf16(gen: torch.Generator, n: int, d: int, chunk: int = 16_384) -> torch.Tensor:
+    out = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, n, chunk):
+        x = torch.randn((min(chunk, n - i), d), generator=gen, device="cuda")
+        out[i : i + len(x)] = (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).bfloat16()
+    return out
+
+
+def _k5_twin_blocked(q: torch.Tensor, table: torch.Tensor, k: int, rows: int = 32_768):
+    """K5's plain twin over row blocks of the table (whole, its f32 copy
+    would be 21.8 GB), merged in row order."""
+    from latice_tpu_torch.index.knn import topk_lower_index_first
+    from latice_tpu_torch.ops import cosine_topk_wide_plain
+
+    vals, idx = [], []
+    for i in range(0, len(table), rows):
+        v, j = cosine_topk_wide_plain(q, table[i : i + rows], k)
+        vals.append(v)
+        idx.append(j + i)
+    v, pos = topk_lower_index_first(torch.cat(vals, 1), k)
+    return v, torch.cat(idx, 1).gather(1, pos)
+
+
+def _k5_faults(got, want, q: torch.Tensor, table: torch.Tensor, tol: float) -> dict:
+    """How K5's best-first ``got`` (B, k) departs from the twin's best
+    ``k + 1`` (``want``) beyond ``tol``: rows repeated within a query, the
+    widest gap between a returned score and its row's own f32 score, rows
+    the twin scores more than ``tol`` above the returned k-th and K5 left
+    out, and rows standing elsewhere than the twin's where the twin's score
+    there ties no neighbour's within ``tol``."""
+    gv, gi = got
+    wv, wi = want
+    k = gi.shape[1]
+    ordered = gi.sort(1).values
+    own = torch.stack([(q[b].float() * table[gi[b]].float()).sum(1) for b in range(len(gi))])
+    present = (wi[:, :k, None] == gi[:, None, :]).any(2)
+    close = (wv[:, 1:] - wv[:, :-1]).abs() <= tol
+    near = torch.zeros_like(wv, dtype=torch.bool)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    moved = gi != wi[:, :k]
+    return dict(repeated=int((ordered[:, 1:] == ordered[:, :-1]).sum()),
+                own_score_gap=float((own - gv).abs().max()),
+                missing=int(((wv[:, :k] > gv[:, -1:] + tol) & ~present).sum()),
+                moved_without_tie=int((moved & ~near[:, :k]).sum()),
+                rows_equal=int((~moved).all(1).sum()), near_tie_rows=int(near[:, :k].any(1).sum()))
+
+
+def check_topk_wide(gen: torch.Generator) -> dict:
+    """K5 against its twin at the DI cell's shapes (B=256 and B=1, N =
+    `K5_ROWS`, D = `K5_DIM`, k = 20) over random unit bf16 rows with one
+    exact tie, by `_k5_faults` at `K5_TIE`: no row repeated, missing or
+    moved where the twin's scores do not tie, every score within `K5_TIE`
+    of its row's own and of the twin's, the tie's lower row first. Timed
+    by CUDA events (`cuda_ms`) beside its bound (bytes or bf16
+    operations), the twin (the exact engine's path before K5: an f32 copy
+    of the table and a (B, N) score matrix, then the keyed top-k) and
+    ``torch.topk(q.float() @ d.float().T, 20)``; the peak memory each adds
+    to the table's."""
+    from latice_tpu_torch.ops import cosine_topk_wide, cosine_topk_wide_plain
+
+    table = _unit_rows_bf16(gen, K5_ROWS, K5_DIM)
+    table[1] = table[0]
+    cases, queries = {}, {}
+    for b in (BATCH, 1):
+        q = _unit_rows_bf16(gen, b, K5_DIM)
+        q[0] = table[0]
+        before = cosine_topk_wide.launches
+        got_v, got_i = cosine_topk_wide(q, table, TOP_N)
+        torch.cuda.synchronize()
+        if cosine_topk_wide.launches != before + 1:
+            raise AssertionError("K5: one call made other than one launch")
+        want_v, want_i = _k5_twin_blocked(q, table, TOP_N + 1)
+        faults = _k5_faults((got_v, got_i), (want_v, want_i), q, table, K5_TIE)
+        gap = float((got_v - want_v[:, :TOP_N]).abs().max())
+        if (faults["repeated"] or faults["missing"] or faults["moved_without_tie"]
+                or faults["own_score_gap"] > K5_TIE or gap > K5_TIE
+                or got_i[0, :2].tolist() != [0, 1]):
+            raise AssertionError(f"K5 B={b} against its twin: {faults}, scores {gap} apart, "
+                                 f"row 0 {got_i[0, :2]}")
+        n_bytes = 2.0 * (K5_ROWS + b) * K5_DIM + 12.0 * b * TOP_N
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * b * K5_ROWS * K5_DIM, PEAK_BF16_PER_S)
+        ms = cuda_ms(lambda: cosine_topk_wide(q, table, TOP_N), iters=10, warmup=2)
+        cases[f"B{b}"] = dict(shape=dict(B=b, N=K5_ROWS, D=K5_DIM, k=TOP_N), **faults,
+                              max_score_gap=gap, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                              share_of_bound=b_ms / ms)
+        queries[b] = q
+    q = queries[BATCH]
+
+    def extra_peak(fn) -> int:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return int(torch.cuda.max_memory_allocated() - base)
+
+    main = cases[f"B{BATCH}"]
+    main.update(
+        plain_ms=cuda_ms(lambda: cosine_topk_wide_plain(q, table, TOP_N), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.topk(q.float() @ table.float().T, TOP_N), iters=3,
+                           warmup=1),
+        extra_peak_bytes=extra_peak(lambda: cosine_topk_wide(q, table, TOP_N)),
+        plain_extra_peak_bytes=extra_peak(lambda: cosine_topk_wide_plain(q, table, TOP_N)),
+    )
+    emit("kernels", kernel="cosine_topk_wide", cases=cases)
+    del table, queries, q
+    torch.cuda.empty_cache()
+    return dict(
+        name="cosine_topk_wide", route="cuda",
+        source="latice_tpu_torch/ops/csrc/topk_wide.cu",
+        replaces="none: the JAX package's exact engine is jnp.dot(preferred_element_type=f32) "
+                 "and lax.top_k, which XLA runs on the MXU",
+        **{k: main[k] for k in ("ms", "bound_ms", "bound_by", "share_of_bound", "plain_ms",
+                                "library_ms", "extra_peak_bytes", "plain_extra_peak_bytes")},
+        cases=cases,
+        timed_as="B=256, N=333,227, D=16,384, k=20 (the DI cell's table, 10.9 GB of bf16); "
+                 "plain_ms the twin, library_ms torch.topk over the f32 product",
+    )
+
+
 def _npy(arr: np.ndarray) -> bytes:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -2274,6 +2403,7 @@ def phase_engines(ckpt: str, npz: str) -> dict:
     from latice_tpu_torch.ops import (
         candidate_consensus_fused,
         cosine_topk_fused,
+        cosine_topk_wide,
         instance_norm_leaky_relu,
     )
 
@@ -2281,7 +2411,8 @@ def phase_engines(ckpt: str, npz: str) -> dict:
                "bfloat16": dict(search_dtype="bfloat16")}
     x = np.random.default_rng(12).integers(0, 256, (ENGINE_PATTERNS, 128, 128), dtype=np.uint8)
     batches = ENGINE_PATTERNS // BATCH
-    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused)
+    counters = (instance_norm_leaky_relu, cosine_topk_fused, candidate_consensus_fused,
+                cosine_topk_wide)
     totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
     served, results = {}, {}
     base = _cli_service(ckpt, npz, "cuda", BATCH, engine="exact")
@@ -2304,7 +2435,8 @@ def phase_engines(ckpt: str, npz: str) -> dict:
         launches = {fn.__name__: fn.launches for fn in counters}
         want = {"instance_norm_leaky_relu": 10 * batches,
                 "cosine_topk_fused": batches if name == "fused" else 0,
-                "candidate_consensus_fused": batches}  # every engine's consensus
+                "candidate_consensus_fused": batches,  # every engine's consensus
+                "cosine_topk_wide": batches if name == "bfloat16" else 0}  # exact over bf16
         if launches != want:
             raise AssertionError(f"engines {name} launches {launches}, want {want}")
         for k, v in launches.items():
@@ -3472,8 +3604,10 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     from latice_tpu_torch.ops import (
         candidate_consensus_fused,
         cosine_topk_fused,
+        cosine_topk_wide,
         instance_norm_leaky_relu,
     )
+    from latice_tpu_torch.serve import IndexService
     from latice_tpu_torch.sim import kinematical, refine_orientations, simulate_patterns
 
     root = Path(workdir) / "dictionary"
@@ -3566,6 +3700,7 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     torch.cuda.synchronize()
     di_build_s = time.perf_counter() - t0
     di_out = {}
+    cosine_topk_wide.launches = 0
     for name, x in (("clean", clean), ("noisy", noisy), ("denoised", denoised)):
         t0 = time.perf_counter()
         res = di(x)
@@ -3580,12 +3715,19 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
                             success=float(res.success.mean()))
         if name == "clean":
             clean_res = res
+    # K5 once a batch on the resident engine; none on the streamed one.
+    k5_launches = {"resident": cosine_topk_wide.launches}
+    if k5_launches["resident"] != 3 * SCAN_SIDE**2 // BATCH:
+        raise AssertionError(f"DI: {k5_launches['resident']} K5 launches for three scans")
     di_trace = _traced(lambda: di(clean[:BATCH]))
     rows = build_pattern_dictionary(card_u8, dtype=torch.bfloat16)
     streamed = StreamedPatternDI(rows, angles, batch_size=BATCH)
+    before = cosine_topk_wide.launches
     t0 = time.perf_counter()
     s_res = streamed(clean)
     streamed_ms = (time.perf_counter() - t0) * 1e3
+    if cosine_topk_wide.launches != before:
+        raise AssertionError("streamed DI launched K5")
     same = (s_res.indices == clean_res.indices).all(axis=1)
     tied = (np.abs(np.diff(clean_res.scores, axis=1)) < NEAR_TIE).any(axis=1)
     if not (same | tied).all():
@@ -3595,13 +3737,24 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
                                        clean_res.best_orientation[same])).numpy())
     if not same_err.max() < 1e-4:
         raise AssertionError(f"streamed DI orientations {same_err.max()} degrees off resident")
+    # The server's DI mode over the same stack: K5 once a batch, the
+    # resident indexer's answers.
+    service = IndexService(None, None, batch_size=BATCH, di_dictionary=(card_u8, angles),
+                           device="cuda")
+    before = cosine_topk_wide.launches
+    served = service.index(clean[: 2 * BATCH])
+    k5_launches["serve"] = cosine_topk_wide.launches - before
+    if k5_launches["serve"] != 2 or not np.allclose(
+            served["orientations"], clean_res.best_orientation[: 2 * BATCH], atol=1e-4):
+        raise AssertionError(f"serve DI: {k5_launches['serve']} K5 launches for two batches, "
+                             "or answers other than the resident indexer's")
     out["di"] = dict(dictionary=GRID_ROWS, features=128 * 128, engine="exact",
                      search_dtype="bfloat16", queries=len(clean),
                      build_s=di_build_s,
-                     scans=di_out, traced_256=di_trace,
+                     scans=di_out, traced_256=di_trace, k5_launches=k5_launches,
                      streamed=dict(ms_per_256=streamed_ms * BATCH / len(clean),
                                    rows_equal=int(same.sum()), near_tie_rows=int(tied.sum())))
-    del di, rows, streamed
+    del di, rows, streamed, service
     torch.cuda.empty_cache()
 
     # 6. Refinement of clean patterns at 40 steps: at the default rate from
@@ -3675,6 +3828,7 @@ def phase_dictionary(workdir: str, ckpt: str, smi: str) -> dict:
     with np.load(db) as f:
         if "sim_meta" not in f.files or f["vectors"].shape != (GRID_ROWS, LATENT):
             raise AssertionError("dictionary build lost its provenance or its rows")
+    launches["cosine_topk_wide"] = k5_launches["resident"] + k5_launches["serve"]
     emit("dictionary", card=smi, **out, cli=dict(steps=steps, launches=launches),
          timed_as="host wall unless named device_ms (profiler sums of device activity)")
     return launches
@@ -5509,17 +5663,19 @@ def phase_analyze(workdir: str, ckpt: str, smi: str) -> dict:
 
 
 def _gate_launches() -> dict:
-    """The K2f, K2b and K4 launches one gate run makes: 19 K2f and K2b per
-    train step; 10 K2f per encoded batch of 512 (the dictionary three
+    """The K2f, K2b, K4 and K5 launches one gate run makes: 19 K2f and K2b
+    per train step; 10 K2f per encoded batch of 512 (the dictionary three
     times, the on-grid queries twice, the off-grid queries four times); 1 K4
-    per indexed batch (those six pipelines and pattern DI's)."""
+    per indexed batch (those six pipelines and pattern DI's); 1 K5 per
+    pattern DI batch (the exact engine over its bf16 table)."""
     g = EXAMPLES_GATE
     dict_batches = -(-g["grid"] ** 3 // 512)
     query_batches = -(-g["n_query"] // g["pipe_batch"])
     encodes = 3 * dict_batches + 6 * query_batches
     return {"instance_norm_leaky_relu": 19 * g["steps"] + 10 * encodes,
             "instance_norm_leaky_relu_backward": 19 * g["steps"],
-            "candidate_consensus_fused": 7 * query_batches}
+            "candidate_consensus_fused": 7 * query_batches,
+            "cosine_topk_wide": query_batches}
 
 
 def _gate_row(readings: dict, tag: str) -> dict:
@@ -5536,13 +5692,14 @@ def phase_examples(workdir: str, smi: str) -> dict:
     from examples import accuracy_benchmark_torch as gate
     from latice_tpu_torch.ops import (
         candidate_consensus_fused,
+        cosine_topk_wide,
         instance_norm_leaky_relu,
         instance_norm_leaky_relu_backward,
     )
 
     t_phase = time.perf_counter()
     counters = (instance_norm_leaky_relu, instance_norm_leaky_relu_backward,
-                candidate_consensus_fused)
+                candidate_consensus_fused, cosine_topk_wide)
     totals = dict.fromkeys((fn.__name__ for fn in counters), 0)
     out: dict = {"card": smi, "gate": {}, "demos": {}}
 
@@ -6274,7 +6431,8 @@ def main() -> int:
     k2f["bf16_train"], k2b = check_norm_train(gen)
     k3 = check_stage0(gen)
     k4 = check_consensus()
-    kernels = [k1, k2f, k2b, k3, k4]
+    k5 = check_topk_wide(gen)
+    kernels = [k1, k2f, k2b, k3, k4, k5]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, per_batch, service, ckpt, npz = phase_serve(workdir)

@@ -13,7 +13,11 @@ search is the latent engines' machinery with ``D = H*W / bin²`` features
 (`IndexPipeline(feature_fn=...)`): batching and padding, multi-phase
 dictionaries, ``preprocess=`` and the exact, approx and int8 engines carry
 over unchanged. The fused engine is refused: its kernel keeps a narrow
-feature axis per tile (the JAX package refuses it for its VMEM tiles).
+feature axis per tile (the JAX package refuses it for its VMEM tiles). On
+the card the exact engine over the default bf16 table runs one kernel a
+batch, K5 (`ops.cosine_topk_wide`), which never forms the f32 table or the
+score matrix; the f32 table, the mesh and `StreamedPatternDI` keep the
+`index.knn` engines.
 
 NCC is invariant to a per-pattern gain and offset, so uint8 frames need no
 /255; only structured corrections (hot pixels, static backgrounds) change

@@ -3,12 +3,13 @@
 The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
 device: uint8 ``/255``, an optional preprocess, the VAE encoder's ``mu``,
 the candidate search (the CUDA kernel `ops.cosine_topk_fused` for
-``engine="fused"``, the `index.knn` engines for "exact", "approx" and
-"int8"), then the symmetry-aware consensus and the Euler angles (the CUDA
-kernel `ops.candidate_consensus_fused`, one launch a batch). One
-host-to-device copy of the patterns and one device-to-host copy of the
-results per batch; every batch of a call is enqueued before the first
-result is copied back.
+``engine="fused"``, the CUDA kernel `ops.cosine_topk_wide` for "exact"
+over a bf16 table, the `index.knn` engines for the rest of "exact",
+"approx" and "int8"), then the symmetry-aware consensus and the Euler
+angles (the CUDA kernel `ops.candidate_consensus_fused`, one launch a
+batch). One host-to-device copy of the patterns and one device-to-host
+copy of the results per batch; every batch of a call is enqueued before
+the first result is copied back.
 
 With ``mesh=`` (`parallel.make_mesh`) each batch splits over the mesh's
 devices, each block encoded by that device's replica of the model; the
@@ -38,6 +39,7 @@ from latice_tpu_torch.index.knn import (
 )
 from latice_tpu_torch.ops.consensus_fused import candidate_consensus_fused
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
+from latice_tpu_torch.ops.topk_wide import cosine_topk_wide
 from latice_tpu_torch.parallel.mesh import check_mesh_device, gather_rows, replicate, shard_batch
 from latice_tpu_torch.utils.profiling import count, span
 
@@ -101,7 +103,10 @@ class IndexPipeline:
         phase_symmetries: point-group names per phase id (default cubic).
         consensus_weight_power: optional p; in-threshold candidates are
             weighted by ``(s / s_max) ** p`` in the mean.
-        engine: "exact" (matmul, then the top-k in ``lax.top_k``'s order),
+        engine: "exact" (matmul, then the top-k in ``lax.top_k``'s order;
+            over a bf16 table on one device, both in one kernel,
+            `ops.cosine_topk_wide`, which takes ``top_n`` up to 1,024 and
+            feature widths in multiples of 8 on the card),
             "fused" (the CUDA kernel on the card, its plain twin on the
             CPU), "approx" (`index.knn.approx_topk`: binned maxima, held to
             ``recall_target``) or "int8" (a quantized dictionary and exact
@@ -261,6 +266,8 @@ class IndexPipeline:
             q = l2_normalize(mu.float())
             if self._dict.dtype == torch.bfloat16:
                 q = q.bfloat16()  # both operands rounded; products and sums in f32
+                if self.engine == "exact":
+                    return cosine_topk_wide(q, self._dict, k)
             scores = cosine_scores(q, self._dict)
             if self.engine == "approx":
                 return approx_topk(scores, k, self.recall_target)

@@ -21,6 +21,7 @@ from latice_tpu_torch.ops.stage0_fused import (
     stage0_fused_reference,
 )
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused, cosine_topk_fused_plain
+from latice_tpu_torch.ops.topk_wide import cosine_topk_wide, cosine_topk_wide_plain
 
 __all__ = [
     "InstanceNormLeakyReLUFunction",
@@ -28,6 +29,8 @@ __all__ = [
     "candidate_consensus_fused_plain",
     "cosine_topk_fused",
     "cosine_topk_fused_plain",
+    "cosine_topk_wide",
+    "cosine_topk_wide_plain",
     "fused_stage0_apply",
     "instance_norm_leaky_relu",
     "instance_norm_leaky_relu_backward",

@@ -26,7 +26,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("consensus_fused", "fused_norm", "stage0_fused", "topk_fused")
+SOURCES = ("consensus_fused", "fused_norm", "stage0_fused", "topk_fused", "topk_wide")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -292,7 +292,8 @@ def test_readers_on_a_hand_built_record(metric, monkeypatch):
 def test_the_benchmark_lists_the_readers():
     listed = {m["name"]: m for m in spec.Benchmark(ROOT).data["per_layer"]}
     for metric in READERS:
-        assert listed[metric]["workloads"] == ["ref-scan-index", "scaled-scan-index"]
+        assert listed[metric]["workloads"] == ["ref-scan-index", "scaled-scan-index",
+                                               "ni-di-scan-index"]
         assert listed[metric]["moves"] == "index_patterns_per_s"
 
 
