@@ -24,6 +24,19 @@ Each InstanceNorm + LeakyReLU is `ops.InstanceNormLeakyReLUFunction`: the
 fused CUDA kernels forward and backward on the card, their plain torch
 twins on the CPU.
 
+An encoder block's convolution feeds a norm without affine, which
+subtracts each (n, c) plane's mean, so the convolution's per-channel bias
+cancels: ``norm(conv(x) + b) == norm(conv(x))``. On the card, in bfloat16
+and with autograd off (`ConvBlock`), the block therefore runs its
+convolution without the bias, which saves ATen's broadcast add over the
+whole output after cuDNN and a rounding of it to bfloat16. Everything else
+keeps the add, bit for bit: the CPU, where the port is held to the JAX
+package's outputs byte for byte; float32, the parity mode, which keeps the
+reference's order of operations; and training, where the bias still gets
+its gradient, which Adam normalizes into a real update however small. The
+parameters and state-dict keys do not change. The decoder's blocks and the
+logit convolution keep their bias.
+
 ``remat`` trades recomputation for the activations the backward keeps, as
 the JAX model's does: ``"block"`` checkpoints each conv block, ``"stage"``
 each conv-conv-pool stage of the encoder and each upsample-conv-conv stage
@@ -52,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from latice_tpu_torch.device import no_onednn, no_tf32
 from latice_tpu_torch.ops.fused_norm import InstanceNormLeakyReLUFunction
+from latice_tpu_torch.utils.profiling import count
 
 __all__ = [
     "InstanceNormLeakyReLU",
@@ -84,11 +98,33 @@ class InstanceNormLeakyReLU(nn.Module):
         return InstanceNormLeakyReLUFunction.apply(x.contiguous(), 1e-5, 0.02)
 
 
+def _bias_cancels(x: torch.Tensor) -> bool:
+    """Whether a block may leave out the bias that its norm cancels: ``x``
+    is on the card, autocast computes in bfloat16 (the model's 16-mixed)
+    and autograd is off."""
+    return (x.is_cuda and not torch.is_grad_enabled() and torch.is_autocast_enabled("cuda")
+            and torch.get_autocast_dtype("cuda") == torch.bfloat16)
+
+
 class ConvBlock(nn.Sequential):
-    """Conv3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02)."""
+    """Conv3x3(stride 1, pad 1) -> InstanceNorm -> LeakyReLU(0.02); where
+    `_bias_cancels`, through `bias_free`, counted as
+    ``encoder.bias_free_convs``."""
 
     def __init__(self, in_channels: int, out_channels: int) -> None:
         super().__init__(nn.Conv2d(in_channels, out_channels, 3, 1, 1), InstanceNormLeakyReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _bias_cancels(x):
+            count("encoder.bias_free_convs")
+            return self.bias_free(x)
+        return super().forward(x)
+
+    def bias_free(self, x: torch.Tensor) -> torch.Tensor:
+        """The block with its convolution's bias left out, which the norm
+        cancels (module docstring)."""
+        conv, norm = self[0], self[1]
+        return norm(conv._conv_forward(x, conv.weight, None))
 
 
 class _FusedUpsampleConvTranspose2d(nn.ConvTranspose2d):
