@@ -390,6 +390,7 @@ K5_ROWS, K5_DIM, K5_TIE = 333_227, 16_384, 2e-4
 ENGINE_PATTERNS = 512  # engines: two batches through each engine's pipeline
 BLOCK_ROWS = 131_072  # blocked and streamed engines: rows per block or chunk
 ENGINE_RECALL_MIN = 0.9  # approx's recall@10 against exact
+DB_ENGINES = ("device", "fused", "approx", "int8", "native")  # the latent database's engines
 PREPROCESS_RECIPE = "hotpixels=6,static=auto,dynamic=auto,clip=3,equalize"
 PREPROCESS_PATTERNS = 256
 PREPROCESS_ATOL = 1e-5  # card vs CPU before equalization (blur sums in another order)
@@ -1725,26 +1726,32 @@ def check_stage0(gen: torch.Generator) -> dict:
     )
 
 
-def _k4_inputs(rng: np.random.Generator, phased: bool):
-    """A `CandidateConsensus` on the card over `K4_ROWS` dictionary rows in
-    clusters of `K4_CLUSTER` within 2.5 degrees of their centres (with
-    phases, 432 + 622: the first half of the rows cubic, the rest either at
-    random), and a batch of `BATCH` best-first candidate sets of `TOP_N`:
-    part of one cluster, the rest drawn anywhere, shuffled, so that trials
-    both succeed and fail. Returns (consensus, scores, indices)."""
+def _clustered_euler(rng: np.random.Generator) -> np.ndarray:
+    """`K4_ROWS` f32 zxz degrees in clusters of `K4_CLUSTER` consecutive
+    rows, each within 2.5 degrees of its cluster's centre."""
     from latice_tpu_torch.crystal import quat_mul, to_euler_zxz_deg
-    from latice_tpu_torch.index.pipeline import CandidateConsensus
 
-    n_clusters = K4_ROWS // K4_CLUSTER
     axis = rng.normal(size=(K4_ROWS, 3))
     axis /= np.linalg.norm(axis, axis=1, keepdims=True)
     half = np.deg2rad(rng.uniform(0.0, 2.5, size=(K4_ROWS, 1))) / 2
     small = np.concatenate([np.cos(half), np.sin(half) * axis], axis=1)
-    centres = rng.normal(size=(n_clusters, 4))
+    centres = rng.normal(size=(K4_ROWS // K4_CLUSTER, 4))
     centres /= np.linalg.norm(centres, axis=1, keepdims=True)
     quats = quat_mul(torch.from_numpy(small),
                      torch.from_numpy(np.repeat(centres, K4_CLUSTER, axis=0)))
-    euler = to_euler_zxz_deg(quats).numpy().astype(np.float32)
+    return to_euler_zxz_deg(quats).numpy().astype(np.float32)
+
+
+def _k4_inputs(rng: np.random.Generator, phased: bool):
+    """A `CandidateConsensus` on the card over `_clustered_euler`'s rows
+    (with phases, 432 + 622: the first half of the rows cubic, the rest
+    either at random), and a batch of `BATCH` best-first candidate sets of
+    `TOP_N`: part of one cluster, the rest drawn anywhere, shuffled, so that
+    trials both succeed and fail. Returns (consensus, scores, indices)."""
+    from latice_tpu_torch.index.pipeline import CandidateConsensus
+
+    n_clusters = K4_ROWS // K4_CLUSTER
+    euler = _clustered_euler(rng)
     phases = None
     if phased:
         phases = rng.integers(0, 2, size=K4_ROWS).astype(np.int32)
@@ -1795,7 +1802,7 @@ def _k4_work(b: int, k: int, n_phases: int, n_sym: int, phased: bool) -> tuple[f
     reference, its 10 matrix entries and 4 start-vector terms (28), 30 power
     steps (a 4x4 product and a normalisation, 40) and two Euler
     conversions (40 each)."""
-    n_bytes = b * k * (4.0 + 8.0 + 32.0) + 16.0 * n_phases * n_sym
+    n_bytes = b * k * (4.0 + 8.0 + 32.0 + 1.0) + 16.0 * n_phases * n_sym
     n_bytes += b * (12.0 + 12.0 + 1.0 + 8.0 + (4.0 if phased else 0.0))
     miso = 28 + 9
     per_query = K4_ITERS * k * miso + k * n_sym * (28 + miso) + k * 28 + 30 * 40 + 2 * 40
@@ -1806,11 +1813,11 @@ def check_consensus() -> dict:
     """K4 against its twin at the index path's shapes (`_k4_inputs`: B=256,
     k=20, 3 trials at 3 degrees and 18 matches), with the cubic table
     alone (``vae_ref``'s dictionary) and with 432 + 622 phases
-    (``vae_scaled``'s). ``success``, ``n_similar`` and ``phase`` must be
-    equal in every row whose trial misorientations lie more than
-    `K4_MARGIN_DEG` from the threshold, the mean orientation of each such
-    succeeding row and the best orientation of each such row within
-    `K4_ORIENT_DEG`, and two runs bitwise equal. Timed by CUDA events
+    (``vae_scaled``'s). ``success``, ``n_similar``, the chosen trial's
+    per-candidate mask and ``phase`` must be equal in every row whose trial
+    misorientations lie more than `K4_MARGIN_DEG` from the threshold, the
+    mean orientation of each such succeeding row and the best orientation
+    of each such row within `K4_ORIENT_DEG`, and two runs bitwise equal. Timed by CUDA events
     (`cuda_ms`) and host-paced (`host_bound_ms`) beside the twin, whose
     host syncs rule out `cuda_ms`: its kernels' device time from a trace,
     its kernels and copies counted. The bound is `_k4_work`'s."""
@@ -1832,20 +1839,25 @@ def check_consensus() -> dict:
         if candidate_consensus_fused.launches != before + 2:
             raise AssertionError(f"K4 {tag}: {candidate_consensus_fused.launches - before} "
                                  "launches for two calls")
-        if [(g.dtype, g.shape) for g in got] != [(w.dtype, w.shape) for w in want]:
-            raise AssertionError(f"K4 {tag}: dtypes or shapes differ from the twin's")
-        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        fields = [f for f, w in want._asdict().items() if w is not None]
+        if [f for f, g in got._asdict().items() if g is not None] != fields or any(
+                (getattr(got, f).dtype, getattr(got, f).shape)
+                != (getattr(want, f).dtype, getattr(want, f).shape) for f in fields):
+            raise AssertionError(f"K4 {tag}: fields, dtypes or shapes differ from the twin's")
+        if not all(torch.equal(getattr(got, f), getattr(again, f)) for f in fields):
             raise AssertionError(f"K4 {tag}: two runs are not bitwise equal")
         keep = ~_near_threshold(cc.quats[idx][..., :4])
-        success = want[2].cpu().numpy()
+        success = want.success.cpu().numpy()
         if not (keep.mean() > 0.9 and 0 < success.sum() < BATCH):
             raise AssertionError(f"K4 {tag}: {int(keep.sum())} rows held, "
                                  f"{int(success.sum())} succeed: the inputs test too little")
-        fields = {"success": 2, "n_similar": 3, **({"phase": 6} if phased else {})}
-        differing = {f: int((got[i].cpu().numpy() != want[i].cpu().numpy())[keep].sum())
-                     for f, i in fields.items()}
-        mean_err = float(_euler_gap_deg(got[0], want[0])[keep & success].max(initial=0.0))
-        best_err = float(_euler_gap_deg(got[1], want[1])[keep].max(initial=0.0))
+        differing = {f: int((getattr(got, f).cpu().numpy() != getattr(want, f).cpu().numpy())
+                            .reshape(BATCH, -1)[keep].any(axis=1).sum())
+                     for f in ("success", "n_similar", "similar_mask")
+                     + (("phase",) if phased else ())}
+        mean_err = float(_euler_gap_deg(got.mean_euler, want.mean_euler)[keep & success]
+                         .max(initial=0.0))
+        best_err = float(_euler_gap_deg(got.best, want.best)[keep].max(initial=0.0))
         if any(differing.values()) or not max(mean_err, best_err) < K4_ORIENT_DEG:
             raise AssertionError(f"K4 {tag} against its twin: {differing} rows differ, "
                                  f"orientations {mean_err} / {best_err} degrees apart")
@@ -2380,6 +2392,97 @@ def _identity(p: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def _db_engines() -> dict:
+    """The latent database's engines on the card, each held to the same
+    engine's database on the CPU.
+
+    `K4_ROWS` latents in clusters of `K4_CLUSTER` rows (a centre plus 0.3
+    Gaussian noise) with `_clustered_euler`'s orientations, and
+    `ENGINE_PATTERNS` queries (rows plus 0.05 noise), indexed by
+    ``find_best_orientations_batch`` and ``find_best_orientations_dense`` in
+    chunks of `BATCH` at `K4_THRESHOLD`, `K4_MIN_MATCHES` and `K4_ITERS`.
+    Held: one K4 launch a chunk on the card whatever the engine, one K1 a
+    chunk for "fused" alone; the candidates equal the CPU's but in rows
+    with a near tie among the exact top `TOP_N` + 1 (`NEAR_TIE`); in rows
+    with the same candidates and no trial misorientation within
+    `K4_MARGIN_DEG` of the threshold, success, ``n_similar`` and the similar
+    indices equal, means within `K4_ORIENT_DEG`, and a failed row's best
+    orientation its top-1's stored angles, as on the CPU."""
+    from latice_tpu_torch.crystal import from_euler_zxz_deg
+    from latice_tpu_torch.index import (
+        LatentVectorDatabaseConfig,
+        TorchLatentVectorDatabase,
+        cosine_topk,
+    )
+    from latice_tpu_torch.ops import candidate_consensus_fused, cosine_topk_fused
+
+    rng = np.random.default_rng(41)
+    euler = _clustered_euler(rng)
+    vecs = np.repeat(rng.normal(size=(K4_ROWS // K4_CLUSTER, LATENT)), K4_CLUSTER, axis=0)
+    vecs = (vecs + 0.3 * rng.normal(size=vecs.shape)).astype(np.float32)
+    src = rng.choice(K4_ROWS, ENGINE_PATTERNS, replace=False)
+    queries = vecs[src] + 0.05 * rng.normal(size=(ENGINE_PATTERNS, LATENT)).astype(np.float32)
+    kw = dict(top_n=TOP_N, orientation_threshold=K4_THRESHOLD,
+              min_required_matches=K4_MIN_MATCHES, max_iterations=K4_ITERS, batch_size=BATCH)
+    chunks = -(-ENGINE_PATTERNS // BATCH)
+    head = cosine_topk(torch.from_numpy(queries), torch.from_numpy(vecs), TOP_N + 1)[0].numpy()
+    near_tie = _near_tie_rows(head, TOP_N + 1)
+    out = {}
+    for engine in DB_ENGINES:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(
+                npz_path="/nonexistent/db.npz", dimension=LATENT, engine=engine), device=device)
+            db.add_vectors(vecs, euler)
+            db.find_best_orientations_batch(queries[:1], **kw)  # builds the stages and kernels
+            torch.cuda.synchronize()
+            k4, k1 = candidate_consensus_fused.launches, cosine_topk_fused.launches
+            t0 = time.perf_counter()
+            rows = db.find_best_orientations_batch(queries, **kw)
+            dense = db.find_best_orientations_dense(queries, **kw)
+            runs[device] = dict(rows=rows, dense=dense, wall_s=time.perf_counter() - t0,
+                                launches=dict(k4=candidate_consensus_fused.launches - k4,
+                                              k1=cosine_topk_fused.launches - k1))
+        card, cpu = runs["cuda"], runs["cpu"]
+        want = dict(k4=2 * chunks, k1=2 * chunks if engine == "fused" else 0)
+        if card["launches"] != want or cpu["launches"] != dict(k4=0, k1=0):
+            raise AssertionError(f"database {engine}: launches {card['launches']} on the card, "
+                                 f"{cpu['launches']} on the CPU; want {want} and none")
+        got, ref = card["dense"], cpu["dense"]
+        same = (got["indices"] == ref["indices"]).all(axis=1)
+        if (~same & ~near_tie).any():
+            raise AssertionError(f"database {engine}: {int((~same & ~near_tie).sum())} rows "
+                                 "differ from the CPU's candidates without a near tie")
+        cand = from_euler_zxz_deg(torch.from_numpy(euler[ref["indices"]].astype(np.float64)))
+        held = same & ~_near_threshold(cand)
+        success = ref["success"]
+        if not (held.mean() > 0.9 and 0 < success.sum() < ENGINE_PATTERNS):
+            raise AssertionError(f"database {engine}: {int(held.sum())} rows held, "
+                                 f"{int(success.sum())} succeed: the inputs test too little")
+        masks = [np.array_equal(a.similar_indices, b.similar_indices)
+                 for a, b in zip(card["rows"], cpu["rows"])]
+        differing = {f: int((got[f] != ref[f])[held].sum()) for f in ("success", "n_similar")}
+        differing["similar_indices"] = int((~np.array(masks))[held].sum())
+        fail = held & ~success
+        differing["failed_best"] = int(
+            (got["best_orientation"] != ref["best_orientation"])[fail].any(axis=1).sum())
+        ok = held & success
+        mean_err = float(_euler_gap_deg(torch.from_numpy(got["mean_orientation"][ok]),
+                                        torch.from_numpy(ref["mean_orientation"][ok]))
+                         .max(initial=0.0))
+        if any(differing.values()) or not mean_err < K4_ORIENT_DEG:
+            raise AssertionError(f"database {engine} against the CPU: {differing} rows differ, "
+                                 f"means {mean_err} degrees apart")
+        out[engine] = dict(
+            k4_per_chunk=card["launches"]["k4"] / (2 * chunks),
+            k1_per_chunk=card["launches"]["k1"] / (2 * chunks),
+            rows_same_candidates=int(same.sum()), rows_held=int(held.sum()),
+            rows_succeeding=int(success.sum()), mean_max_err_deg=mean_err,
+            wall_s=dict(card=card["wall_s"], cpu=cpu["wall_s"]),
+        )
+    return out
+
+
 def phase_engines(ckpt: str, npz: str) -> dict:
     """The search engines: the serve CLI's 16-mixed model on 512 uint8
     patterns over its 100,000-row dictionary through ``IndexPipeline`` for
@@ -2391,7 +2494,9 @@ def phase_engines(ckpt: str, npz: str) -> dict:
     Held: approx's recall@10 >= 0.9; at both sizes blocked's and streamed's
     indices equal exact's except rows with two of their first k+1 scores
     within `NEAR_TIE`; int8's indices and scores bitwise those of its CPU
-    twin; bf16's top-1 equal to exact's on every near-duplicate query."""
+    twin; bf16's top-1 equal to exact's on every near-duplicate query.
+    Last, the latent database's five engines on the card against the CPU
+    (`_db_engines`)."""
     from latice_tpu_torch.index import (
         IndexPipeline,
         cosine_topk,
@@ -2463,7 +2568,7 @@ def phase_engines(ckpt: str, npz: str) -> dict:
                                      engine="exact" if kw else name, device="cuda",
                                      feature_fn=_identity, **kw)
                  for name, kw in engines.items()}
-        d32 = pipes["exact"]._dict
+        d32 = pipes["exact"].search.table
         host = torch.from_numpy(d_np).pin_memory()
         fns = {name: (lambda p=p: p._search(q)) for name, p in pipes.items()}
         fns["blocked"] = lambda: cosine_topk_blocked(q, d32, TOP_N, block_size=BLOCK_ROWS)
@@ -2493,7 +2598,7 @@ def phase_engines(ckpt: str, npz: str) -> dict:
             if bad.any():
                 raise AssertionError(f"{name} at {rows} rows: {int(bad.sum())} rows differ from "
                                      "exact without a near tie")
-        di8 = pipes["int8"]._dict
+        di8 = pipes["int8"].search.table
         twin_s, twin_i = cosine_topk_int8(q.cpu(), di8.cpu(), TOP_N, n_valid=rows)
         if not (torch.equal(twin_i, out["int8"][1]) and torch.equal(twin_s, out["int8"][0])):
             raise AssertionError(f"int8 at {rows} rows differs from its CPU twin")
@@ -2510,7 +2615,8 @@ def phase_engines(ckpt: str, npz: str) -> dict:
         del pipes, fns, out, host, d32, di8
         torch.cuda.empty_cache()
     emit("engines", patterns=ENGINE_PATTERNS, batches=batches, served=served, launches=totals,
-         search_alone=alone, queries="B=256 dictionary rows plus 0.05 Gaussian noise",
+         search_alone=alone, database=_db_engines(),
+         queries="B=256 dictionary rows plus 0.05 Gaussian noise",
          timed_as="the search alone, k=20: device_ms the kernels' and copies' device time "
                   "from a trace of 5 calls; host_ms CUDA events over 20 calls from an idle "
                   "stream (host-paced)")
@@ -3134,7 +3240,7 @@ def _mesh_planes(mesh, workdir: str) -> dict:
     # too, so the two differ by design (~2e-4): the card's mesh is held to
     # the CPU's mesh path over the card's own table (the two builds' f32
     # features may round to bf16 apart).
-    table = torch.cat([t.cpu() for t in ix.pipeline._dict.shards])[:MESH_DI_ROWS]
+    table = torch.cat([t.cpu() for t in ix.pipeline.search.table.shards])[:MESH_DI_ROWS]
     cpu_mesh = make_mesh(devices=["cpu"] * MESH_SHARDS)
     res["cpu"] = PatternDictionaryIndexer(table, angles, mesh=cpu_mesh, device="cpu",
                                           **kw)(queries)

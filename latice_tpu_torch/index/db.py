@@ -6,10 +6,11 @@ ids, persisted in one ``.npz`` (keys ``vectors``, ``orientations``,
 ``phases``, ``phase_groups``, ``sim_meta``), so a file written by
 ``latice_tpu``'s ``index.py build`` loads unchanged, and so does one written
 by the reference FAISS backend (a serialized ``IndexFlat`` under
-``faiss_index``). Queries copy the dictionary and its orientation
-quaternions to the device once, then run the top-k (`index.knn.cosine_topk`,
-`cosine_topk_approx` or `cosine_topk_int8`, or the CUDA kernel
-`ops.cosine_topk_fused`) and the batched consensus there.
+``faiss_index``). Queries go through `IndexPipeline`'s two stages, built
+over the dictionary on the device at the first query: the top-k
+(`index.pipeline.CandidateSearch`, or the host C++ engine for "native") and
+the batched consensus (`index.pipeline.CandidateConsensus`: on the card the
+kernel `ops.candidate_consensus_fused`, one launch a chunk).
 """
 
 from __future__ import annotations
@@ -24,18 +25,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from latice_tpu_torch.crystal import from_euler_zxz_deg, stack_symmetry_tables
 from latice_tpu_torch.device import resolve_device
-from latice_tpu_torch.index.consensus import consensus_orientations
-from latice_tpu_torch.index.knn import (
-    cosine_topk,
-    cosine_topk_approx,
-    cosine_topk_int8,
-    pad_rows,
-    quantize_dictionary_int8,
-)
+from latice_tpu_torch.index.pipeline import CandidateConsensus, CandidateSearch
 from latice_tpu_torch.index.result import OrientationResult
-from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 
 logger = logging.getLogger(__name__)
 
@@ -47,7 +39,9 @@ __all__ = [
     "parse_faiss_flat_blob",
 ]
 
-_ENGINES = ("device", "fused", "approx", "int8", "native")
+# The database's engine names and `CandidateSearch`'s ("native" searches on the host).
+_SEARCH_ENGINES = {"device": "exact", "fused": "fused", "approx": "approx", "int8": "int8",
+                   "native": None}
 
 
 def _l2_normalize_np(vectors: np.ndarray) -> np.ndarray:
@@ -138,13 +132,12 @@ class LatentVectorDatabaseConfig:
         angle_unit: "deg" thresholds misorientation in degrees (the FAISS
             backend); "rad" keeps the chroma backend's radians.
         device_batch_size: most queries per device batch in the batch APIs.
-        engine: "device" (exact: matmul and top-k, `index.knn.cosine_topk`),
-            "fused" (the CUDA top-k kernel on the card, its plain twin on
-            the CPU), "approx" (`index.knn.cosine_topk_approx`, recall
-            target 0.95), "int8" (`index.knn.cosine_topk_int8` over the
-            dictionary quantized once and cached) or "native" (the host
-            C++ engine, `native.cosine_topk_native`; ``ImportError`` when
-            the library cannot be built).
+        engine: "device" (`index.pipeline.CandidateSearch`'s "exact":
+            matmul and top-k), "fused", "approx" (recall target 0.95) or
+            "int8" (the dictionary quantized once), as that stage runs
+            them, or "native" (the host C++ engine,
+            `native.cosine_topk_native`; ``ImportError`` when the library
+            cannot be built).
         phase_symmetries: point-group names, one per phase id of a
             multi-phase dictionary (cubic "432" for every phase when None).
     """
@@ -163,9 +156,9 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
 
     Loads ``npz_path`` at construction when the file exists. ``device`` is
     where queries run, ``cuda`` unless given; it is resolved at the first
-    query, so building, saving and loading need no device. The device copy
-    of the dictionary and its quaternions is made once and dropped when the
-    vectors change, as is the int8 engine's quantized copy.
+    query, so building, saving and loading need no device. The search and
+    consensus stages over the dictionary are built on the device at the
+    first query and dropped when the dictionary changes.
     """
 
     def __init__(
@@ -174,7 +167,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         device: str | torch.device | None = None,
     ) -> None:
         self.config = config if config is not None else LatentVectorDatabaseConfig()
-        if self.config.engine not in _ENGINES:
+        if self.config.engine not in _SEARCH_ENGINES:
             raise ValueError(f"unknown engine {self.config.engine!r}")
         self.dimension = self.config.dimension
         self.npz_path = Path(self.config.npz_path)
@@ -184,9 +177,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         self._phases = np.zeros((0,), dtype=np.int32)
         self._has_phases = False
         self.sim_meta: dict | None = None
-        self._dev_cache: tuple[torch.Tensor, torch.Tensor] | None = None
-        self._int8_cache: torch.Tensor | None = None
-        self._sym_tables_cache: torch.Tensor | None = None
+        self._stages: tuple[CandidateSearch | None, CandidateConsensus] | None = None
         if self.npz_path.with_suffix(".npz").exists():
             self.load()
         else:
@@ -195,9 +186,7 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
     # -- mutation ----------------------------------------------------------
 
     def _invalidate(self) -> None:
-        self._dev_cache = None
-        self._int8_cache = None
-        self._sym_tables_cache = None
+        self._stages = None
 
     def add_vectors(self, latent_vectors, orientations, phases=None) -> None:
         """Add vectors (normalized here) with their orientations and,
@@ -240,33 +229,20 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         another device; a missing CUDA device raises)."""
         return resolve_device(self._device_arg)
 
-    def _device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The dictionary and its orientation quaternions on the device."""
-        if self._dev_cache is None:
-            dev = self.device
-            vectors = torch.as_tensor(self._vectors, device=dev).contiguous()
-            orients = torch.as_tensor(self._orientations, dtype=torch.float32, device=dev)
-            self._dev_cache = (vectors, from_euler_zxz_deg(orients))
-        return self._dev_cache
-
-    def _phase_args(self, indices: np.ndarray) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-        """``(cand_phases, sym_tables)`` consensus inputs of a multi-phase
-        dictionary, else ``(None, None)``."""
-        if not self._has_phases:
-            return None, None
-        if self._sym_tables_cache is None:
-            n_phases = int(self._phases.max()) + 1 if len(self._phases) else 1
-            groups = self.config.phase_symmetries
-            if groups is None:
-                groups = ["432"] * n_phases
-            if len(groups) < n_phases:
-                raise ValueError(
-                    f"{n_phases} phase ids but only {len(groups)} "
-                    "phase_symmetries entries in the config"
-                )
-            self._sym_tables_cache = stack_symmetry_tables(groups, device=self.device)
-        cand_phases = torch.as_tensor(self._phases[indices], device=self.device)
-        return cand_phases, self._sym_tables_cache
+    def _device_stages(self) -> tuple[CandidateSearch | None, CandidateConsensus]:
+        """The search stage (None for the host engine) and the consensus
+        stage over this dictionary on the device, built once."""
+        if self._stages is None:
+            engine = _SEARCH_ENGINES[self.config.engine]
+            search = None if engine is None else CandidateSearch(
+                self._vectors, self.device, engine=engine)
+            consensus = CandidateConsensus(
+                self._orientations, self.device,
+                dictionary_phases=self._phases if self._has_phases else None,
+                phase_symmetries=self.config.phase_symmetries, angle_unit=self.config.angle_unit,
+            )
+            self._stages = (search, consensus)
+        return self._stages
 
     # -- queries -----------------------------------------------------------
 
@@ -307,45 +283,41 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
     def _topk(self, queries: np.ndarray, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Top-k of host queries with the configured engine: on the device,
         or on the host CPU for ``native``."""
-        engine = self.config.engine
-        if engine == "native":
+        if self.config.engine == "native":
             from latice_tpu_torch.native import cosine_topk_native
 
             scores, indices = cosine_topk_native(queries, self._vectors, k)
             return torch.from_numpy(scores), torch.from_numpy(indices)
-        vectors, _ = self._device_arrays()
-        q = torch.as_tensor(queries, device=vectors.device).contiguous()
-        if engine == "fused":
-            return cosine_topk_fused(q, vectors, k)
-        if engine == "approx":
-            return cosine_topk_approx(q, vectors, k)
-        if engine == "int8":
-            if self._int8_cache is None:
-                self._int8_cache = pad_rows(quantize_dictionary_int8(vectors)[0])
-            return cosine_topk_int8(q, self._int8_cache, k, n_valid=len(vectors))
-        return cosine_topk(q, vectors, k)
+        search, _ = self._device_stages()
+        return search(torch.as_tensor(queries, device=self.device).contiguous(), k)
 
     @torch.inference_mode()
-    def _consensus(self, queries, top_n, orientation_threshold, min_required_matches,
+    def _consensus(self, queries, batch_size, top_n, orientation_threshold, min_required_matches,
                    max_iterations):
-        """Top-k and consensus of one chunk: host ``(scores, indices)`` and
-        the device `ConsensusOutput`."""
-        _, quats = self._device_arrays()
+        """``(queries, outputs)`` per chunk of ``batch_size`` (default
+        ``device_batch_size``): the top-k and the consensus as host arrays
+        named as `ConsensusResult`'s fields, ``best`` under the reference
+        API's rule: the mean, or where no trial succeeds the top-1
+        candidate's stored angles (faiss_db.py:336-343), not their
+        canonical form."""
         k = min(top_n, self.get_count())
-        scores, indices = self._topk(queries, k)
-        indices = indices.to(quats.device)
-        indices_np = indices.cpu().numpy()
-        cand_phases, sym_tables = self._phase_args(indices_np)
-        cons = consensus_orientations(
-            quats[indices],
-            orientation_threshold,
-            min_required_matches=min_required_matches,
-            max_iterations=min(max_iterations, k),
-            angle_unit=self.config.angle_unit,
-            cand_phases=cand_phases,
-            sym_tables=sym_tables,
-        )
-        return scores.cpu().double().numpy(), indices_np, cons
+        _, consensus = self._device_stages()
+        consensus = consensus.with_knobs(
+            orientation_threshold, min_required_matches, min(max_iterations, k))
+        dev = consensus.quats.device
+        chunk = max(batch_size or self.config.device_batch_size, 1)
+        for start in range(0, len(queries), chunk):
+            part = queries[start : start + chunk]
+            scores, indices = self._topk(part, k)
+            out = consensus(scores.to(dev, torch.float32), indices.to(dev))
+            host = {f: None if t is None else t.cpu().numpy()
+                    for f, t in out._asdict().items() if f != "best"}
+            host["mean_euler"] = host["mean_euler"].astype(np.float64)
+            host["scores"] = host["scores"].astype(np.float64)
+            host["indices"] = host["indices"].astype(np.int64)
+            host["best"] = np.where(host["success"][:, None], host["mean_euler"],
+                                    self._orientations[host["indices"][:, 0]])
+            yield part, host
 
     def find_best_orientation(
         self,
@@ -383,18 +355,21 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
         if self.get_count() == 0:
             logger.warning("No similar vectors found for query.")
             return [self._empty_result(q) for q in queries]
-        chunk = max(batch_size or self.config.device_batch_size, 1)
-        results: list[OrientationResult] = []
-        for start in range(0, len(queries), chunk):
-            results.extend(
-                self._consensus_chunk(
-                    queries[start : start + chunk],
-                    top_n,
-                    orientation_threshold,
-                    min_required_matches,
-                    max_iterations,
-                )
-            )
+        results = []
+        for part, out in self._consensus(queries, batch_size, top_n, orientation_threshold,
+                                         min_required_matches, max_iterations):
+            for b, query in enumerate(part):
+                ok = bool(out["success"][b])
+                results.append(OrientationResult(
+                    query_vector=query.astype(np.float64),
+                    best_orientation=out["best"][b],
+                    mean_orientation=out["mean_euler"][b] if ok else None,
+                    candidate_orientations=self._orientations[out["indices"][b]],
+                    distances=out["scores"][b],
+                    success=ok,
+                    similar_indices=np.where(out["similar_mask"][b])[0],
+                    phase=None if out["phase"] is None else int(out["phase"][b]),
+                ))
         return results
 
     def find_best_orientations_dense(
@@ -421,81 +396,20 @@ class TorchLatentVectorDatabase(LatentVectorDatabaseBase):
                 "indices": np.zeros((len(queries), 0), np.int64),
                 "scores": np.zeros((len(queries), 0)),
             }
-        chunk = max(batch_size or self.config.device_batch_size, 1)
-        outs = []
-        for start in range(0, len(queries), chunk):
-            scores, indices, cons = self._consensus(
-                queries[start : start + chunk], top_n, orientation_threshold,
-                min_required_matches, max_iterations,
-            )
-            outs.append((
-                scores,
-                indices.astype(np.int64),
-                cons.mean_euler.cpu().double().numpy(),
-                cons.success.cpu().numpy(),
-                cons.similar_mask.cpu().numpy(),
-                None if cons.phase is None else cons.phase.cpu().numpy(),
-            ))
-        scores, indices, mean, success, mask = (
-            np.concatenate([o[i] for o in outs]) for i in range(5)
-        )
+        outs = [out for _, out in self._consensus(queries, batch_size, top_n, orientation_threshold,
+                                                  min_required_matches, max_iterations)]
+        cat = {f: np.concatenate([o[f] for o in outs]) for f in outs[0] if outs[0][f] is not None}
         result = {
-            "mean_orientation": np.where(success[:, None], mean, np.nan),
-            "best_orientation": np.where(
-                success[:, None], mean, self._orientations[indices[:, 0]]
-            ),
-            "success": success,
-            "n_similar": mask.sum(axis=1).astype(np.int64),
-            "indices": indices,
-            "scores": scores,
+            "mean_orientation": np.where(cat["success"][:, None], cat["mean_euler"], np.nan),
+            "best_orientation": cat["best"],
+            "success": cat["success"],
+            "n_similar": cat["n_similar"].astype(np.int64),
+            "indices": cat["indices"],
+            "scores": cat["scores"],
         }
         if self._has_phases:
-            phase = np.concatenate([o[5] for o in outs]).astype(np.int64)
-            # A failed row reports its top-1 candidate's phase, as `best`.
-            result["phase"] = np.where(success, phase, self._phases[indices[:, 0]]).astype(
-                np.int64
-            )
+            result["phase"] = cat["phase"].astype(np.int64)
         return result
-
-    def _consensus_chunk(
-        self,
-        queries: np.ndarray,
-        top_n: int,
-        orientation_threshold: float,
-        min_required_matches: int,
-        max_iterations: int,
-    ) -> list[OrientationResult]:
-        scores, indices, cons = self._consensus(
-            queries, top_n, orientation_threshold, min_required_matches, max_iterations
-        )
-        mean = cons.mean_euler.cpu().double().numpy()
-        success = cons.success.cpu().numpy()
-        mask = cons.similar_mask.cpu().numpy()
-        phase = None if cons.phase is None else cons.phase.cpu().numpy()
-        results = []
-        for b in range(len(queries)):
-            cand_orients = self._orientations[indices[b]]
-            ok = bool(success[b])
-            mean_b = mean[b] if ok else None
-            # On success the consensus mean, else the closest match
-            # (faiss_db.py:336-343); a failed row's phase is its top-1's.
-            best = mean_b if ok else cand_orients[0]
-            phase_b = None
-            if phase is not None:
-                phase_b = int(phase[b] if ok else self._phases[indices[b, 0]])
-            results.append(
-                OrientationResult(
-                    query_vector=queries[b].astype(np.float64),
-                    best_orientation=np.asarray(best, dtype=np.float64),
-                    mean_orientation=mean_b,
-                    candidate_orientations=cand_orients,
-                    distances=scores[b],
-                    success=ok,
-                    similar_indices=np.where(mask[b])[0],
-                    phase=phase_b,
-                )
-            )
-        return results
 
     def _empty_result(self, query: np.ndarray) -> OrientationResult:
         """The failed result of a query on an empty index."""

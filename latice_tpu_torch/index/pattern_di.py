@@ -229,7 +229,7 @@ class PatternDictionaryIndexer:
     @property
     def dimension(self) -> int:
         """Features per row: ``H*W / bin_factor**2``."""
-        return int(self.pipeline._dict.shape[1])
+        return int(self.pipeline.search.table.shape[1])
 
 
 class StreamedPatternDI:

@@ -2,14 +2,16 @@
 
 The port of ``latice_tpu.index.pipeline.IndexPipeline``. Per batch, on the
 device: uint8 ``/255``, an optional preprocess, the VAE encoder's ``mu``,
-the candidate search (the CUDA kernel `ops.cosine_topk_fused` for
-``engine="fused"``, the CUDA kernel `ops.cosine_topk_wide` for "exact"
-over a bf16 table, the `index.knn` engines for the rest of "exact",
-"approx" and "int8"), then the symmetry-aware consensus and the Euler
-angles (the CUDA kernel `ops.candidate_consensus_fused`, one launch a
-batch). One host-to-device copy of the patterns and one device-to-host
-copy of the results per batch; every batch of a call is enqueued before
-the first result is copied back.
+the candidate search (`CandidateSearch`: the CUDA kernel
+`ops.cosine_topk_fused` for ``engine="fused"``, the CUDA kernel
+`ops.cosine_topk_wide` for "exact" over a bf16 table, the `index.knn`
+engines for the rest of "exact", "approx" and "int8"), then the
+symmetry-aware consensus and the Euler angles (`CandidateConsensus`: the
+CUDA kernel `ops.candidate_consensus_fused`, one launch a batch), the
+two stages of the latent database's queries too (`index.db`). One
+host-to-device copy of the patterns and one device-to-host copy of the
+results per batch; every batch of a call is enqueued before the first
+result is copied back.
 
 With ``mesh=`` (`parallel.make_mesh`) each batch splits over the mesh's
 devices, each block encoded by that device's replica of the model; the
@@ -20,6 +22,7 @@ consensus runs on the first device.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -37,7 +40,7 @@ from latice_tpu_torch.index.knn import (
     quantize_dictionary_int8,
     topk_lower_index_first,
 )
-from latice_tpu_torch.ops.consensus_fused import candidate_consensus_fused
+from latice_tpu_torch.ops.consensus_fused import ConsensusResult, candidate_consensus_fused
 from latice_tpu_torch.ops.topk_fused import cosine_topk_fused
 from latice_tpu_torch.ops.topk_wide import cosine_topk_wide
 from latice_tpu_torch.parallel.mesh import check_mesh_device, gather_rows, replicate, shard_batch
@@ -45,6 +48,7 @@ from latice_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "CandidateConsensus",
+    "CandidateSearch",
     "DenseIndexResult",
     "IndexPipeline",
     "as_preprocess_fn",
@@ -133,7 +137,7 @@ class IndexPipeline:
             rounded to bf16, while the products and scores stay f32. The
             fused and int8 engines ignore it.
 
-    The dictionary is cast or quantized once, here.
+    The dictionary is cast or quantized once, here (`CandidateSearch`).
     """
 
     def __init__(
@@ -158,10 +162,6 @@ class IndexPipeline:
         search_dtype: str = "float32",
         recall_target: float = 0.95,
     ) -> None:
-        if engine not in ("exact", "fused", "approx", "int8"):
-            raise ValueError(f"unknown engine {engine!r}")
-        if search_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown search_dtype {search_dtype!r}")
         preprocess = as_preprocess_fn(preprocess)
         if feature_fn is None and model is None:
             raise ValueError("pass a model or a feature_fn")
@@ -176,46 +176,19 @@ class IndexPipeline:
                 )
         else:
             self.device = resolve_device(device)
+        self.search = CandidateSearch(
+            dictionary_vectors, self.device, engine=engine, search_dtype=search_dtype,
+            recall_target=recall_target, mesh=mesh,
+        )
         self.engine = engine
         self.batch_size = batch_size
         self.feature_fn = feature_fn
         self.preprocess = preprocess
-        self.recall_target = recall_target
         self.model = None if model is None else model.to(self.device).eval()
         self._replicas = None
         if mesh is not None and self.model is not None:
             self._replicas = replicate(self.model, mesh)
-        if isinstance(dictionary_vectors, torch.Tensor):
-            # Taken in its dtype (a bf16 table stays bf16), without a host copy.
-            vectors = dictionary_vectors if mesh is not None else dictionary_vectors.to(self.device)
-        elif mesh is not None:
-            # A host table stays on the host until each shard is copied
-            # straight to its own device.
-            vectors = np.asarray(dictionary_vectors, np.float32)
-        else:
-            vectors = torch.as_tensor(
-                np.asarray(dictionary_vectors, np.float32), device=self.device
-            )
-        self._n = len(vectors)
-        if engine == "int8":
-            vectors = quantize_dictionary_int8(vectors)[0]
-        elif search_dtype == "bfloat16" and engine in ("exact", "approx"):
-            vectors = (
-                torch.from_numpy(vectors).bfloat16()
-                if isinstance(vectors, np.ndarray)
-                else vectors.to(torch.bfloat16)
-            )
-        if mesh is not None:
-            from latice_tpu_torch.parallel.sharded_knn import shard_dictionary
-
-            self._dict = shard_dictionary(vectors, mesh)
-        elif engine == "int8":
-            # Zero rows up to a multiple of 8 for the int8 tensor cores;
-            # the search reads the first _n columns of its products.
-            self._dict = pad_rows(vectors).contiguous()
-        else:
-            self._dict = vectors.contiguous()
-        self._k = min(top_n, self._n)
+        self._k = min(top_n, self.search.n)
         self.consensus = CandidateConsensus(
             dictionary_orientations,
             self.device,
@@ -248,32 +221,12 @@ class IndexPipeline:
         return model.encode(patterns[:, None])[0]
 
     def _search(self, mu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Best-first ``(scores, indices)`` of the ``(B, D)`` features with
-        the configured engine."""
+        """Best-first ``(scores, indices)`` of the ``(B, D)`` features
+        (`CandidateSearch`)."""
         with span("index:search"):
-            k = self._k
-            if self.mesh is not None:
-                from latice_tpu_torch.parallel.sharded_knn import sharded_cosine_topk_inner
+            return self.search(mu, self._k)
 
-                return sharded_cosine_topk_inner(
-                    mu, self._dict, k, self.mesh, n_valid=self._n,
-                    engine=self.engine, recall_target=self.recall_target,
-                )
-            if self.engine == "fused":
-                return cosine_topk_fused(mu, self._dict, k)
-            if self.engine == "int8":
-                return cosine_topk_int8(mu, self._dict, k, n_valid=self._n)
-            q = l2_normalize(mu.float())
-            if self._dict.dtype == torch.bfloat16:
-                q = q.bfloat16()  # both operands rounded; products and sums in f32
-                if self.engine == "exact":
-                    return cosine_topk_wide(q, self._dict, k)
-            scores = cosine_scores(q, self._dict)
-            if self.engine == "approx":
-                return approx_topk(scores, k, self.recall_target)
-            return topk_lower_index_first(scores, k)
-
-    def _run(self, patterns: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def _run(self, patterns: torch.Tensor) -> ConsensusResult:
         scores, indices = self._search(self._encode(patterns))
         return self.consensus(scores, indices)
 
@@ -290,7 +243,7 @@ class IndexPipeline:
         """``(B, D)`` f32 latents of ``(B, H, W[, 1])`` patterns."""
         pending = [(n, self._encode(chunk)) for n, chunk in self._batches(patterns)]
         if not pending:
-            return np.zeros((0, self._dict.shape[1]), np.float32)
+            return np.zeros((0, self.search.table.shape[1]), np.float32)
         return np.concatenate([mu[:n].cpu().numpy() for n, mu in pending])
 
     @torch.inference_mode()
@@ -362,6 +315,82 @@ def device_batches(patterns: np.ndarray, batch_size: int, device: torch.device):
         yield n, batch
 
 
+class CandidateSearch:
+    """The candidate search over one dictionary, on one device or a mesh
+    (row-sharded, `parallel.sharded_cosine_topk_inner`): the table cast or
+    quantized once, and the engine; ``engine``, ``search_dtype`` and
+    ``recall_target`` as `IndexPipeline`'s. Called with ``(B, D)`` device
+    queries of any scale and ``k``, it returns their best-first ``(scores,
+    indices)``."""
+
+    def __init__(
+        self,
+        dictionary_vectors,
+        device: torch.device,
+        engine: str = "exact",
+        search_dtype: str = "float32",
+        recall_target: float = 0.95,
+        mesh=None,
+    ) -> None:
+        if engine not in ("exact", "fused", "approx", "int8"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if search_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown search_dtype {search_dtype!r}")
+        if isinstance(dictionary_vectors, torch.Tensor):
+            # Taken in its dtype (a bf16 table stays bf16), without a host copy.
+            vectors = dictionary_vectors if mesh is not None else dictionary_vectors.to(device)
+        elif mesh is not None:
+            # A host table stays on the host until each shard is copied
+            # straight to its own device.
+            vectors = np.asarray(dictionary_vectors, np.float32)
+        else:
+            vectors = torch.as_tensor(np.asarray(dictionary_vectors, np.float32), device=device)
+        self.n = len(vectors)
+        if engine == "int8":
+            vectors = quantize_dictionary_int8(vectors)[0]
+        elif search_dtype == "bfloat16" and engine in ("exact", "approx"):
+            vectors = (
+                torch.from_numpy(vectors).bfloat16()
+                if isinstance(vectors, np.ndarray)
+                else vectors.to(torch.bfloat16)
+            )
+        if mesh is not None:
+            from latice_tpu_torch.parallel.sharded_knn import shard_dictionary
+
+            self.table = shard_dictionary(vectors, mesh)
+        elif engine == "int8":
+            # Zero rows up to a multiple of 8 for the int8 tensor cores;
+            # the search reads the first n columns of its products.
+            self.table = pad_rows(vectors).contiguous()
+        else:
+            self.table = vectors.contiguous()
+        self.engine = engine
+        self.recall_target = recall_target
+        self.mesh = mesh
+
+    def __call__(self, queries: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.mesh is not None:
+            from latice_tpu_torch.parallel.sharded_knn import sharded_cosine_topk_inner
+
+            return sharded_cosine_topk_inner(
+                queries, self.table, k, self.mesh, n_valid=self.n,
+                engine=self.engine, recall_target=self.recall_target,
+            )
+        if self.engine == "fused":
+            return cosine_topk_fused(queries, self.table, k)
+        if self.engine == "int8":
+            return cosine_topk_int8(queries, self.table, k, n_valid=self.n)
+        q = l2_normalize(queries.float())
+        if self.table.dtype == torch.bfloat16:
+            q = q.bfloat16()  # both operands rounded; products and sums in f32
+            if self.engine == "exact":
+                return cosine_topk_wide(q, self.table, k)
+        scores = cosine_scores(q, self.table)
+        if self.engine == "approx":
+            return approx_topk(scores, k, self.recall_target)
+        return topk_lower_index_first(scores, k)
+
+
 class CandidateConsensus:
     """The consensus stage over one dictionary's orientations, on one device.
 
@@ -369,11 +398,12 @@ class CandidateConsensus:
     phases, the phase id rides as a 5th column so one row gather fetches
     both) and each phase's symmetry table (cubic unless named), on the
     device. Called with a batch's best-first ``(B, k)`` candidate scores and
-    dictionary rows, it returns the batch's device outputs: the consensus
-    mean, the best orientation (the top-1 on failure), success, the count of
-    similar candidates, the indices and scores, and with phases the phase
-    (`ops.candidate_consensus_fused`: one kernel launch on the card, its
-    plain twin on the CPU). The knobs are `IndexPipeline`'s.
+    dictionary rows, it returns the batch's device `ConsensusResult`: the
+    consensus mean, the best orientation (the top-1 on failure), success,
+    the count of similar candidates and their mask, the indices and scores,
+    and with phases the phase (`ops.candidate_consensus_fused`: one kernel
+    launch on the card, its plain twin on the CPU). The knobs are
+    `IndexPipeline`'s.
     """
 
     def __init__(
@@ -418,7 +448,15 @@ class CandidateConsensus:
         self.angle_unit = angle_unit
         self.weight_power = consensus_weight_power
 
-    def __call__(self, scores: torch.Tensor, indices: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def with_knobs(self, orientation_threshold: float, min_required_matches: int,
+                   max_iterations: int) -> CandidateConsensus:
+        """This stage with other trial knobs, over the same device tables."""
+        other = copy.copy(self)
+        other.threshold, other.min_matches = orientation_threshold, min_required_matches
+        other.max_iterations = max_iterations
+        return other
+
+    def __call__(self, scores: torch.Tensor, indices: torch.Tensor) -> ConsensusResult:
         with span("index:consensus"):
             return candidate_consensus_fused(
                 scores,
@@ -434,9 +472,9 @@ class CandidateConsensus:
 
 
 def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:
-    """One `DenseIndexResult` from ``(n_real, device outputs)`` per batch
-    (`CandidateConsensus`'s tuples), copied to the host only here, so
-    every batch is enqueued before the first copy."""
+    """One `DenseIndexResult` from ``(n_real, ConsensusResult)`` per batch,
+    copied to the host only here, so every batch is enqueued before the
+    first copy."""
     with span("index:collect"):
         if not pending:
             return DenseIndexResult(
@@ -448,9 +486,12 @@ def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:
                 scores=np.zeros((0, k), np.float64),
                 phase=np.zeros((0,), np.int64) if multiphase else None,
             )
-        outs = [tuple(t[:n].cpu().numpy() for t in res) for n, res in pending]
-        mean, best, success, n_sim, indices, scores, *extra = (
-            np.concatenate([o[i] for o in outs]) for i in range(len(outs[0]))
+        fields = ("mean_euler", "best", "success", "n_similar", "indices", "scores")
+        if multiphase:
+            fields += ("phase",)
+        mean, best, success, n_sim, indices, scores, *phase = (
+            np.concatenate([getattr(res, f)[:n].cpu().numpy() for n, res in pending])
+            for f in fields
         )
         return DenseIndexResult(
             mean_orientation=np.where(success[:, None], mean, np.nan).astype(np.float64),
@@ -459,5 +500,5 @@ def collect_results(pending, k: int, multiphase: bool) -> DenseIndexResult:
             n_similar=n_sim.astype(np.int64),
             indices=indices.astype(np.int64),
             scores=scores.astype(np.float64),
-            phase=extra[0].astype(np.int64) if extra else None,
+            phase=phase[0].astype(np.int64) if phase else None,
         )

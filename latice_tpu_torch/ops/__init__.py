@@ -5,6 +5,7 @@ its ``launches`` attribute) and runs the plain version on a CPU tensor.
 """
 
 from latice_tpu_torch.ops.consensus_fused import (
+    ConsensusResult,
     candidate_consensus_fused,
     candidate_consensus_fused_plain,
 )
@@ -24,6 +25,7 @@ from latice_tpu_torch.ops.topk_fused import cosine_topk_fused, cosine_topk_fused
 from latice_tpu_torch.ops.topk_wide import cosine_topk_wide, cosine_topk_wide_plain
 
 __all__ = [
+    "ConsensusResult",
     "InstanceNormLeakyReLUFunction",
     "candidate_consensus_fused",
     "candidate_consensus_fused_plain",

@@ -10,12 +10,12 @@ in several hundred.
 Contract, that of `index.pipeline.CandidateConsensus`: from a batch's
 best-first ``(B, k)`` f32 scores and integer dictionary rows, the
 dictionary's ``(N, 4)`` unit quaternions (``(N, 5)`` with the phase id as a
-fifth column) and the ``(P, S, 4)`` per-phase symmetry tables, the tuple
-``(mean_euler, best, success, n_similar, indices, scores)``, plus ``phase``
-with phases: `index.consensus.consensus_orientations`' trials, snap and
-chordal mean, with the in-threshold candidates weighted by ``(s / s_max) **
-weight_power`` when that is given, and the top-1 candidate as the best
-orientation where no trial succeeds.
+fifth column) and the ``(P, S, 4)`` per-phase symmetry tables, a
+`ConsensusResult`: `index.consensus.consensus_orientations`' trials, snap
+and chordal mean, with the in-threshold candidates weighted by ``(s /
+s_max) ** weight_power`` when that is given, the chosen trial's
+per-candidate mask, and the top-1 candidate as the best orientation where
+no trial succeeds.
 
 `candidate_consensus_fused` launches the kernel on CUDA tensors and runs
 the plain version `candidate_consensus_fused_plain` on CPU tensors; nothing
@@ -25,12 +25,26 @@ falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from latice_tpu_torch.ops import _build
 
-__all__ = ["candidate_consensus_fused", "candidate_consensus_fused_plain"]
+__all__ = ["ConsensusResult", "candidate_consensus_fused", "candidate_consensus_fused_plain"]
+
+
+class ConsensusResult(NamedTuple):
+    """One batch's consensus, on the batch's device."""
+
+    mean_euler: torch.Tensor  # (B, 3) f32 zxz degrees, whether or not a trial succeeds
+    best: torch.Tensor  # (B, 3) f32: the mean, or the top-1 candidate where none succeeds
+    success: torch.Tensor  # (B,) bool
+    n_similar: torch.Tensor  # (B,) int64: the chosen trial's matches
+    similar_mask: torch.Tensor  # (B, k) bool: which candidates they are
+    indices: torch.Tensor  # the (B, k) input rows, returned as given
+    scores: torch.Tensor  # the (B, k) input scores, returned as given
+    phase: torch.Tensor | None = None  # (B,) int32 with phases: the top-1's where none succeeds
 
 
 def _check(scores, indices, rows, sym_tables, max_iterations: int, angle_unit: str) -> None:
@@ -63,7 +77,7 @@ def candidate_consensus_fused_plain(
     max_iterations: int,
     angle_unit: str = "deg",
     weight_power: float | None = None,
-) -> tuple[torch.Tensor, ...]:
+) -> ConsensusResult:
     """The same function in plain torch, on the tensors' device: the rows
     gathered, `index.consensus.consensus_orientations`, the Euler angles
     and the top-1 fallback."""
@@ -94,10 +108,11 @@ def candidate_consensus_fused_plain(
     # Failure fallback: the top-1 candidate, in canonical scipy ranges.
     top1_euler = to_euler_zxz_deg(cand_quats[:, 0])
     best = torch.where(cons.success[:, None], cons.mean_euler, top1_euler)
-    out = (cons.mean_euler, best, cons.success, cons.similar_mask.sum(dim=1), indices, scores)
+    phase = None
     if cand_phases is not None:
-        out = out + (torch.where(cons.success, cons.phase, cand_phases[:, 0]),)
-    return out
+        phase = torch.where(cons.success, cons.phase, cand_phases[:, 0])
+    return ConsensusResult(cons.mean_euler, best, cons.success, cons.similar_mask.sum(dim=1),
+                           cons.similar_mask, indices, scores, phase)
 
 
 def candidate_consensus_fused(
@@ -110,7 +125,7 @@ def candidate_consensus_fused(
     max_iterations: int,
     angle_unit: str = "deg",
     weight_power: float | None = None,
-) -> tuple[torch.Tensor, ...]:
+) -> ConsensusResult:
     """The consensus of ``(B, k)`` candidates in one launch.
 
     On CUDA tensors this launches ``csrc/consensus_fused.cu`` and adds one
@@ -144,6 +159,7 @@ def candidate_consensus_fused(
     best = torch.empty((b, 3), dtype=torch.float32, device=dev)
     success = torch.empty((b,), dtype=torch.bool, device=dev)
     n_similar = torch.empty((b,), dtype=torch.int64, device=dev)
+    mask = torch.empty((b, k), dtype=torch.bool, device=dev)
     phase = torch.empty((b,), dtype=torch.int32, device=dev) if phased else None
     if b:
         s, i = scores.contiguous(), indices.contiguous()
@@ -158,14 +174,13 @@ def candidate_consensus_fused(
                 int(angle_unit == "deg"), int(weight_power is not None),
                 0.0 if weight_power is None else weight_power,
                 mean.data_ptr(), best.data_ptr(), success.data_ptr(), n_similar.data_ptr(),
-                None if phase is None else phase.data_ptr(), stream,
+                mask.data_ptr(), None if phase is None else phase.data_ptr(), stream,
             )
         # The library refuses tables beyond a block's shared memory.
         _build.check(lib, code, f"candidate_consensus_fused of {n_phases} x {n_sym} symmetry "
                                 "operators")
         candidate_consensus_fused.launches += 1
-    out = (mean, best, success, n_similar, indices, scores)
-    return out + (phase,) if phased else out
+    return ConsensusResult(mean, best, success, n_similar, mask, indices, scores, phase)
 
 
 candidate_consensus_fused.launches = 0
@@ -176,6 +191,6 @@ def _lib() -> ctypes.CDLL:
     fn = lib.latice_candidate_consensus_fused
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, i, p, i, i, p, i, i, i, i, i, i, f, i, i, f, p, p, p, p, p, p]
+        fn.argtypes = [p, p, i, p, i, i, p, i, i, i, i, i, i, f, i, i, f, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib

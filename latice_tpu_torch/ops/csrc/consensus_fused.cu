@@ -27,11 +27,13 @@
 // candidates against it, and __ballot_sync and __popc count the matches.
 // The first succeeding trial is chosen, else the last. The block's warps
 // share the per-phase symmetry tables, (P, S, 4) f32 of a few KB, in shared
-// memory. Each lane snaps its candidates to the image sym_s (x) cand nearest
-// the chosen reference (the first closest on a tie), weights them, and sums
-// its part of the 4x4 mean matrix (10 distinct entries) and of the power
-// iteration's start vector; warp shuffles add the parts, and every lane then
-// runs the power iteration and the Euler conversion in registers. Candidate
+// memory. Each lane stores whether each of its candidates matches the chosen
+// reference (the row's mask, one byte a candidate), snaps it to the image
+// sym_s (x) cand nearest that reference (the first closest on a tie),
+// weights it, and sums its part of the 4x4 mean matrix (10 distinct
+// entries) and of the power iteration's start vector; warp shuffles add the
+// parts, and every lane then runs the power iteration and the Euler
+// conversion in registers. Candidate
 // rows are gathered again in each pass rather than held, so k has no limit:
 // after the first pass they come from L1.
 //
@@ -68,6 +70,7 @@ struct Args {
   float* best;          // (B, 3)
   bool* success;        // (B,)
   long long* n_similar; // (B,)
+  bool* mask;           // (B, k): the chosen trial's matches
   int* phase;           // (B,), or null without phases
   int idx64, n_rows, stride, n_phases, n_sym, B, k, iters, min_matches, degrees, weighted;
   float threshold, power;
@@ -219,6 +222,7 @@ __global__ void __launch_bounds__(kWarps * 32) consensus_fused(Args a) {
     if (c >= k) continue;
     const Cand cand = load_cand(a, query, c);
     const bool in = similar(ref_chosen, cand, a.threshold, a.degrees);
+    a.mask[static_cast<long long>(query) * k + c] = in;
     float w = in ? 1.0f : 0.0f;
     if (a.weighted) {
       const float raw = w * score_weight(a, query, c, top);
@@ -287,8 +291,8 @@ extern "C" {
 // scores: (B, k) f32; indices: (B, k) int64 (idx64 = 1) or int32; rows:
 // (n_rows, stride) f32, stride 4 or 5 (the phase id as a 5th column); sym:
 // (n_phases, n_sym, 4) f32; outputs mean_euler and best (B, 3) f32,
-// success (B,) bool, n_similar (B,) int64 and, with stride 5, phase (B,)
-// int32. Requires k >= 1 and 1 <= iters <= k (the wrapper checks them).
+// success (B,) bool, n_similar (B,) int64, mask (B, k) bool (the chosen
+// trial's matches) and, with stride 5, phase (B,) int32. Requires k >= 1 and 1 <= iters <= k (the wrapper checks them).
 // Returns cudaErrorInvalidValue without launching if the tables exceed a
 // block's 48 KB of shared memory, else cudaGetLastError() after the launch.
 int latice_candidate_consensus_fused(const void* scores, const void* indices, int idx64,
@@ -296,15 +300,15 @@ int latice_candidate_consensus_fused(const void* scores, const void* indices, in
                                      int n_phases, int n_sym, int B, int k, int iters,
                                      int min_matches, float threshold, int degrees, int weighted,
                                      float power, void* mean_euler, void* best, void* success,
-                                     void* n_similar, void* phase, void* stream) {
+                                     void* n_similar, void* mask, void* phase, void* stream) {
   const long long smem = 16LL * n_phases * n_sym;
   if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(scores), indices, static_cast<const float*>(rows),
                static_cast<const float*>(sym), static_cast<float*>(mean_euler),
                static_cast<float*>(best), static_cast<bool*>(success),
-               static_cast<long long*>(n_similar), static_cast<int*>(phase), idx64, n_rows,
-               stride, n_phases, n_sym, B, k, iters, min_matches, degrees, weighted, threshold,
-               power};
+               static_cast<long long*>(n_similar), static_cast<bool*>(mask),
+               static_cast<int*>(phase), idx64, n_rows, stride, n_phases, n_sym, B, k, iters,
+               min_matches, degrees, weighted, threshold, power};
   consensus_fused<<<(B + kWarps - 1) / kWarps, kWarps * 32, static_cast<int>(smem),
                     static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -110,7 +110,7 @@ def _jax_call(euler, phase, scores, indices, cc: CandidateConsensus):
     )
     best = jnp.where(cons.success[:, None], cons.mean_euler, jax_to_euler(cand_quats[:, 0]))
     out = dict(mean=cons.mean_euler, best=best, success=cons.success,
-               n_similar=cons.similar_mask.sum(axis=1))
+               n_similar=cons.similar_mask.sum(axis=1), similar_mask=cons.similar_mask)
     if phase is not None:
         out["phase"] = jnp.where(cons.success, cons.phase, cand_phases[:, 0])
     return {k: np.asarray(v) for k, v in out.items()}
@@ -154,9 +154,9 @@ CPU_CASES = [
 def test_cpu_call_is_the_previous_call(case):
     """On CPU tensors `CandidateConsensus` runs the plain twin, no kernel,
     and returns what it returned before the kernel: the JAX package's
-    pipeline outputs, in the port's dtypes, with ``success``, ``n_similar``
-    and ``phase`` equal away from the threshold and the orientations within
-    1e-3 degrees."""
+    pipeline outputs, in the port's dtypes, with ``success``, ``n_similar``,
+    the chosen trial's mask and ``phase`` equal away from the threshold and
+    the orientations within 1e-3 degrees."""
     case = dict(case)
     phases, index_dtype = case.pop("phases"), case.pop("index_dtype", torch.int64)
     k = 12
@@ -166,23 +166,30 @@ def test_cpu_call_is_the_previous_call(case):
     before = candidate_consensus_fused.launches
     got = cc(scores, idx)
     assert candidate_consensus_fused.launches == before
-    dtypes = [torch.float32, torch.float32, torch.bool, torch.int64, index_dtype, torch.float32]
-    shapes = [(24, 3), (24, 3), (24,), (24,), (24, k), (24, k)]
+    want_types = dict(mean_euler=(torch.float32, (24, 3)), best=(torch.float32, (24, 3)),
+                      success=(torch.bool, (24,)), n_similar=(torch.int64, (24,)),
+                      similar_mask=(torch.bool, (24, k)), indices=(index_dtype, (24, k)),
+                      scores=(torch.float32, (24, k)))
     if phases:
-        dtypes, shapes = dtypes + [torch.int32], shapes + [(24,)]
-    assert [g.dtype for g in got] == dtypes and [tuple(g.shape) for g in got] == shapes
-    assert got[4] is idx and got[5] is scores
+        want_types["phase"] = (torch.int32, (24,))
+    else:
+        assert got.phase is None
+    assert {f: (getattr(got, f).dtype, tuple(getattr(got, f).shape)) for f in want_types} == (
+        want_types)
+    assert got.indices is idx and got.scores is scores
     want = _jax_call(euler, phase, scores, idx, cc)
     keep = _margin_rows(cc, idx, min(cc.max_iterations, k), cc.angle_unit == "rad")
     assert keep.mean() > 0.9
     assert 0 < int(want["success"].sum()) < len(scores)  # both branches
-    np.testing.assert_array_equal(got[2].numpy()[keep], want["success"][keep])
-    np.testing.assert_array_equal(got[3].numpy()[keep], want["n_similar"][keep])
+    np.testing.assert_array_equal(got.success.numpy()[keep], want["success"][keep])
+    np.testing.assert_array_equal(got.n_similar.numpy()[keep], want["n_similar"][keep])
+    np.testing.assert_array_equal(got.similar_mask.numpy()[keep], want["similar_mask"][keep])
     if phases:
-        np.testing.assert_array_equal(got[6].numpy()[keep], want["phase"][keep])
+        np.testing.assert_array_equal(got.phase.numpy()[keep], want["phase"][keep])
     ok = keep & want["success"]
-    assert _angle_deg(got[0][ok], torch.from_numpy(want["mean"][ok])).max(initial=0.0) < 1e-3
-    assert _angle_deg(got[1][keep], torch.from_numpy(want["best"][keep])).max() < 1e-3
+    mean_gap = _angle_deg(got.mean_euler[ok], torch.from_numpy(want["mean"][ok]))
+    assert mean_gap.max(initial=0.0) < 1e-3
+    assert _angle_deg(got.best[keep], torch.from_numpy(want["best"][keep])).max() < 1e-3
 
 
 def test_sources_list_the_kernel():
@@ -266,22 +273,22 @@ def test_card_kernel_matches_the_plain_twin(card, case):
     assert candidate_consensus_fused.launches == before + 1
     want = candidate_consensus_fused_plain(*args)
     torch.cuda.synchronize()
-    assert len(got) == len(want)
+    assert (got.phase is None) == (want.phase is None) == (not phases)
     for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape and g.device == w.device
-    assert got[4] is idx and got[5] is scores
+        if w is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape and g.device == w.device
+    assert got.indices is idx and got.scores is scores
     keep = _margin_rows(cc, idx, min(cc.max_iterations, k), cc.angle_unit == "rad")
     assert keep.mean() > 0.9
-    success = want[2].cpu().numpy()
+    success = want.success.cpu().numpy()
     if b > 1:
         assert 0 < success.sum() < b  # both branches
-    np.testing.assert_array_equal(got[2].cpu().numpy()[keep], success[keep])
-    np.testing.assert_array_equal(got[3].cpu().numpy()[keep], want[3].cpu().numpy()[keep])
-    if phases:
-        np.testing.assert_array_equal(got[6].cpu().numpy()[keep], want[6].cpu().numpy()[keep])
+    for field in ("success", "n_similar", "similar_mask") + (("phase",) if phases else ()):
+        np.testing.assert_array_equal(getattr(got, field).cpu().numpy()[keep],
+                                      getattr(want, field).cpu().numpy()[keep])
     ok = keep & success
-    assert _angle_deg(got[0][ok], want[0][ok]).max(initial=0.0) < 1e-3
-    assert _angle_deg(got[1][keep], want[1][keep]).max(initial=0.0) < 1e-3
+    assert _angle_deg(got.mean_euler[ok], want.mean_euler[ok]).max(initial=0.0) < 1e-3
+    assert _angle_deg(got.best[keep], want.best[keep]).max(initial=0.0) < 1e-3
 
 
 @pytest.mark.card
@@ -315,3 +322,37 @@ def test_card_pipeline_launches_once_a_batch_with_no_consensus_sync(card):
     spans = [s for s in recorded().spans if s.name == "index:consensus"]
     assert len(spans) == 3 and all(s.syncs == 0 for s in spans)
     assert len(result.success) == 20
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("engine", ["device", "fused", "approx", "int8", "native"])
+def test_card_database_launches_once_a_chunk_with_no_consensus_sync(card, engine):
+    """The latent database's queries take the pipeline's consensus stage:
+    one K4 launch a chunk whatever the engine, no stream sync inside it, and
+    each row's similar indices as many as its ``n_similar``."""
+    from latice_tpu_torch.index import LatentVectorDatabaseConfig, TorchLatentVectorDatabase
+
+    rng = np.random.default_rng(1)
+    dim = 16
+    # The latents cluster as the orientations do: 16 clusters of 32 rows.
+    vectors = np.repeat(rng.normal(size=(16, dim)), 32, axis=0)
+    vectors = (vectors + 0.1 * rng.normal(size=vectors.shape)).astype(np.float32)
+    db = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path="/nonexistent/db.npz", dimension=dim, engine=engine),
+        device=card,
+    )
+    db.add_vectors(vectors, _dictionary(rng, 16, 32))
+    queries = vectors[:20] + 0.01 * rng.normal(size=(20, dim)).astype(np.float32)
+    kw = dict(top_n=20, min_required_matches=8, batch_size=8)  # chunks of 8, 8 and 4
+    db.find_best_orientations_batch(queries, **kw)  # builds the kernels
+    before = candidate_consensus_fused.launches
+    with profile(activities=[ProfilerActivity.CUDA]):
+        results = db.find_best_orientations_batch(queries, **kw)
+    assert candidate_consensus_fused.launches == before + 3
+    spans = [s for s in recorded().spans if s.name == "index:consensus"]
+    assert len(spans) == 3 and all(s.syncs == 0 for s in spans)
+    dense = db.find_best_orientations_dense(queries, **kw)
+    assert candidate_consensus_fused.launches == before + 6
+    np.testing.assert_array_equal(dense["n_similar"], [len(r.similar_indices) for r in results])
+    np.testing.assert_array_equal(dense["success"], [r.success for r in results])
+    assert 0 < dense["success"].sum() < 20 and all(r.distances.shape == (20,) for r in results)

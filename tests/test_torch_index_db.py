@@ -280,3 +280,39 @@ def test_engines_of_later_slices_raise_and_device_defaults_to_cuda(tmp_path, dat
     db.save()  # host work needs no device
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         db.query_similar(data["queries"][0])
+
+
+@pytest.mark.parametrize("engine", ["device", "fused", "approx", "int8", "native"])
+def test_queries_take_the_pipeline_consensus_once_a_chunk(tmp_path, data, monkeypatch, engine):
+    """Every engine's consensus is `CandidateConsensus`'s call of
+    `ops.candidate_consensus_fused` (K4 on the card), once a chunk, over
+    tables built once for the dictionary; ``similar_indices`` is the mask
+    it returns."""
+    from latice_tpu_torch import native
+    from latice_tpu_torch.index import db as db_module
+    from latice_tpu_torch.index import pipeline as pipeline_module
+
+    port = TorchLatentVectorDatabase(
+        LatentVectorDatabaseConfig(npz_path=str(tmp_path / "p.npz"), engine=engine), device="cpu"
+    )
+    port.add_vectors(data["vecs"], data["orients"])
+    if engine == "native" and not native.available():
+        with pytest.raises(ImportError, match="native library"):
+            port.find_best_orientations_batch(data["queries"], batch_size=16)
+        return
+    calls, real = [], pipeline_module.candidate_consensus_fused
+
+    def counted(*args, **kw):
+        calls.append(args[1].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pipeline_module, "candidate_consensus_fused", counted)
+    kw = dict(top_n=20, orientation_threshold=3.0, min_required_matches=18)
+    results = port.find_best_orientations_batch(data["queries"], batch_size=16, **kw)
+    assert calls == [(16, 20), (14, 20)]  # 30 queries in chunks of 16
+    tables = port._stages
+    dense = port.find_best_orientations_dense(data["queries"], batch_size=16, **kw)
+    assert len(calls) == 4 and port._stages is tables
+    assert not hasattr(db_module, "consensus_orientations")
+    np.testing.assert_array_equal(dense["n_similar"], [len(r.similar_indices) for r in results])
+    np.testing.assert_array_equal(dense["success"], [r.success for r in results])

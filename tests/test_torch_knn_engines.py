@@ -356,7 +356,7 @@ def test_pipeline_bf16_search_matches_jax(plane):
     np.testing.assert_array_equal(got.indices[:, 0], plane["anchor_rows"])
     tp = IndexPipeline(plane["tm"], plane["dictionary"], plane["orientations"], device="cpu",
                        search_dtype="bfloat16", **KNOBS)
-    assert tp._dict.dtype == torch.bfloat16  # cast once, at construction
+    assert tp.search.table.dtype == torch.bfloat16  # cast once, at construction
 
 
 def test_pipeline_approx_matches_jax_where_candidates_agree(plane):
@@ -407,23 +407,29 @@ def test_db_engine_matches_jax(tmp_path, engine):
 
 
 def test_db_int8_cache_dropped_on_add_delete_and_load(tmp_path):
+    """The database's search stage (the int8 table, quantized once) is built
+    at the first query and dropped whenever the dictionary changes."""
     rng = np.random.default_rng(10)
     path = str(tmp_path / "c.npz")
     db = TorchLatentVectorDatabase(LatentVectorDatabaseConfig(npz_path=path, engine="int8"),
                                    device="cpu")
     vecs = rng.normal(size=(50, 16))
     db.add_vectors(vecs, rng.uniform(0, 360, (50, 3)))
-    assert db._int8_cache is None
+    assert db._stages is None
     db.query_similar(vecs[0], 3)
-    assert db._int8_cache is not None and db._int8_cache.dtype == torch.int8
-    # A new row must be found at once: a stale cache would miss it.
+    search = db._stages[0]
+    assert search.engine == "int8" and search.table.dtype == torch.int8
+    assert search.table.shape == (56, 16) and search.n == 50  # padded to a multiple of 8
+    db.query_similar(vecs[1], 3)
+    assert db._stages[0] is search  # quantized once
+    # A new row must be found at once: a stale table would miss it.
     new = rng.normal(size=(1, 16))
     db.add_vectors(new, np.zeros((1, 3)))
-    assert db._int8_cache is None
+    assert db._stages is None
     assert db.query_similar(new[0], 1)[1][0] == 50
     db.save()
     db.load()
-    assert db._int8_cache is None
+    assert db._stages is None
     db.query_similar(vecs[1], 3)
     db.delete_persistence()
-    assert db._int8_cache is None and db.get_count() == 0
+    assert db._stages is None and db.get_count() == 0

@@ -118,7 +118,7 @@ def test_pipeline_matches_one_device(latent, mesh, engine, preprocess):
     np.testing.assert_array_equal(b.success, a.success)
     np.testing.assert_allclose(four.encode(latent["queries"]), one.encode(latent["queries"]),
                                rtol=0, atol=1e-5)
-    assert len(four._replicas) == 4 and four._dict.shape[0] % 4 == 0
+    assert len(four._replicas) == 4 and four.search.table.shape[0] % 4 == 0
 
 
 def test_pipeline_matches_jax_mesh_pipeline(latent, mesh):

@@ -127,7 +127,7 @@ def test_uint8_queries_index_as_float(plane):
 def test_bf16_table(plane):
     d, a, q = plane["dictionary"], plane["angles"], plane["queries"]
     port = tdi.PatternDictionaryIndexer(d, a, device="cpu", **KNOBS)  # bf16 is the default
-    assert port.pipeline._dict.dtype == torch.bfloat16
+    assert port.pipeline.search.table.dtype == torch.bfloat16
     got = port(q)
     want = jdi.PatternDictionaryIndexer(d, a, **KNOBS)(q)
     f32 = tdi.PatternDictionaryIndexer(d, a, device="cpu", search_dtype="float32", **KNOBS)(q)

@@ -251,7 +251,7 @@ def test_cli_serve_int8_with_preprocess(files):
     service = build_service(_cli(files, "--engine", "int8", "--preprocess",
                                  "hotpixels=5,dynamic=auto,clip=3"))
     pipe = service.pipeline
-    assert pipe.engine == "int8" and pipe._dict.dtype == torch.int8
+    assert pipe.engine == "int8" and pipe.search.table.dtype == torch.int8
     assert pipe.preprocess is not None
     assert pipe.model.compute_dtype == torch.bfloat16  # the serve precision
     assert service.checkpoint_root == str(files["root"])  # --checkpoint's directory

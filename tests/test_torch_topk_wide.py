@@ -304,6 +304,6 @@ def test_card_di_path_launches_k5_once_a_batch(card):
     # The twin on the same features (the card's and the CPU's f32 features
     # may round to bf16 apart).
     q = l2_normalize(torch.from_numpy(di.pipeline.encode(queries)).to(card)).bfloat16()
+    table = di.pipeline.search.table
     _assert_same((torch.from_numpy(result.scores).float(), torch.from_numpy(result.indices)),
-                 cosine_topk_wide_plain(q, di.pipeline._dict, 21), q, di.pipeline._dict,
-                 _tol(32 * 32))
+                 cosine_topk_wide_plain(q, table, 21), q, table, _tol(32 * 32))
