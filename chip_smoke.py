@@ -311,6 +311,9 @@ ENCODER_SHAPES = [  # (C, H, W) after each encoder conv at 128x128 input; two of
     (4 * INPLANES, 16, 16),
     (4 * INPLANES, 8, 8),
 ]
+SCALED_ENCODER_SHAPES = [  # the same at vae_scaled's widths (inplanes 64, 6 stages)
+    (64, 128, 128), (128, 64, 64), (256, 32, 32), (256, 16, 16), (256, 8, 8), (256, 4, 4),
+]
 TRAIN_BATCH = 64
 DECODER_SHAPES = [  # (C, H, W) after each decoder transposed conv, in order
     (4 * INPLANES, 8, 8), (4 * INPLANES, 8, 8),
@@ -1298,6 +1301,130 @@ def check_norm_serve_bf16(gen: torch.Generator) -> dict:
     return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
                 timed_as="the 10 encoder launches of one batch of 256, bf16 (16-mixed serving)")
+
+
+def check_norm_serve_nhwc(gen: torch.Generator) -> dict:
+    """K2f's NHWC kernel in bf16 at both VAE cells' serving shapes (B=256,
+    the encoder's norms, each run twice a batch; the first of stage 0 from
+    the NCHW output of the one-channel convolution), from channels_last and
+    from NCHW, against the plain twin and the NCHW kernel after one
+    synchronize, timed beside the NCHW kernel on the same values and
+    against the same bytes bound; then the channels_last encoder
+    (`_check_nhwc_encoder`)."""
+    from latice_tpu_torch.ops import instance_norm_leaky_relu, instance_norm_leaky_relu_plain
+    from latice_tpu_torch.ops.fused_norm import _nhwc_plan
+
+    out = {}
+    for cell, shapes in (("ref", ENCODER_SHAPES), ("scaled", SCALED_ENCODER_SHAPES)):
+        rows, totals = [], dict(ms=0.0, nchw_ms=0.0, bytes=0.0, ops=0.0)
+        for c, h, w in shapes:
+            x = (torch.randn((BATCH, c, h, w), device="cuda", generator=gen) * 3 + 1).bfloat16()
+            xl = x.contiguous(memory_format=torch.channels_last)
+            cl = torch.channels_last
+            y, mean, rstd = instance_norm_leaky_relu(xl)
+            fy, fmean, frstd = instance_norm_leaky_relu(x, memory_format=cl)
+            ny, _, _ = instance_norm_leaky_relu(x)
+            py, pmean, prstd = instance_norm_leaky_relu_plain(x)
+            torch.cuda.synchronize()
+            try:
+                if not (y.is_contiguous(memory_format=cl) and fy.is_contiguous(memory_format=cl)):
+                    raise AssertionError("y is not channels_last")
+                err = max(_within(y, py, K2_BF16_ATOL, K2_BF16_RTOL),
+                          _within(y, ny, K2_BF16_ATOL, K2_BF16_RTOL),
+                          _within(fy, py, K2_BF16_ATOL, K2_BF16_RTOL),
+                          *(_within(a, b, K2_ATOL) for a, b in
+                            ((mean, pmean), (rstd, prstd), (fmean, pmean), (frstd, prstd))))
+            except AssertionError as e:
+                raise AssertionError(f"K2f NHWC at {(BATCH, c, h, w)}: {e}") from None
+            n_bytes = 4.0 * x.numel() + 8.0 * BATCH * c  # bf16 x in, y out; stats
+            n_ops = 7.0 * x.numel()
+            row = dict(shape=[BATCH, c, h, w], plan=_nhwc_plan(c, h * w, 2, True)._asdict(),
+                       from_nchw_plan=_nhwc_plan(c, h * w, 2, True, True)._asdict(),
+                       ms=cuda_ms(lambda: instance_norm_leaky_relu(xl)),
+                       from_nchw_ms=cuda_ms(lambda: instance_norm_leaky_relu(x, memory_format=cl)),
+                       nchw_ms=cuda_ms(lambda: instance_norm_leaky_relu(x)),
+                       bound_ms=bound_ms(n_bytes, n_ops)[0], max_abs_err=err)
+            rows.append(row)
+            first = not rows[:-1]  # stage 0's first norm reads the NCHW convolution
+            totals["ms"] += row["ms"] + (row["from_nchw_ms"] if first else row["ms"])
+            totals["nchw_ms"] += 2 * row["nchw_ms"]
+            totals["bytes"] += 2 * n_bytes
+            totals["ops"] += 2 * n_ops
+            del x, xl, y, fy, ny, py
+        b_ms, b_by = bound_ms(totals["bytes"], totals["ops"])
+        emit("kernels", kernel="instance_norm_leaky_relu_nhwc", cell=cell, per_shape=rows)
+        out[cell] = dict(ms=totals["ms"], nchw_ms=totals["nchw_ms"], bound_ms=b_ms, bound_by=b_by,
+                         bound_share=b_ms / totals["ms"],
+                         timed_as=f"the {2 * len(shapes)} encoder launches of a batch of 256")
+    out["encoder"] = _check_nhwc_encoder()
+    return out
+
+
+def _check_nhwc_encoder() -> dict:
+    """The channels_last encoder of both VAE cells' widths on 256 seeded
+    patterns: ``mu`` against the same blocks in NCHW with the parameters'
+    own layout (the path before it), each by its unit-latent distance from
+    the f32 model, the channels_last one within twice the NCHW one's plus
+    1e-4; no cuDNN layout transform in its trace; device time by kernel
+    group, both paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from latice_tpu_torch.models import VariationalAutoEncoderRawData
+    from latice_tpu_torch.models.vae import ConvBlock
+
+    def unit(mu):
+        return mu / mu.norm(dim=1, keepdim=True)
+
+    def groups(fn) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for name, t, _ in _device_kernels(prof):
+            transform = "nchwToNhwc" in name or "nhwcToNchw" in name
+            key = "transform" if transform else _kernel_group(name)
+            by[key] = by.get(key, 0.0) + t / 5
+        return by
+
+    x = torch.rand((BATCH, 1, 128, 128), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(4))
+    out = {}
+    for cell, (inplanes, latent, n_stages, hw) in (("ref", (32, 16, 5, 4)),
+                                                   ("scaled", (64, 64, 6, 2))):
+        model = VariationalAutoEncoderRawData(inplanes, latent, n_stages, hw)
+        model = model.init_weights(torch.Generator().manual_seed(0)).cuda().eval()
+        model.set_precision("16-mixed")
+
+        def nchw():
+            h = x
+            for layer in model.encoder:
+                if isinstance(layer, ConvBlock):
+                    h = layer[1](layer[0]._conv_forward(h, layer[0].weight, None))
+                else:
+                    h = layer(h)
+            return model.mu(h.flatten(1)).float()
+
+        with torch.inference_mode():
+            mu = model.encode(x)[0]
+            with model._autocast(x):
+                mu_nchw = nchw()
+            torch.cuda.synchronize()
+            by_nhwc = groups(lambda: model.encode(x))
+            with model._autocast(x):
+                by_nchw = groups(nchw)
+            mu32 = model.set_precision("32").encode(x)[0]
+        gap = (unit(mu) - unit(mu32)).norm(dim=1).max().item()
+        gap_nchw = (unit(mu_nchw) - unit(mu32)).norm(dim=1).max().item()
+        if not gap <= 2 * gap_nchw + 1e-4 or by_nhwc.get("transform"):
+            raise AssertionError(f"channels_last encoder, {cell}: gap {gap} against NCHW "
+                                 f"{gap_nchw}, device ms {by_nhwc}")
+        out[cell] = dict(gap=gap, gap_nchw=gap_nchw, device_ms=by_nhwc, nchw_device_ms=by_nchw)
+        del model
+    emit("kernels", kernel="channels_last_encoder", **out)
+    return out
 
 
 def _within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float = 0.0) -> float:
@@ -2753,7 +2880,8 @@ def phase_tools(workdir: str, ckpt: str, npz: str) -> dict:
     if not rel <= 0.02:
         raise AssertionError(f"trace summary {summary.total_ms} ms vs profiler {profiler_ms} ms")
     for name in ("instance_norm_leaky_relu", "candidate_consensus_fused"):
-        if named[name]["calls"] != [launches[name]]:
+        # K2f's launches split between its NHWC kernel's instantiations
+        if sum(named[name]["calls"]) != launches[name]:
             raise AssertionError(f"{name} calls in the trace {named} vs launches {launches}")
     if launches["candidate_consensus_fused"] != 2:  # one a batch
         raise AssertionError(f"tools trace launches {launches}, want 2 consensus launches")
@@ -6534,6 +6662,7 @@ def main() -> int:
         return 0
     k2f, k1 = check_norm(gen), check_topk(gen)
     k2f["bf16_serve"] = check_norm_serve_bf16(gen)
+    k2f["bf16_serve_nhwc"] = check_norm_serve_nhwc(gen)
     k2f["bf16_train"], k2b = check_norm_train(gen)
     k3 = check_stage0(gen)
     k4 = check_consensus()

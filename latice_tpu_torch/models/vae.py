@@ -37,6 +37,22 @@ its gradient, which Adam normalizes into a real update however small. The
 parameters and state-dict keys do not change. The decoder's blocks and the
 logit convolution keep their bias.
 
+Under the same gate the encoder runs in ``torch.channels_last``: cuDNN's
+Hopper convolutions take NHWC only, and fed NCHW they wrap every call in
+two layout transforms. A block given a channels_last input of several
+channels hands cuDNN its weight as a bfloat16 channels_last copy, made
+once per version of the parameter (`ConvBlock.weight_for`), so no call
+re-lays out a weight, and cuDNN returns NHWC. The first block's input,
+the one-channel patterns, is both layouts at once: its convolution keeps
+NCHW, cuDNN's implicit GEMM for one input channel (in NHWC cuDNN pads the
+channel to eight through a layout transform), and its norm reads that
+NCHW output and writes NHWC. Every block's norm writes channels_last
+through K2f's NHWC kernel, and max-pool runs ATen's channels_last kernel.
+The flatten before ``mu`` and ``logvar`` copies the bottleneck into its
+CHW order. Everything else stays NCHW: the CPU, float32, training, the
+decoder, and blocks fed an NCHW tensor of several channels (K3's stage-0
+path).
+
 ``remat`` trades recomputation for the activations the backward keeps, as
 the JAX model's does: ``"block"`` checkpoints each conv block, ``"stage"``
 each conv-conv-pool stage of the encoder and each upsample-conv-conv stage
@@ -92,10 +108,15 @@ def compute_dtype(precision: str | int) -> torch.dtype:
 
 class InstanceNormLeakyReLU(nn.Module):
     """InstanceNorm2d(affine=False, eps=1e-5) then LeakyReLU(0.02), through
-    the fused op and its fused backward."""
+    the fused op and its fused backward, in the layout it is given: NCHW,
+    or channels_last (module docstring); other strides become NCHW. The
+    output is in ``memory_format``, by default the input's."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return InstanceNormLeakyReLUFunction.apply(x.contiguous(), 1e-5, 0.02)
+    def forward(self, x: torch.Tensor,
+                memory_format: torch.memory_format | None = None) -> torch.Tensor:
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            x = x.contiguous()
+        return InstanceNormLeakyReLUFunction.apply(x, 1e-5, 0.02, memory_format)
 
 
 def _bias_cancels(x: torch.Tensor) -> bool:
@@ -122,9 +143,32 @@ class ConvBlock(nn.Sequential):
 
     def bias_free(self, x: torch.Tensor) -> torch.Tensor:
         """The block with its convolution's bias left out, which the norm
-        cancels (module docstring)."""
+        cancels; its output in channels_last where ``x`` is (one channel
+        always is), else NCHW (module docstring)."""
         conv, norm = self[0], self[1]
-        return norm(conv._conv_forward(x, conv.weight, None))
+        h = conv._conv_forward(x, self.weight_for(x), None)
+        if x.is_contiguous(memory_format=torch.channels_last):
+            return norm(h, torch.channels_last)
+        return norm(h)
+
+    def weight_for(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution's weight as cuDNN should take it with ``x``: for
+        a channels_last ``x`` of several channels under autocast, the
+        weight in the autocast dtype and in channels_last, kept until the
+        parameter changes (its storage or its version), so that no call
+        re-lays it out; else the parameter, which autocast casts."""
+        weight = self[0].weight
+        device = x.device.type
+        if not (x.shape[1] > 1 and x.is_contiguous(memory_format=torch.channels_last)
+                and torch.is_autocast_enabled(device)):
+            return weight
+        dtype = torch.get_autocast_dtype(device)
+        key = (weight.device, weight.data_ptr(), weight._version, dtype)
+        kept = getattr(self, "_nhwc_weight", None)
+        if kept is None or kept[0] != key:
+            kept = (key, weight.detach().to(dtype, memory_format=torch.channels_last))
+            self._nhwc_weight = kept
+        return kept[1]
 
 
 class _FusedUpsampleConvTranspose2d(nn.ConvTranspose2d):
